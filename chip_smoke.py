@@ -1,13 +1,22 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (d3ga_tpu_torch) on one NVIDIA GPU.
 
-Builds the hand-written kernels from `d3ga_tpu_torch/csrc/`, holds each
-against its plain PyTorch version at serving width, then drives the
-serving path — eval-mode `avatar_forward` + champion `rasterize_tiled`
-(6 channels, dupsort_depth, dup 3, K 256) — for 20 frames of the
-full-width synthetic avatar (3 garments x 45,000 Gaussians, 1024 x 667
-pixels, random weights from seed 0) and checks that the kernels carried
-every frame.
+Builds the four hand-written kernels from `d3ga_tpu_torch/csrc/` and
+holds each against its plain PyTorch version at full width: K1 front-K
+extraction and K2 gather + blend on the serving path's selection, K3
+(the blend backward) and K4 (the per-Gaussian combine) on the same
+selection with a seeded random image cotangent. Then it drives the two
+paths of the full-width synthetic avatar (3 garments x 45,000 Gaussians,
+1024 x 667 pixels, random weights from seed 0):
+
+- serving: eval-mode `avatar_forward` + champion `rasterize_tiled` (6
+  channels, dupsort_depth, dup 3, K 256) for 20 frames;
+- training: bench_train.py's step (fused RGB + silhouette raster, L1 +
+  SSIM + regularizers, clipped Adam): one step's loss terms and every
+  parameter leaf's gradient with the kernels against the plain versions,
+  then 10 steps;
+
+and checks that the kernels carried every frame and every step.
 
     python3 chip_smoke.py
 
@@ -28,16 +37,25 @@ import torch
 
 from d3ga_tpu_torch.data.synthetic import serving_scene
 from d3ga_tpu_torch.model.avatar import avatar_forward, init_avatar
-from d3ga_tpu_torch.raster import blend_ct, extract
+from d3ga_tpu_torch.raster import blend_ct, extract, segsum
 from d3ga_tpu_torch.raster.tiles import bin_gaussians, rasterize_tiled
+from d3ga_tpu_torch.train.optim import lr_tree_from_config, make_optimizer
+from d3ga_tpu_torch.train.step import LossWeights, make_train_step, random_bg
 from d3ga_tpu_torch.utils import cuda_build
+from d3ga_tpu_torch.utils.tree import tree_leaves
 
 # serving width: the scene of the JAX package's serving benchmark
 # (data/synthetic.py::serving_scene's defaults)
 N_GARMENTS, N_PER_GARMENT, CAGE_RES = 3, 45000, 3
 WIDTH, HEIGHT, K, DUP = 667, 1024, 256, 3
 FRAMES = 20
+STEPS = 10
 BG6 = (1.0, 1.0, 1.0, 0.0, 0.0, 0.0)
+DUP2 = DUP * DUP
+# bench_train.py's raster configuration
+TRAIN_CONFIG = {
+    "raster_backend": "pallas_blend", "raster_opts": {"coarse": "dupsort_depth", "dup": DUP},
+}
 # the small cross-device check: the CPU tests' slice size
 SMALL = dict(n_garments=2, n_gaussians=150, width=64, height=48, k=128)
 
@@ -45,6 +63,18 @@ SMALL = dict(n_garments=2, n_gaussians=150, width=64, height=48, k=128)
 # alpha >= 1/255 and T < 1e-4 rules dominate max-abs, so p999 and the
 # share of pixels off by more than 1e-2 are held instead
 P999_MAX, FLIP_AT, FLIP_MAX = 5e-4, 1e-2, 1e-3
+# K3's per-slot cotangents against the plain version: the same threshold
+# flips move a record's cotangent by one pixel's share, so the p999 error
+# (as a share of the largest |value|: sums of up to 256 float32 terms in
+# another order) and the relative L2 over all slots are held
+K3_P999_REL, K3_REL_L2 = 1e-5, 1e-3
+# K4 against its plain version: the same sums in the same order; only a
+# compiler's reassociation could move them (relative to the largest)
+K4_REL = 1e-6
+# one training step, kernels against plain: loss terms (image means of
+# float32 sums) and each parameter leaf's gradient (relative L2; the
+# threshold flips above reach every upstream leaf)
+TERM_RTOL, GRAD_REL_L2 = 1e-5, 1e-3
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM3
 # 3.35 TB/s, FP32 67 TFLOP/s; special-function unit 16 results per clock
@@ -53,6 +83,10 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 SFU_OPS_PER_S = 16 * 132 * 1.98e9
 BLEND_FP32_OPS_PER_PAIR = 25  # falloff polynomial, alpha rules, T update, 6 colour FMAs
+# backward: the forward recompute (25), then dw (12), the suffix and
+# dalpha (8), and the 12 per-pixel contributions to the per-record sums
+BLEND_BWD_FP32_OPS_PER_PAIR = 60
+BLEND_BWD_SFU_PER_PAIR = 3  # exp in each walk, one division
 
 OUT_DIR = "run_out"
 
@@ -88,6 +122,16 @@ def timer_ms(fn, iters, dev, warmup=2):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+def device_events(prof, DeviceType):
+    """The profile's kernels: device events, less the ranges that
+    record_function annotations (e.g. Optimizer.step) mirror onto the
+    device timeline, which would count their kernels twice."""
+    return [
+        e for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+    ]
+
+
 def device_ms(fn, iters, dev):
     """Device milliseconds per call: the summed duration of the kernels
     `fn` launches, from torch.profiler (CUPTI); None where it records no
@@ -103,10 +147,39 @@ def device_ms(fn, iters, dev):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(
-        e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-    )
+    us = sum(e.self_device_time_total for e in device_events(prof, DeviceType))
     return us / 1e3 / iters if us > 0 else None
+
+
+def profile_calls(fn, calls, dev):
+    """torch.profiler over `calls` calls (after one unprofiled): wall and
+    device-busy milliseconds per call, the device's idle share, kernels
+    launched per call, host time in cudaLaunchKernel per call, and the
+    kernels by device time; None off the card."""
+    if dev.type != "cuda":
+        return None
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    events = prof.key_averages()
+    kern = device_events(prof, DeviceType)
+    busy = sum(e.self_device_time_total for e in kern) / 1e3 / calls
+    launch = sum(e.self_cpu_time_total for e in events if e.key == "cudaLaunchKernel")
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:12]
+    return {
+        "calls": calls, "wall_ms": wall, "device_busy_ms": busy, "idle_share": 1 - busy / wall,
+        "kernels_per_call": sum(e.count for e in kern) / calls,
+        "launch_host_ms": launch / 1e3 / calls,
+        "top": [(e.key, e.self_device_time_total / 1e3 / calls, e.count / calls) for e in top],
+    }
 
 
 def measure(fn, iters, dev, warmup=2):
@@ -159,13 +232,33 @@ def render(params, model, camera, lbs, k, plain=False):
     return pkg, img, aux
 
 
+def rel_l2(a, b):
+    return float(torch.linalg.vector_norm((a - b).double()) /
+                 torch.clamp(torch.linalg.vector_norm(b.double()), min=1e-30))
+
+
 def run(dev, report):
-    """Every phase; raises PhaseFailed (or any error) on a failure."""
+    """Every phase; raises PhaseFailed (or any error) on a failure.
+    Returns the kernels' entries for the `{"kernels": [...]}` line."""
+    with torch.no_grad():
+        kernels, scene = serve(dev, report)
+    return kernels + train(dev, report, scene)
+
+
+def logger(report):
     say = report.setdefault("log", []).append
 
     def line(msg):
         print(msg, flush=True)
         say(msg)
+
+    return line
+
+
+def serve(dev, report):
+    """Build, K1 and K2 at full width, the small cross-device check and
+    the 20-frame serving path. Returns the K1/K2 entries and the scene."""
+    line = logger(report)
 
     # -- build ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -334,6 +427,185 @@ def run(dev, report):
         k2_pairs=pairs, n_contrib=n_contrib, small=small, frame0=fr, aux_frame0=a_k,
         aux_frame0_plain=a_p, kernels=kernels, timings=timings,
     )
+    scene = dict(model=model, camera=camera, binned=binned, cnt=cnt, C=C, pairs=pairs, uniq=uniq)
+    return kernels, scene
+
+
+def train(dev, report, scene):
+    """K3 and K4 at full width against their plain versions, one training
+    step's gradients with the kernels against the plain versions, then the
+    training path: 10 steps of bench_train.py's configuration, each
+    launching every kernel once. Returns the K3/K4 entries."""
+    line = logger(report)
+    b, cnt, C = scene["binned"], scene["cnt"], scene["C"]
+    T = b.idx.shape[0]
+    CR = b.records_ext.shape[1]
+    n = b.records_ext.shape[0] - 1
+    n_contrib = int(cnt.sum())
+
+    # -- K3: blend backward, on the scene's selection ----------------------
+    gen = torch.Generator(device=dev).manual_seed(4)
+    g = torch.randn((C + 1, b.nty * 16, b.ntx * 16), generator=gen, device=dev)
+    bwd_args = (b.records_ext, b.idx, cnt, g, b.ntx, b.nty, C)
+    with torch.no_grad():
+        drec = blend_ct.blend_gather_ct_bwd(*bwd_args)
+        drec_p = blend_ct.blend_gather_ct_bwd_plain(*bwd_args)
+        sync(dev)
+        check(bool(torch.isfinite(drec).all()), "K3: non-finite cotangents")
+        err = (drec - drec_p).abs().flatten()
+        scale = float(drec_p.abs().max())
+        kk = max(1, int(np.ceil(0.999 * err.numel())))
+        k3 = {"max_abs": float(err.max()), "p999_abs": float(err.kthvalue(kk).values),
+              "rel_l2": rel_l2(drec, drec_p), "scale": scale}
+        line(f"K3 blend_gather_ct_bwd vs plain at full width: max_abs={k3['max_abs']:.3e} "
+             f"p999_abs={k3['p999_abs']:.3e} rel_l2={k3['rel_l2']:.3e} (max |drec| {scale:.3e})")
+        check(k3["p999_abs"] <= K3_P999_REL * scale and k3["rel_l2"] <= K3_REL_L2,
+              f"K3: outside p999 <= {K3_P999_REL} x max|drec| / rel_l2 <= {K3_REL_L2}")
+        k3_t = measure(lambda: blend_ct.blend_gather_ct_bwd(*bwd_args), 20, dev)
+        k3_plain_t = measure(
+            lambda: blend_ct.blend_gather_ct_bwd_plain(*bwd_args), 3, dev, warmup=1
+        )
+    pairs = scene["pairs"]
+    k3_bytes = 4 * (scene["uniq"] * CR + n_contrib + T) + 4 * g.numel() + 4 * drec.numel()
+    k3_times = {
+        "bytes": k3_bytes / HBM_BYTES_PER_S,
+        "operations": max(pairs * BLEND_BWD_FP32_OPS_PER_PAIR / FP32_OPS_PER_S,
+                          pairs * BLEND_BWD_SFU_PER_PAIR / SFU_OPS_PER_S),
+    }
+    k3_bound_by = max(k3_times, key=k3_times.get)
+    k3_bound_ms = k3_times[k3_bound_by] * 1e3
+
+    # -- K4: per-Gaussian combine of the kernel's cotangents ---------------
+    with torch.no_grad():
+        ids_sorted, perm = torch.sort(b.idx.reshape(-1), stable=True)
+        g_sorted = drec.reshape(-1, CR).T[:, perm].contiguous()
+        comb = segsum.combine_sorted(ids_sorted, g_sorted, n)
+        comb_p = segsum.combine_sorted_plain(ids_sorted, g_sorted, n, DUP2)
+        sync(dev)
+        k4 = {"max_abs": float((comb - comb_p).abs().max()),
+              "bit_exact": bool(torch.equal(comb, comb_p)), "scale": float(comb_p.abs().max())}
+        line(f"K4 combine_sorted vs plain at full width: max_abs={k4['max_abs']:.3e} "
+             f"bit_exact={k4['bit_exact']} (n={n}, m={ids_sorted.numel()})")
+        check(k4["max_abs"] <= K4_REL * k4["scale"], f"K4: max_abs > {K4_REL} x max|out|")
+        k4_t = measure(lambda: segsum.combine_sorted(ids_sorted, g_sorted, n), 50, dev)
+        k4_plain_t = measure(
+            lambda: segsum.combine_sorted_plain(ids_sorted, g_sorted, n, DUP2), 5, dev
+        )
+        flat_idx, flat_drec = b.idx.reshape(-1).long(), drec.reshape(-1, CR)
+        k4_lib_t = measure(
+            lambda: torch.zeros(n + 1, CR, device=dev).index_add_(0, flat_idx, flat_drec), 50, dev
+        )
+    k4_bytes = 4 * (n_contrib * CR + ids_sorted.numel() + n * CR)
+    k4_bound_ms = k4_bytes / HBM_BYTES_PER_S * 1e3
+
+    # -- one step's gradients: kernels against plain -----------------------
+    model = scene["model"]._replace(config=dict(scene["model"].config, **TRAIN_CONFIG))
+    params = init_avatar(torch.Generator().manual_seed(0), model)
+    tx = make_optimizer(params, lr_tree_from_config(params))
+    weights = LossWeights(enable_vgg_from=0)
+    step = make_train_step(model, tx, max_per_tile=K, loss_weights=weights)
+    step_plain = make_train_step(model, tx, max_per_tile=K, loss_weights=weights, plain=True)
+    hg = torch.Generator().manual_seed(1)
+    lbs_dim = model.cond_dim
+    batch = {
+        "camera": scene["camera"],
+        "lbs": (torch.randn(lbs_dim, generator=hg) * 0.1).to(dev),
+        "frame_idx": 0,
+        "camera_idx": 0,
+        "image": torch.rand((3, HEIGHT, WIDTH), generator=hg).to(dev),
+        "alpha": torch.ones((1, HEIGHT, WIDTH), device=dev),
+        "silhouette": torch.full((3, HEIGHT, WIDTH), 0.5, device=dev),
+    }
+    bg = random_bg(torch.Generator().manual_seed(2), dev)
+    _, terms_k, _, grads_k = step.loss_and_grads(params, batch, bg, 0)
+    _, terms_p, _, grads_p = step_plain.loss_and_grads(params, batch, bg, 0)
+    sync(dev)
+    term_err = {}
+    for k, v in terms_p.items():
+        a, c = float(terms_k[k].detach()), float(v.detach())
+        term_err[k] = abs(a - c) / max(abs(c), 1e-30)
+    leaf_err = [rel_l2(a, c) for a, c in zip(grads_k, grads_p)]
+    worst = int(np.argmax(leaf_err))
+    line(f"one step, kernels vs plain at full width: terms rel {term_err}; gradients over "
+         f"{len(leaf_err)} leaves rel_l2 max {leaf_err[worst]:.3e} (leaf {worst}, "
+         f"{tuple(grads_p[worst].shape)}), median {float(np.median(leaf_err)):.3e}")
+    check(all(e <= TERM_RTOL for e in term_err.values()), f"step: a loss term off by > {TERM_RTOL}")
+    check(all(bool(torch.isfinite(gk).all()) for gk in grads_k), "step: non-finite gradient")
+    check(leaf_err[worst] <= GRAD_REL_L2, f"step: a gradient leaf off by rel L2 > {GRAD_REL_L2}")
+    del grads_k, grads_p, step_plain
+
+    # -- the training path: 10 steps ---------------------------------------
+    gen = torch.Generator().manual_seed(3)
+    step(params, batch, gen, 0)  # warm-up
+    sync(dev)
+    start = [p.detach().clone() for p in tree_leaves(params)]
+    extract.launches = blend_ct.launches = blend_ct.bwd_launches = segsum.launches = 0
+    per_step, finite = [], torch.ones((), dtype=torch.bool, device=dev)
+    t0 = time.perf_counter()
+    for i in range(STEPS):
+        _, m = step(params, batch, gen, i + 1)
+        for v in m.values():
+            finite &= torch.isfinite(torch.as_tensor(v, device=dev)).all()
+        per_step.append(
+            (extract.launches, blend_ct.launches, blend_ct.bwd_launches, segsum.launches)
+        )
+    sync(dev)
+    step_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+    launches = {"blend_gather_ct_bwd": blend_ct.bwd_launches, "combine_sorted": segsum.launches,
+                "extract_slices": extract.launches, "blend_gather_ct": blend_ct.launches}
+    moved = sum(float((p.detach() - q).abs().sum()) for p, q in zip(tree_leaves(params), start))
+    line(f"training path: {STEPS} steps, {step_ms:.3f} ms/step, {1e3 / step_ms:.3f} steps/s; "
+         f"launches {launches}; last losses "
+         + ", ".join(f"{k}={float(v):.5f}" for k, v in m.items() if k.endswith("loss")))
+    check(bool(finite), "training path: a non-finite loss term")
+    check(per_step == [(i + 1,) * 4 for i in range(STEPS)],
+          f"launch counts after each step {per_step}: not one per kernel per step")
+    check(moved > 0.0, "training path: the parameters did not change")
+    step_prof = profile_calls(lambda: step(params, batch, gen, STEPS + 1), 3, dev)
+    if step_prof is not None:
+        line(f"training step, profiled ({step_prof['calls']} steps): "
+             f"wall {step_prof['wall_ms']:.3f} ms, device busy {step_prof['device_busy_ms']:.3f} ms (idle share "
+             f"{step_prof['idle_share']:.3f}; against the unprofiled step "
+             f"{1 - step_prof['device_busy_ms'] / step_ms:.3f}), "
+             f"{step_prof['kernels_per_call']:.0f} kernels and "
+             f"{step_prof['launch_host_ms']:.3f} ms of cudaLaunchKernel a step; top kernels "
+             + "; ".join(f"{k[:60]} {ms:.3f} ms x{n:g}" for k, ms, n in step_prof["top"][:6]))
+
+    kernels = [
+        {
+            "name": "blend_gather_ct_bwd", "route": "cuda",
+            "source": "d3ga_tpu_torch/csrc/blend_ct_bwd.cu",
+            "replaces": "d3ga_tpu/raster/pallas_blend_ct.py:357",
+            "launches": launches["blend_gather_ct_bwd"], "max_abs_err": k3["max_abs"],
+            "ms": k3_t["ms"], "plain_ms": k3_plain_t["ms"], "bound_ms": k3_bound_ms,
+            "bound_by": k3_bound_by, "library_ms": None,
+        },
+        {
+            "name": "combine_sorted", "route": "cuda",
+            "source": "d3ga_tpu_torch/csrc/segsum.cu",
+            "replaces": "d3ga_tpu/raster/pallas_segsum.py:101",
+            "launches": launches["combine_sorted"], "max_abs_err": k4["max_abs"],
+            "ms": k4_t["ms"], "plain_ms": k4_plain_t["ms"], "bound_ms": k4_bound_ms,
+            "bound_by": "bytes", "library_ms": k4_lib_t["ms"],
+        },
+    ]
+    timings = {
+        "blend_gather_ct_bwd": {"kernel": k3_t, "plain": k3_plain_t},
+        "combine_sorted": {"kernel": k4_t, "plain": k4_plain_t, "library": k4_lib_t},
+    }
+    for k in kernels:
+        t = timings[k["name"]]
+        line(f"{k['name']}: ms={k['ms']:.4f} plain_ms={k['plain_ms']:.4f} "
+             f"bound_ms={k['bound_ms']:.4f} ({k['bound_by']}) library_ms={k['library_ms']} "
+             f"launches_per_step={k['launches'] / STEPS:g}; wall per call "
+             + ", ".join(f"{nm}={v['call_ms']:.4f}" for nm, v in t.items()))
+    report.update(
+        k3_full_width=k3, k3_bytes=k3_bytes, k4_full_width=k4, k4_bytes=k4_bytes,
+        step_terms_rel=term_err, step_grad_rel_l2=leaf_err, step_ms=step_ms,
+        steps_per_s=1e3 / step_ms, train_launches=launches, step_profiled=step_prof,
+        train_timings=timings,
+    )
+    report["kernels"] = report.get("kernels", []) + kernels
     return kernels
 
 
@@ -355,8 +627,7 @@ def main():
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
     dev = torch.device("cuda", 0)
     try:
-        with torch.no_grad():
-            kernels = run(dev, report)
+        kernels = run(dev, report)
     except Exception as e:  # report, then fail the run
         report["failed"] = f"{type(e).__name__}: {e}"
         print(f"chip_smoke: FAILED: {report['failed']}", flush=True)

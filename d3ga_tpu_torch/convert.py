@@ -4,6 +4,9 @@ The JAX package's parameter trees and geometry buffers are plain arrays;
 once turned into numpy (`jax.tree_util.tree_map(np.asarray, params)`,
 `geometry._asdict()`), these functions give the port's equivalents, so
 both packages can be run on identical weights and identical cages. The
+same carries gradient trees across (`params_from_numpy`) and brings the
+port's trees back (`params_to_numpy`); learning-rate trees are plain
+floats on both sides. The
 port's own initializers draw from a `torch.Generator` instead and are
 not meant to reproduce the JAX package's random numbers.
 """
@@ -15,6 +18,7 @@ import torch
 
 from d3ga_tpu_torch.body.lbs import MomentumSkeleton
 from d3ga_tpu_torch.model.cage_model import CageGeometry
+from d3ga_tpu_torch.utils.tree import tree_map
 
 _INDEX_FIELDS = {"tetras", "triangles", "tetra_id", "cage_to_body_vertex", "skin_indices"}
 
@@ -38,6 +42,12 @@ def params_from_numpy(tree: Any, device="cuda") -> Any:
     if tree is None:
         return None
     return _tensor(tree, device)
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """The port's tree of tensors (parameters, gradients) -> the same
+    structure of numpy arrays on the host, to hold against a JAX tree."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
 
 
 def geometry_from_numpy(

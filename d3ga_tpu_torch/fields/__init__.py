@@ -8,5 +8,9 @@ from d3ga_tpu_torch.fields.mlp import (  # noqa: F401
     init_color_field,
     color_field,
 )
-from d3ga_tpu_torch.fields.embeddings import init_embedding, embedding_average  # noqa: F401
+from d3ga_tpu_torch.fields.embeddings import (  # noqa: F401
+    init_embedding,
+    embedding_average,
+    embedding_lookup,
+)
 from d3ga_tpu_torch.fields.calibration import init_camera_calibration, apply_camera_calibration  # noqa: F401

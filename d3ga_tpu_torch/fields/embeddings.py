@@ -1,6 +1,7 @@
 """Learned per-frame / per-camera embedding codes (counterpart of
 d3ga_tpu/fields/embeddings.py): an [N, D] table, N(0, 0.1) init,
-renormalized at lookup to max_norm = D, mean code at eval.
+renormalized at lookup to max_norm = D; the frame's (or camera's) code
+in training, the mean code at eval.
 """
 
 import torch
@@ -20,3 +21,11 @@ def _renorm(rows):
 def embedding_average(params):
     """Mean code for eval-time conditioning."""
     return torch.mean(_renorm(params["table"]), dim=0)
+
+
+def embedding_lookup(params, idx):
+    """idx: an int (or scalar tensor) -> [D], clamped into the table like
+    the reference's out-of-range guard."""
+    table = params["table"]
+    i = min(max(int(idx), 0), table.shape[0] - 1)
+    return _renorm(table[i])

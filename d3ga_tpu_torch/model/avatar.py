@@ -1,5 +1,5 @@
 """Composite avatar model: several cage garments + shared conditioners
-(counterpart of d3ga_tpu/model/avatar.py), eval path.
+(counterpart of d3ga_tpu/model/avatar.py), eval and training paths.
 
 A static description (AvatarModel: geometries, pose closures, config)
 plus a parameter tree (init_avatar, or one carried across from the JAX
@@ -9,8 +9,8 @@ package with `d3ga_tpu_torch.convert.params_from_numpy`);
 Options of the JAX model that are not ported yet raise
 NotImplementedError naming their ROADMAP item instead of doing something
 else: the mesh primitive, AO, the face decoder, optimizable poses and
-`resolve_camera`, SH colours, learnable blur / pixel bias / background
-network, and the training path.
+global rotations / translations (and so `resolve_camera`'s camera
+rebuild), SH colours, learnable blur / pixel bias / background network.
 """
 
 from typing import Any, Callable, Dict, NamedTuple, Optional
@@ -20,6 +20,7 @@ import torch
 from d3ga_tpu_torch.fields import (
     apply_camera_calibration,
     embedding_average,
+    embedding_lookup,
     init_camera_calibration,
     init_embedding,
 )
@@ -33,7 +34,6 @@ MERGE_KEYS = (
 )
 
 MODEL_TODO = "not ported yet (ROADMAP.md, queue 1: 'Model forward, the rest')"
-TRAIN_TODO = "not ported yet (ROADMAP.md, queue 1: 'Training slice')"
 
 # config switches whose feature is not ported yet, with the item it waits for
 _UNPORTED = {
@@ -41,10 +41,12 @@ _UNPORTED = {
     "use_ao": MODEL_TODO,
     "use_face_emb": MODEL_TODO,
     "use_opt_smplx": MODEL_TODO,
-    "use_blur": TRAIN_TODO,
-    "use_pixel_cal": TRAIN_TODO,
-    "use_bg_network": TRAIN_TODO,
+    "use_blur": MODEL_TODO,
+    "use_pixel_cal": MODEL_TODO,
+    "use_bg_network": MODEL_TODO,
 }
+# per-frame optimizable pose / global rotation / translation tables
+_OPTIMIZABLE = ("optimizable_poses", "optimizable_rotations", "optimizable_translations")
 
 
 class GarmentSpec(NamedTuple):
@@ -125,12 +127,13 @@ def _merge(pkgs):
 
 def avatar_forward(params, model: AvatarModel, batch, training: bool = False):
     """batch: dict with "lbs" [P] momentum pose params (or "smplx_poses"),
-    "camera" (Camera) and an int "camera_idx". Eval mode only: mean
-    embeddings, no calibration gradient scaling. Returns the merged
-    garment package."""
-    if training:
-        raise NotImplementedError(f"avatar_forward(training=True): {TRAIN_TODO}")
+    "camera" (Camera), an int "camera_idx" and, in training, an int
+    "frame_idx". Training looks up the frame's and camera's embedding
+    codes and scales the calibration's gradient by 0.1; eval uses the mean
+    codes. Returns the merged garment package."""
     check_ported(model)
+    if training and any(k in params for k in _OPTIMIZABLE):
+        raise NotImplementedError(f"optimizable poses / rotations / translations: {MODEL_TODO}")
     cfg = model.config
     camera = batch["camera"]
 
@@ -141,9 +144,17 @@ def avatar_forward(params, model: AvatarModel, batch, training: bool = False):
 
     frame_enc = camera_enc = None
     if "frame_embeddings" in params:
-        frame_enc = embedding_average(params["frame_embeddings"])
+        frame_enc = (
+            embedding_lookup(params["frame_embeddings"], batch["frame_idx"])
+            if training
+            else embedding_average(params["frame_embeddings"])
+        )
     if "camera_embeddings" in params:
-        camera_enc = embedding_average(params["camera_embeddings"])
+        camera_enc = (
+            embedding_lookup(params["camera_embeddings"], batch["camera_idx"])
+            if training
+            else embedding_average(params["camera_embeddings"])
+        )
 
     pkgs = []
     for g in model.garments:
@@ -175,9 +186,16 @@ def avatar_forward(params, model: AvatarModel, batch, training: bool = False):
         merged["rgb"] = apply_camera_calibration(
             params["camera_calib"], merged["rgb"], batch["camera_idx"],
             identity_idx=cfg.get("identity_camera_idx", 0),
+            training=training,
         )
     return merged
 
 
 def resolve_camera(params, model: AvatarModel, batch, training: bool = True):
-    raise NotImplementedError(f"resolve_camera: {MODEL_TODO}")
+    """The batch, with the camera rebuilt from the per-frame optimizable
+    global rotation / translation when training has them and the batch
+    carries the capture extrinsics ("cam_rt"); that rebuild is not ported
+    yet and raises. Otherwise the batch unchanged."""
+    if not training or "optimizable_rotations" not in params or "cam_rt" not in batch:
+        return batch
+    raise NotImplementedError(f"resolve_camera with optimizable Rh/Th: {MODEL_TODO}")

@@ -1,14 +1,20 @@
-"""K2: record gather + front-to-back alpha blend, forward.
+"""K2 and K3: record gather + front-to-back alpha blend, forward and
+backward.
 
-Replaces the TPU kernel `d3ga_tpu/raster/pallas_blend_ct.py::_run_forward_ct`
+K2 replaces the TPU kernel `d3ga_tpu/raster/pallas_blend_ct.py::_run_forward_ct`
 as reached from `pallas_segsum.py::blend_gather_segsum_ct`'s primal, with
-the hand-written CUDA kernel `csrc/blend_ct.cu` (see its header for the
-bound and the design). The record gather is fused into the kernel, so
-the [T, CR, K] record tensor is never materialized.
+the hand-written CUDA kernel `csrc/blend_ct.cu`. K3 replaces
+`_run_backward_ct` (`_backward_body_ct`, `_blend_bwd_ct`,
+`_coeffs_transpose_ct`) with `csrc/blend_ct_bwd.cu`: the recompute-forward
+VJP from the image cotangent to per-slot record cotangents. The sources'
+headers give each kernel's bound and design. The record gather is fused
+into both kernels, so the [T, CR, K] record tensor is never materialized;
+the per-slot cotangents go to the per-Gaussian combine (K4, `segsum.py`).
 
-`blend_gather_ct` runs the CUDA kernel on CUDA tensors and the plain
-PyTorch version on CPU tensors; there is no fallback between the two.
-The CUDA path's backward (K3 + K4) is not ported yet and raises.
+`blend_gather_ct` is one `torch.autograd.Function` for both devices: on
+CUDA tensors K2 forward and K3 + K4 backward, on CPU tensors (or with
+plain=True) the plain PyTorch versions of all three. There is no fallback
+between the two.
 """
 
 import ctypes
@@ -16,6 +22,7 @@ import functools
 
 import torch
 
+from d3ga_tpu_torch.raster import segsum
 from d3ga_tpu_torch.utils import cuda_build
 
 TILE = 16
@@ -24,10 +31,11 @@ ALPHA_SKIP = 1.0 / 255.0
 ALPHA_MAX = 0.99
 T_EPS = 1e-4
 OP_EPS = 1e-12
-MAX_C = 8  # colour channels the kernel is instantiated for
+MAX_C = 8  # colour channels the kernels are instantiated for
 
 # one per launch of the CUDA kernel (never for the plain version)
 launches = 0
+bwd_launches = 0
 
 
 def _pixel_basis(device):
@@ -39,47 +47,60 @@ def _pixel_basis(device):
     return torch.stack([torch.ones_like(dx), dx, dy, dx * dx, dy * dy, dx * dy], -1)
 
 
+def _tile_origins(T, ntx, device):
+    tids = torch.arange(T, device=device)
+    return torch.stack([(tids % ntx) * TILE, (tids // ntx) * TILE], -1).float()
+
+
+def _blend_chunk(rec, org, live, basis):
+    """The forward of `_blend_fwd_ct` for a chunk of tiles: rec [B, K, CR]
+    gathered records, org [B, 2] tile origins, live [B, K] slot mask.
+    Returns the per-(tile, pixel, slot) intermediates the backward reuses."""
+    x = rec[..., 0] - org[:, 0:1]
+    y = rec[..., 1] - org[:, 1:2]
+    A, B, Cc = rec[..., 2], rec[..., 3], rec[..., 4]
+    logop = torch.log(torch.clamp(rec[..., 5], min=OP_EPS))
+    c0 = -0.5 * (A * x * x + Cc * y * y) - B * x * y
+    rest = [A * x + B * y, Cc * y + B * x, -0.5 * A, -0.5 * Cc, -B]
+    coeffs = torch.stack([c0] + rest, -1)  # [B, K, 6]
+    coeffs2 = torch.stack([c0 + logop] + rest, -1)
+    power = torch.einsum("pc,bkc->bpk", basis, coeffs)  # [B, 256, K]
+    raw = torch.exp(torch.einsum("pc,bkc->bpk", basis, coeffs2))
+    alpha = torch.clamp(raw, max=ALPHA_MAX)
+    use = live[:, None, :] & (power <= 0.0) & (alpha >= ALPHA_SKIP)
+    alpha = torch.where(use, alpha, 0.0)
+    lg = torch.log1p(-alpha)
+    t_before = torch.exp(torch.cumsum(lg, -1) - lg)
+    accept = t_before * (1.0 - alpha) >= T_EPS
+    w = torch.where(accept, alpha * t_before, 0.0)
+    t_bg = torch.exp(torch.sum(torch.where(accept, lg, 0.0), -1))  # [B, 256]
+    return dict(x=x, y=y, raw=raw, alpha=alpha, use=use, t_before=t_before,
+                accept=accept, w=w, t_bg=t_bg)
+
+
 def blend_gather_ct_plain(
     records_ext, idx, counts, ntx, nty, C, tile_chunk=256, count_pairs=False
 ):
-    """Plain PyTorch version, mirroring `_blend_fwd_ct` in float32: gather,
-    falloff polynomial, alpha rules, then log-transmittance cumsum over K.
-    Tiles go in chunks of `tile_chunk` so the [chunk, 256, K]
+    """Plain PyTorch version of K2, mirroring `_blend_fwd_ct` in float32:
+    gather, falloff polynomial, alpha rules, then log-transmittance cumsum
+    over K. Tiles go in chunks of `tile_chunk` so the [chunk, 256, K]
     intermediates stay bounded. count_pairs=True also returns the number
     of (pixel, record) pairs a front-to-back walk visits (the kernel's
     work on this data)."""
     T, K = idx.shape
     dev = records_ext.device
     basis = _pixel_basis(dev)
-    tids = torch.arange(T, device=dev)
-    origin = torch.stack([(tids % ntx) * TILE, (tids // ntx) * TILE], -1).float()
+    origin = _tile_origins(T, ntx, dev)
     slot = torch.arange(K, device=dev)
     tiles, pairs = [], 0
     for c0 in range(0, T, tile_chunk):
         rec = records_ext[idx[c0 : c0 + tile_chunk].long()]  # [B, K, CR]
-        org = origin[c0 : c0 + tile_chunk]
         live = slot[None] < counts[c0 : c0 + tile_chunk, None]  # [B, K]
-        x = rec[..., 0] - org[:, 0:1]
-        y = rec[..., 1] - org[:, 1:2]
-        A, B, Cc = rec[..., 2], rec[..., 3], rec[..., 4]
-        logop = torch.log(torch.clamp(rec[..., 5], min=OP_EPS))
-        c0_ = -0.5 * (A * x * x + Cc * y * y) - B * x * y
-        rest = [A * x + B * y, Cc * y + B * x, -0.5 * A, -0.5 * Cc, -B]
-        coeffs = torch.stack([c0_] + rest, -1)  # [B, K, 6]
-        coeffs2 = torch.stack([c0_ + logop] + rest, -1)
-        power = torch.einsum("pc,bkc->bpk", basis, coeffs)  # [B, 256, K]
-        alpha = torch.clamp(torch.exp(torch.einsum("pc,bkc->bpk", basis, coeffs2)), max=ALPHA_MAX)
-        use = live[:, None, :] & (power <= 0.0) & (alpha >= ALPHA_SKIP)
-        alpha = torch.where(use, alpha, 0.0)
-        lg = torch.log1p(-alpha)
-        t_before = torch.exp(torch.cumsum(lg, -1) - lg)
-        accept = t_before * (1.0 - alpha) >= T_EPS
-        w = torch.where(accept, alpha * t_before, 0.0)
-        t_bg = torch.exp(torch.sum(torch.where(accept, lg, 0.0), -1))  # [B, 256]
-        rgb = torch.einsum("bpk,bkc->bpc", w, rec[..., 6 : 6 + C])
-        tiles.append(torch.cat([rgb, t_bg[..., None]], -1))
+        f = _blend_chunk(rec, origin[c0 : c0 + tile_chunk], live, basis)
+        rgb = torch.einsum("bpk,bkc->bpc", f["w"], rec[..., 6 : 6 + C])
+        tiles.append(torch.cat([rgb, f["t_bg"][..., None]], -1))
         if count_pairs:
-            pairs += int((live[:, None, :] & (t_before >= T_EPS)).sum())
+            pairs += int((live[:, None, :] & (f["t_before"] >= T_EPS)).sum())
     out = torch.cat(tiles, 0)  # [T, 256, C+1]
     out = (
         out.reshape(nty, ntx, TILE, TILE, C + 1)
@@ -87,6 +108,61 @@ def blend_gather_ct_plain(
         .reshape(C + 1, nty * TILE, ntx * TILE)
     )
     return (out, pairs) if count_pairs else out
+
+
+def blend_gather_ct_bwd_plain(records_ext, idx, counts, g, ntx, nty, C, tile_chunk=256):
+    """Plain PyTorch version of K3: `_blend_bwd_ct` + `_coeffs_transpose_ct`
+    written out in float32 (not autograd of the plain forward, whose
+    gradient differs at the 0.99 clamp and in the opacity term).
+
+    g: [(C+1), nty*16, ntx*16] image cotangent (T_bg plane last).
+    Returns drec [T, K, CR], the cotangent of each slot's gathered record
+    (zero for slots past counts[t])."""
+    T, K = idx.shape
+    CR = records_ext.shape[1]
+    dev = records_ext.device
+    basis = _pixel_basis(dev)
+    origin = _tile_origins(T, ntx, dev)
+    slot = torch.arange(K, device=dev)
+    # planar image -> [T, 256, C+1], the forward's assembly undone
+    g_t = (
+        g.reshape(C + 1, nty, TILE, ntx, TILE)
+        .permute(1, 3, 2, 4, 0)
+        .reshape(T, NPIX, C + 1)
+    )
+    out = []
+    for c0 in range(0, T, tile_chunk):
+        rec = records_ext[idx[c0 : c0 + tile_chunk].long()]  # [B, K, CR]
+        live = slot[None] < counts[c0 : c0 + tile_chunk, None]
+        f = _blend_chunk(rec, origin[c0 : c0 + tile_chunk], live, basis)
+        g_rgb = g_t[c0 : c0 + tile_chunk, :, :C]  # [B, 256, C]
+        g_tbg = g_t[c0 : c0 + tile_chunk, :, C]  # [B, 256]
+        w, accept, alpha, raw = f["w"], f["accept"], f["alpha"], f["raw"]
+        dw = torch.einsum("bpc,bkc->bpk", g_rgb, rec[..., 6 : 6 + C])
+        dcolors = torch.einsum("bpc,bpk->bkc", g_rgb, w)
+        ds = dw * w
+        # sum over the records behind each one: total - inclusive prefix
+        dlg = torch.sum(ds, -1, keepdim=True) - torch.cumsum(ds, -1)
+        dlg = dlg + torch.where(accept, (g_tbg * f["t_bg"])[..., None], 0.0)
+        dalpha = torch.where(accept, dw * f["t_before"], 0.0) - dlg / (1.0 - alpha)
+        live_px = f["use"] & (raw < ALPHA_MAX)
+        dpower2 = torch.where(live_px, dalpha * raw, 0.0)
+        d = torch.einsum("pc,bpk->bkc", basis, dpower2)  # [B, K, 6]
+        d0, d1, d2, d3, d4, d5 = d.unbind(-1)
+        x, y = f["x"], f["y"]
+        A, B, Cc, op = rec[..., 2], rec[..., 3], rec[..., 4], rec[..., 5]
+        parts = [
+            -d0 * (A * x + B * y) + d1 * A + d2 * B,
+            -d0 * (Cc * y + B * x) + d1 * B + d2 * Cc,
+            -0.5 * d0 * x * x + d1 * x - 0.5 * d3,
+            -d0 * x * y + d1 * y + d2 * x - d5,
+            -0.5 * d0 * y * y + d2 * y - 0.5 * d4,
+            torch.where(op > 0.0, d0 / torch.clamp(op, min=OP_EPS), 0.0),
+        ]
+        drec = torch.cat([torch.stack(parts, -1), dcolors], -1)
+        drec = torch.nn.functional.pad(drec, (0, CR - 6 - C))
+        out.append(torch.where(live[..., None], drec, 0.0))
+    return torch.cat(out, 0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -99,24 +175,39 @@ def _kernel():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_kernel():
+    fn = cuda_build.load("blend_ct_bwd").d3ga_blend_gather_ct_bwd
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(name, records_ext, idx, counts, ntx, nty, C):
+    if records_ext.dtype != torch.float32:
+        raise TypeError(f"{name}: records must be float32, got {records_ext.dtype}")
+    if idx.dtype != torch.int32 or counts.dtype != torch.int32:
+        raise TypeError(f"{name}: idx and counts must be int32")
+    if records_ext.ndim != 2 or idx.ndim != 2 or counts.ndim != 1:
+        raise ValueError(f"{name}: expected records [N+1, CR], idx [T, K], counts [T]")
+    T = idx.shape[0]
+    if T != ntx * nty or counts.shape[0] != T:
+        raise ValueError(f"{name}: {T} tiles for a {ntx}x{nty} grid, {counts.shape[0]} counts")
+    if not 1 <= C <= MAX_C or records_ext.shape[1] < 6 + C:
+        raise ValueError(f"{name}: C={C} with {records_ext.shape[1]} record columns unsupported")
+    if not (idx.device == counts.device == records_ext.device):
+        raise ValueError(f"{name}: inputs on different devices")
+    if not (records_ext.is_contiguous() and idx.is_contiguous() and counts.is_contiguous()):
+        raise ValueError(f"{name}: inputs must be contiguous")
+
+
 def _launch(records_ext, idx, counts, ntx, nty, C):
     global launches
-    if records_ext.dtype != torch.float32:
-        raise TypeError(f"blend_gather_ct: records must be float32, got {records_ext.dtype}")
-    if idx.dtype != torch.int32 or counts.dtype != torch.int32:
-        raise TypeError("blend_gather_ct: idx and counts must be int32")
-    if records_ext.ndim != 2 or idx.ndim != 2 or counts.ndim != 1:
-        raise ValueError("blend_gather_ct: expected records [N+1, CR], idx [T, K], counts [T]")
+    _check("blend_gather_ct", records_ext, idx, counts, ntx, nty, C)
     n_ext, CR = records_ext.shape
     T, K = idx.shape
-    if T != ntx * nty or counts.shape[0] != T:
-        raise ValueError(f"blend_gather_ct: {T} tiles for a {ntx}x{nty} grid, {counts.shape[0]} counts")
-    if not 1 <= C <= MAX_C or CR < 6 + C:
-        raise ValueError(f"blend_gather_ct: C={C} with {CR} record columns unsupported")
-    if not (idx.device == counts.device == records_ext.device):
-        raise ValueError("blend_gather_ct: inputs on different devices")
-    if not (records_ext.is_contiguous() and idx.is_contiguous() and counts.is_contiguous()):
-        raise ValueError("blend_gather_ct: inputs must be contiguous")
     out = torch.empty((C + 1, nty * TILE, ntx * TILE), dtype=torch.float32,
                       device=records_ext.device)
     if T == 0:
@@ -129,24 +220,78 @@ def _launch(records_ext, idx, counts, ntx, nty, C):
     return out
 
 
+def _launch_bwd(records_ext, idx, counts, g, ntx, nty, C):
+    global bwd_launches
+    _check("blend_gather_ct_bwd", records_ext, idx, counts, ntx, nty, C)
+    if g.dtype != torch.float32 or tuple(g.shape) != (C + 1, nty * TILE, ntx * TILE):
+        raise ValueError(f"blend_gather_ct_bwd: cotangent {g.dtype} {tuple(g.shape)}")
+    if g.device != records_ext.device or not g.is_contiguous():
+        raise ValueError("blend_gather_ct_bwd: cotangent on another device or not contiguous")
+    n_ext, CR = records_ext.shape
+    T, K = idx.shape
+    drec = torch.empty((T, K, CR), dtype=torch.float32, device=records_ext.device)
+    if T == 0:
+        return drec
+    err = _bwd_kernel()(records_ext.data_ptr(), n_ext, CR, idx.data_ptr(), K, counts.data_ptr(),
+                        ntx, nty, C, g.data_ptr(), drec.data_ptr(),
+                        cuda_build.stream_handle(records_ext.device))
+    if err != 0:
+        raise RuntimeError(f"blend_gather_ct_bwd: kernel launch failed (error {err})")
+    bwd_launches += 1
+    return drec
+
+
+def blend_gather_ct_bwd(records_ext, idx, counts, g, ntx, nty, C):
+    """K3: drec [T, K, CR] per-slot record cotangents of the blend for the
+    image cotangent g [(C+1), nty*16, ntx*16]; the CUDA kernel on CUDA
+    tensors, the plain version on CPU tensors."""
+    if records_ext.device.type == "cpu":
+        return blend_gather_ct_bwd_plain(records_ext, idx, counts, g, ntx, nty, C)
+    if records_ext.device.type != "cuda":
+        raise ValueError(f"blend_gather_ct_bwd: unsupported device {records_ext.device}")
+    return _launch_bwd(records_ext, idx, counts, g.contiguous(), ntx, nty, C)
+
+
 class _BlendGatherCT(torch.autograd.Function):
+    """Gather + blend with the JAX package's custom VJP: the backward is
+    K3 (per-slot cotangents) then the id sort + K4 (per-Gaussian sums),
+    or their plain versions. Saves the inputs only, no [T, CR, K] records."""
+
     @staticmethod
-    def forward(ctx, records_ext, idx, counts, ntx, nty, C):
+    def forward(ctx, records_ext, idx, counts, ntx, nty, C, dup2, plain):
+        ctx.save_for_backward(records_ext, idx, counts)
+        ctx.meta = (ntx, nty, C, dup2, plain)
+        if plain:
+            return blend_gather_ct_plain(records_ext, idx, counts, ntx, nty, C)
         return _launch(records_ext, idx, counts, ntx, nty, C)
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError("K3/K4: training slice")
+        records_ext, idx, counts = ctx.saved_tensors
+        ntx, nty, C, dup2, plain = ctx.meta
+        g = g.to(torch.float32).contiguous()
+        n = records_ext.shape[0] - 1
+        if plain:
+            drec = blend_gather_ct_bwd_plain(records_ext, idx, counts, g, ntx, nty, C)
+        else:
+            drec = _launch_bwd(records_ext, idx, counts, g, ntx, nty, C)
+        dre = segsum.combine_from_slots(drec, idx, n, dup2, plain=plain)
+        return dre, None, None, None, None, None, None, None
 
 
-def blend_gather_ct(records_ext, idx, counts, ntx, nty, C):
+def blend_gather_ct(records_ext, idx, counts, ntx, nty, C, dup2=None, plain=False):
     """records_ext [N+1, CR] float32 packed records (x, y, conic a/b/c,
     opacity, C colours; xy in global pixel coordinates) with a zero
     sentinel row; idx [T, K] int32 record ids in front-to-back order (N
     for empty slots); counts [T] int32 live slots per tile (<= K).
-    Returns the planar image [(C+1), nty*16, ntx*16], T_bg last."""
-    if records_ext.device.type == "cpu":
-        return blend_gather_ct_plain(records_ext, idx, counts, ntx, nty, C)
-    if records_ext.device.type != "cuda":
+    Returns the planar image [(C+1), nty*16, ntx*16], T_bg last,
+    differentiable in records_ext. dup2 bounds the occurrences of one id
+    in idx (the dupsort selection's dup^2), checked by the plain combine.
+    CPU tensors, or plain=True, take the plain versions forward and
+    backward."""
+    dev = records_ext.device.type
+    if dev not in ("cpu", "cuda"):
         raise ValueError(f"blend_gather_ct: unsupported device {records_ext.device}")
-    return _BlendGatherCT.apply(records_ext, idx, counts, ntx, nty, C)
+    return _BlendGatherCT.apply(
+        records_ext, idx, counts, ntx, nty, C, dup2, plain or dev == "cpu"
+    )

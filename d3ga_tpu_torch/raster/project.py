@@ -6,6 +6,13 @@ z <= 0.2, clip-space projection with 1/(w + 1e-7), EWA cov2D = A Vrk A^T
 with fov clamping, +0.3 dilation, conic = inverse 2D covariance, radius
 = ceil(3 sqrt(lambda_max)). Colours are given per Gaussian (the serving
 path's `colors`); SH colours are not ported yet.
+
+Gradients follow JAX's AD where the two frameworks could split them
+differently: the fov clamp gives half the gradient at a tie with either
+bound, as `jnp.clip` does (`torch.clamp` would give all of it). The
+maxima under the radius's square roots need nothing: the radius and the
+valid mask leave as integers and booleans, so no gradient flows back
+through them in either framework, even where the radius is NaN.
 """
 
 from typing import NamedTuple
@@ -27,6 +34,12 @@ class Projected(NamedTuple):
     opacity: torch.Tensor  # [N]
     radius: torch.Tensor   # [N] int32 pixel radius (0 = culled)
     valid: torch.Tensor    # [N] bool
+
+
+def _clip(v, lo, hi):
+    """`jnp.clip` with its gradient at the bounds (half at a tie)."""
+    lo, hi = (torch.as_tensor(b, dtype=v.dtype, device=v.device) for b in (lo, hi))
+    return torch.minimum(torch.maximum(v, lo), hi)
 
 
 def project_gaussians(
@@ -55,8 +68,8 @@ def project_gaussians(
     tz = torch.where(in_front, p_view[:, 2], 1.0)
     limx = 1.3 * camera.tanfovx
     limy = 1.3 * camera.tanfovy
-    tx = torch.clamp(p_view[:, 0] / tz, -limx, limx) * tz
-    ty = torch.clamp(p_view[:, 1] / tz, -limy, limy) * tz
+    tx = _clip(p_view[:, 0] / tz, -limx, limx) * tz
+    ty = _clip(p_view[:, 1] / tz, -limy, limy) * tz
 
     Rwv = camera.world_view[:3, :3]
     j00 = focal_x / tz

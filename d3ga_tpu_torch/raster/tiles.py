@@ -1,4 +1,4 @@
-"""Tile-binned Gaussian-splat rasterizer, champion forward (counterpart of
+"""Tile-binned Gaussian-splat rasterizer, champion path (counterpart of
 d3ga_tpu/raster/tiles.py restricted to `coarse="dupsort_depth"` with the
 channels-transposed gather + blend).
 
@@ -9,7 +9,10 @@ channels-transposed gather + blend).
      searchsorted gives the tile segments, and kernel K1
      (`extract.py`) cuts each tile's front-K window;
   3. kernel K2 (`blend_ct.py`) gathers each tile's records and blends
-     them front to back (CUDA alpha >= 1/255 skip, T < 1e-4 stop).
+     them front to back (CUDA alpha >= 1/255 skip, T < 1e-4 stop); its
+     backward is kernel K3 (per-slot record cotangents) then the id sort
+     and kernel K4 (`segsum.py`, per-Gaussian sums), so the image is
+     differentiable in means3d, cov3d, opacities and colors.
 
 Overflow counters make every cap visible (`RasterAux`). Selection
 outputs and counters are bit-identical to the JAX package's.
@@ -19,7 +22,7 @@ from typing import NamedTuple
 
 import torch
 
-from d3ga_tpu_torch.raster.blend_ct import blend_gather_ct, blend_gather_ct_plain
+from d3ga_tpu_torch.raster.blend_ct import blend_gather_ct
 from d3ga_tpu_torch.raster.camera import Camera
 from d3ga_tpu_torch.raster.extract import extract_slices, extract_slices_plain
 from d3ga_tpu_torch.raster.project import project_gaussians, tile_rect
@@ -162,9 +165,10 @@ def bin_gaussians(
     proj = project_gaussians(means3d, camera, cov3d=cov3d, opacities=opacities, colors=colors)
     valid = proj.valid & (proj.radius > 0)
     records = torch.cat([proj.xy, proj.conic, proj.opacity[:, None], proj.color], dim=-1)
-    rects = tile_rect(proj.xy, proj.radius, TILE, ntx, nty)
+    # the selection is integer work: no gradient flows through it
+    rects = tile_rect(proj.xy.detach(), proj.radius, TILE, ntx, nty)
     ranks, counts, clamp_overflow, depth_ties = _select_per_tile_depthkey(
-        rects, valid, proj.depth, ntx, nty, max_per_tile, dup=dup,
+        rects, valid, proj.depth.detach(), ntx, nty, max_per_tile, dup=dup,
         depth_exact=depth_exact, plain=plain,
     )
     n = records.shape[0]
@@ -195,10 +199,11 @@ def rasterize_tiled(
     """Render [C, H, W] and RasterAux.
 
     The JAX package's `rasterize_tiled(..., use_pallas=True,
-    coarse="dupsort_depth")`, forward only. means3d [N, 3], cov3d [N, 6]
-    packed, opacities [N, 1], colors [N, C], bg_color [C]. plain=True runs
-    the kernels' plain PyTorch versions whatever the device (a reference
-    render to hold the kernels against)."""
+    coarse="dupsort_depth")`, differentiable in means3d [N, 3], cov3d
+    [N, 6] packed, opacities [N, 1] and colors [N, C]; bg_color [C].
+    plain=True runs the kernels' plain PyTorch versions, forward and
+    backward, whatever the device (a reference to hold the kernels
+    against)."""
     if coarse != "dupsort_depth":
         raise NotImplementedError(
             f"coarse={coarse!r}: only 'dupsort_depth' is ported "
@@ -209,12 +214,13 @@ def rasterize_tiled(
     C = colors.shape[-1]
     b = bin_gaussians(means3d, camera, cov3d, opacities, colors, K, dup, depth_exact, plain)
     cnt = torch.clamp(b.counts, max=K).contiguous()
-    blend = blend_gather_ct_plain if plain else blend_gather_ct
-    out = blend(b.records_ext, b.idx, cnt, b.ntx, b.nty, C)  # [(C+1), nty*16, ntx*16]
+    out = blend_gather_ct(
+        b.records_ext, b.idx, cnt, b.ntx, b.nty, C, dup2=dup * dup, plain=plain
+    )  # [(C+1), nty*16, ntx*16]
 
     bg = torch.as_tensor(bg_color, dtype=out.dtype, device=out.device)
     image = (out[:C] + out[C:] * bg[:, None, None])[:, :H, :W]
-    tbg_tiles = out[C].reshape(b.nty, TILE, b.ntx, TILE).amax(dim=(1, 3)).reshape(-1)
+    tbg_tiles = out[C].detach().reshape(b.nty, TILE, b.ntx, TILE).amax(dim=(1, 3)).reshape(-1)
     aux = RasterAux(
         overflow=(torch.sum(torch.clamp(b.counts - K, min=0)) + b.clamp_overflow).to(torch.int32),
         max_per_tile=torch.max(b.counts),

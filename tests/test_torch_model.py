@@ -1,9 +1,11 @@
 """Parity of the PyTorch port's cage model, avatar forward (eval mode)
 and synthetic scene builders with the JAX package, on the CPU.
 
-Weights and geometry are carried across with `d3ga_tpu_torch.convert`
-(the JAX geometry may come from its native tet embedding, which the port
-does not have). Float outputs: rtol 1e-5, atol 1e-6, as for the ops.
+Geometry is carried across with `d3ga_tpu_torch.convert` (the JAX
+geometry may come from its native tet embedding, which the port does not
+have); the weights are the port's own initialization carried to the JAX
+package, whose initializer is held by structure and shapes. Float
+outputs: rtol 1e-5, atol 1e-6, as for the ops.
 """
 
 import jax
@@ -20,7 +22,7 @@ from d3ga_tpu_torch import convert
 from d3ga_tpu_torch.data import synthetic as tsyn
 from d3ga_tpu_torch.model.avatar import avatar_forward, init_avatar
 from d3ga_tpu_torch.model.cage_model import cage_forward
-from torch_parity import bound_skeleton, close, port_avatar
+from torch_parity import bound_skeleton, close, port_model
 
 N_GAUSS = 150
 
@@ -28,12 +30,11 @@ N_GAUSS = 150
 @pytest.fixture(scope="module")
 def avatar_pair():
     jmodel, _, lbs_dim = jsyn.build_synthetic_avatar(n_garments=2, n_gaussians=N_GAUSS)
-    jparams = jax.jit(lambda k: j_init_avatar(k, jmodel))(jax.random.PRNGKey(0))
+    tmodel = port_model(jmodel, 2)
+    tparams = init_avatar(torch.Generator().manual_seed(0), tmodel)
     # a non-identity colour calibration for camera 1
-    corr = np.asarray(jparams["camera_calib"]["corrections"]).copy()
-    corr[1] = [0.9, 1.1, 0.8, 0.05, -0.02, 0.01]
-    jparams["camera_calib"]["corrections"] = jnp.asarray(corr)
-    tmodel, tparams = port_avatar(jmodel, jparams, 2)
+    tparams["camera_calib"]["corrections"][1] = torch.tensor([0.9, 1.1, 0.8, 0.05, -0.02, 0.01])
+    jparams = jax.tree_util.tree_map(jnp.asarray, convert.params_to_numpy(tparams))
     return jmodel, jparams, tmodel, tparams, lbs_dim
 
 
@@ -71,8 +72,9 @@ class TestSyntheticBuilders:
             close(getattr(t, f), getattr(j, f))
 
     def test_port_init_matches_structure(self, avatar_pair):
-        jmodel, jparams, tmodel, _, _ = avatar_pair
+        jmodel, _, tmodel, _, _ = avatar_pair
         tparams = init_avatar(torch.Generator().manual_seed(0), tmodel)
+        jparams = jax.eval_shape(lambda k: j_init_avatar(k, jmodel), jax.random.PRNGKey(0))
         jl, jdef = jax.tree_util.tree_flatten(jparams)
         tl, tdef = jax.tree_util.tree_flatten(tparams)
         assert jdef == tdef
@@ -144,8 +146,10 @@ class TestAvatarForward:
             m = tmodel._replace(config=dict(tmodel.config, **{key: True}))
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 init_avatar(torch.Generator(), m)
+        # training ports everything but the optimizable poses / Rh / Th
+        opt_poses = dict(avatar_pair[3], optimizable_poses=torch.zeros(8, 87))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            avatar_forward(avatar_pair[3], tmodel, {}, training=True)
+            avatar_forward(opt_poses, tmodel, {}, training=True)
         mesh = tmodel._replace(garments=(tmodel.garments[0]._replace(primitive="mesh"),))
         with pytest.raises(NotImplementedError, match="mesh"):
             avatar_forward(avatar_pair[3], mesh, {})

@@ -8,6 +8,11 @@ equal. Blended images: atol 1e-4, because the JAX kernel's bf16 hi/lo
 split matmuls are good to about 2^-17 relative and it composites in the
 log domain, the port in a plain float32 cumsum.
 
+The JAX blend runs 16 tiles a program (`pallas_blend_ct.G_CT`, 8 by
+default): the kernel iterates its tiles in an in-kernel loop traced once
+instead of an 8-way static unroll, the same per-tile math with half the
+interpret-mode compile (tests/test_pallas_blend.py covers that path).
+
 The CUDA kernels themselves run only on the card: the tests marked
 `cuda` hold them against their plain versions and skip without a GPU.
 """
@@ -21,7 +26,7 @@ import torch
 import d3ga_tpu.raster.tiles as jtiles
 from d3ga_tpu.raster.camera import focal2fov as j_focal2fov
 from d3ga_tpu.raster.camera import make_camera as j_make_camera
-from d3ga_tpu.raster.pallas_blend_ct import _run_forward_ct
+from d3ga_tpu.raster import pallas_blend_ct as jbct
 from d3ga_tpu.raster.pallas_extract import extract_slices as j_extract_slices
 from d3ga_tpu.raster.project import project_gaussians as j_project
 from d3ga_tpu_torch.raster import blend_ct, extract
@@ -31,6 +36,14 @@ from d3ga_tpu_torch.raster.project import project_gaussians as t_project
 from d3ga_tpu_torch.raster.project import tile_rect as t_tile_rect
 
 IMG_ATOL = 1e-4
+
+
+@pytest.fixture(scope="module", autouse=True)
+def tile_loop():
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jbct, "G_CT", 16)
+    yield
+    mp.undo()
 
 
 def random_scene(seed, n, w, h, c=6):
@@ -205,7 +218,7 @@ class TestBlendPlain:
         K, ntx, nty, C = 256, 3, 2, 6
         records_ext, idx, counts = blend_inputs(K, ntx, nty, K)
         rec_ct = jnp.swapaxes(jnp.asarray(records_ext)[jnp.asarray(idx)], 1, 2)
-        j = _run_forward_ct(rec_ct, jnp.asarray(counts), ntx, nty, C, interpret=True)
+        j = jbct._run_forward_ct(rec_ct, jnp.asarray(counts), ntx, nty, C, interpret=True)
         t, pairs = blend_ct.blend_gather_ct_plain(
             torch.from_numpy(records_ext), torch.from_numpy(idx), torch.from_numpy(counts),
             ntx, nty, C, tile_chunk=4, count_pairs=True,

@@ -5,6 +5,12 @@ K = 128, dup = 3, depth_exact), with weights and geometry carried across.
 
 Images: atol 1e-4 (the JAX blend's bf16 hi/lo split matmuls, ~2^-17
 relative); RasterAux: every counter equal.
+
+The weights are the port's own initialization, carried across to the JAX
+package, and the JAX blend runs 16 tiles a program (`pallas_blend_ct.G_CT`,
+8 by default), which iterates the tiles in an in-kernel loop traced once
+instead of an 8-way static unroll: the same per-tile math, half the
+interpret-mode compile (tests/test_pallas_blend.py covers that path).
 """
 
 import jax
@@ -15,23 +21,34 @@ import torch
 
 import d3ga_tpu.data.synthetic as jsyn
 from d3ga_tpu.model.avatar import avatar_forward as j_avatar_forward
-from d3ga_tpu.model.avatar import init_avatar as j_init_avatar
+from d3ga_tpu.raster import pallas_blend_ct as jbct
 from d3ga_tpu.raster.tiles import rasterize_tiled as j_rasterize_tiled
 from d3ga_tpu_torch.data import synthetic as tsyn
-from d3ga_tpu_torch.model.avatar import avatar_forward
+from d3ga_tpu_torch import convert
+from d3ga_tpu_torch.model.avatar import avatar_forward, init_avatar
 from d3ga_tpu_torch.raster import blend_ct, extract
 from d3ga_tpu_torch.raster.tiles import rasterize_tiled
-from torch_parity import port_avatar
+from torch_parity import port_model
 
 W, H, K = 64, 48, 128
 BG6 = np.array([1, 1, 1, 0, 0, 0], np.float32)
 IMG_ATOL = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def tile_loop():
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jbct, "G_CT", 16)
+    yield
+    mp.undo()
+
+
 @pytest.fixture(scope="module")
 def slice_pair():
     jmodel, _, lbs_dim = jsyn.build_synthetic_avatar(n_garments=2, n_gaussians=150)
-    jparams = jax.jit(lambda k: j_init_avatar(k, jmodel))(jax.random.PRNGKey(0))
+    tmodel = port_model(jmodel, 2)
+    tparams = init_avatar(torch.Generator().manual_seed(0), tmodel)
+    jparams = jax.tree_util.tree_map(jnp.asarray, convert.params_to_numpy(tparams))
     jcam = jsyn.orbit_camera(0.3, W, H)
 
     @jax.jit
@@ -48,7 +65,6 @@ def slice_pair():
             max_per_tile=K, use_pallas=True, coarse="dupsort_depth", dup=3,
         )
 
-    tmodel, tparams = port_avatar(jmodel, jparams, 2)
     tcam = tsyn.orbit_camera(0.3, W, H, device="cpu")
 
     def port_frame(lbs):
