@@ -477,25 +477,31 @@ def train(dev, report, scene):
 
     # -- K4: per-Gaussian combine of the kernel's cotangents ---------------
     with torch.no_grad():
+        # as combine_from_slots calls it: the slot rows read in place
+        # through the sort's permutation
         ids_sorted, perm = torch.sort(b.idx.reshape(-1), stable=True)
-        g_sorted = drec.reshape(-1, CR).T[:, perm].contiguous()
-        comb = segsum.combine_sorted(ids_sorted, g_sorted, n)
-        comb_p = segsum.combine_sorted_plain(ids_sorted, g_sorted, n, DUP2)
+        perm = perm.to(torch.int32)
+        g_slots = drec.reshape(-1, CR).T
+        comb = segsum.combine_sorted(ids_sorted, g_slots, n, perm=perm)
+        comb_p = segsum.combine_sorted_plain(ids_sorted, g_slots, n, DUP2, perm)
         sync(dev)
         k4 = {"max_abs": float((comb - comb_p).abs().max()),
               "bit_exact": bool(torch.equal(comb, comb_p)), "scale": float(comb_p.abs().max())}
         line(f"K4 combine_sorted vs plain at full width: max_abs={k4['max_abs']:.3e} "
              f"bit_exact={k4['bit_exact']} (n={n}, m={ids_sorted.numel()})")
         check(k4["max_abs"] <= K4_REL * k4["scale"], f"K4: max_abs > {K4_REL} x max|out|")
-        k4_t = measure(lambda: segsum.combine_sorted(ids_sorted, g_sorted, n), 50, dev)
+        k4_t = measure(lambda: segsum.combine_sorted(ids_sorted, g_slots, n, perm=perm), 50, dev)
         k4_plain_t = measure(
-            lambda: segsum.combine_sorted_plain(ids_sorted, g_sorted, n, DUP2), 5, dev
+            lambda: segsum.combine_sorted_plain(ids_sorted, g_slots, n, DUP2, perm), 5, dev
         )
         flat_idx, flat_drec = b.idx.reshape(-1).long(), drec.reshape(-1, CR)
         k4_lib_t = measure(
             lambda: torch.zeros(n + 1, CR, device=dev).index_add_(0, flat_idx, flat_drec), 50, dev
         )
-    k4_bytes = 4 * (n_contrib * CR + ids_sorted.numel() + n * CR)
+    # the live slots' ids, permutation entries and rows (the sentinels
+    # sort to the tail, past one binary search), and the output
+    k4_live = int((ids_sorted < n).sum())
+    k4_bytes = 4 * (k4_live * (CR + 2) + n * CR)
     k4_bound_ms = k4_bytes / HBM_BYTES_PER_S * 1e3
 
     # -- one step's gradients: kernels against plain -----------------------
@@ -600,7 +606,7 @@ def train(dev, report, scene):
              f"launches_per_step={k['launches'] / STEPS:g}; wall per call "
              + ", ".join(f"{nm}={v['call_ms']:.4f}" for nm, v in t.items()))
     report.update(
-        k3_full_width=k3, k3_bytes=k3_bytes, k4_full_width=k4, k4_bytes=k4_bytes,
+        k3_full_width=k3, k3_bytes=k3_bytes, k4_full_width=k4, k4_bytes=k4_bytes, k4_live=k4_live,
         step_terms_rel=term_err, step_grad_rel_l2=leaf_err, step_ms=step_ms,
         steps_per_s=1e3 / step_ms, train_launches=launches, step_profiled=step_prof,
         train_timings=timings,

@@ -7,6 +7,9 @@ unchanged (the reference uses a backward hook).
 
 import torch
 
+# the training branch's gradient scale on the calibration table
+GRAD_SCALE = 0.1
+
 
 def init_camera_calibration(n_cameras: int, device="cuda"):
     row = torch.tensor([[1.0, 1.0, 1.0, 0.0, 0.0, 0.0]])
@@ -14,15 +17,14 @@ def init_camera_calibration(n_cameras: int, device="cuda"):
 
 
 def apply_camera_calibration(
-    params, rgb, camera_idx: int, identity_idx: int = 0, grad_scale: float = 0.1,
-    training: bool = False,
+    params, rgb, camera_idx: int, identity_idx: int = 0, training: bool = False,
 ):
     """rgb: [N, 3] per-Gaussian colours or [3, H, W]; camera_idx: int."""
     if int(camera_idx) == int(identity_idx):
         return rgb
     p = params["corrections"][int(camera_idx)]
     if training:
-        p = p * grad_scale + p.detach() * (1.0 - grad_scale)
+        p = p * GRAD_SCALE + p.detach() * (1.0 - GRAD_SCALE)
     w, b = p[:3], p[3:]
     if rgb.ndim == 3:
         return rgb * w[:, None, None] + b[:, None, None]

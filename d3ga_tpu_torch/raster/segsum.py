@@ -6,7 +6,9 @@ hand-written CUDA kernel `csrc/segsum.cu` (see its header for the bound
 and the design): one thread per Gaussian finds its run in the id-sorted
 stream and sums the run in sorted order, so the result is deterministic
 and needs no atomics. `combine_from_slots` sorts the ids outside the
-kernel (one stable `torch.sort`), as `lax.sort` is outside it in JAX.
+kernel (one stable `torch.sort`), as `lax.sort` is outside it in JAX,
+and the kernel reads the slot rows through the sort's permutation (JAX
+sorts the 12 cotangent columns along with the ids instead).
 
 `combine_sorted` runs the CUDA kernel on CUDA tensors and the plain
 PyTorch version on CPU tensors; there is no fallback between the two.
@@ -23,81 +25,92 @@ from d3ga_tpu_torch.utils import cuda_build
 launches = 0
 
 
-def combine_sorted_plain(ids_sorted, g_sorted, n, dup2=None):
+def combine_sorted_plain(ids_sorted, g, n, dup2=None, perm=None):
     """Plain PyTorch version, summing each run in sorted order as the
     kernel does: occurrence r of every id is added in round r.
 
     ids_sorted: [m] int32, ascending; entries >= n are sentinels.
-    g_sorted:   [CR, m] float32, column j belongs to ids_sorted[j].
-    Returns [n, CR] with row i = the sum of the columns where id == i.
+    g:          [CR, m'] float32; column perm[j] (j without perm, m' = m)
+                belongs to ids_sorted[j].
+    perm:       [m] int32 or None, e.g. the sort's permutation, so that
+                the columns are read in place instead of gathered first.
+    Returns [n, CR] with row i = the sum of the columns of id i.
     Raises if an id occurs more than dup2 times (the dupsort selection's
     dup^2 bound, which the TPU kernel's windows rely on)."""
-    CR, m = g_sorted.shape
+    CR, m = g.shape[0], ids_sorted.shape[0]
     ar = torch.arange(n, device=ids_sorted.device, dtype=ids_sorted.dtype)
     start = torch.searchsorted(ids_sorted, ar)
     runs = torch.searchsorted(ids_sorted, ar, right=True) - start
     longest = int(runs.max()) if n else 0
     if dup2 is not None and longest > dup2:
         raise ValueError(f"combine_sorted: an id occurs {longest} times, more than dup2={dup2}")
-    gp = torch.nn.functional.pad(g_sorted, (0, longest))
-    acc = g_sorted.new_zeros(CR, n)
+    acc = g.new_zeros(CR, n)
     for r in range(longest):
-        acc = acc + torch.where(r < runs, gp[:, start + r], 0.0)
+        j = torch.clamp(start + r, max=m - 1)
+        col = j if perm is None else perm[j]
+        acc = acc + torch.where(r < runs, g[:, col], 0.0)
     return acc.T
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = cuda_build.load("segsum").d3ga_combine_sorted
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(ids_sorted, g_sorted, n):
+def _launch(ids_sorted, g, n, perm):
     global launches
-    if ids_sorted.dtype != torch.int32 or g_sorted.dtype != torch.float32:
+    if ids_sorted.dtype != torch.int32 or g.dtype != torch.float32:
         raise TypeError("combine_sorted: ids must be int32 and cotangents float32")
-    if ids_sorted.ndim != 1 or g_sorted.ndim != 2 or g_sorted.shape[1] != ids_sorted.shape[0]:
+    m = ids_sorted.shape[0]
+    if ids_sorted.ndim != 1 or g.ndim != 2 or (perm is None and g.shape[1] != m):
         raise ValueError("combine_sorted: expected ids [m] and cotangents [CR, m]")
-    if ids_sorted.device != g_sorted.device:
+    if perm is not None and (perm.dtype != torch.int32 or perm.shape != ids_sorted.shape
+                             or not perm.is_contiguous() or perm.device != g.device):
+        raise ValueError("combine_sorted: perm must be a contiguous int32 [m] beside g")
+    if ids_sorted.device != g.device:
         raise ValueError("combine_sorted: inputs on different devices")
-    if not (ids_sorted.is_contiguous() and g_sorted.is_contiguous()):
-        raise ValueError("combine_sorted: inputs must be contiguous")
-    CR, m = g_sorted.shape
+    if not ids_sorted.is_contiguous():
+        raise ValueError("combine_sorted: ids must be contiguous")
+    CR = g.shape[0]
     if m >= 2**31 or n >= 2**31:
         raise ValueError(f"combine_sorted: m={m}, n={n} out of range")
-    out = torch.empty((n, CR), dtype=torch.float32, device=g_sorted.device)
+    out = torch.empty((n, CR), dtype=torch.float32, device=g.device)
     if n == 0:
         return out
-    err = _kernel()(ids_sorted.data_ptr(), m, g_sorted.data_ptr(), CR, n, out.data_ptr(),
-                    cuda_build.stream_handle(g_sorted.device))
+    err = _kernel()(ids_sorted.data_ptr(), None if perm is None else perm.data_ptr(), m,
+                    g.data_ptr(), g.stride(0), g.stride(1), CR, n, out.data_ptr(),
+                    cuda_build.stream_handle(g.device))
     if err != 0:
         raise RuntimeError(f"combine_sorted: kernel launch failed (cudaError {err})")
     launches += 1
     return out
 
 
-def combine_sorted(ids_sorted, g_sorted, n, dup2=None):
+def combine_sorted(ids_sorted, g, n, dup2=None, perm=None):
     """The contract of `combine_sorted_plain`; the CUDA kernel on CUDA
-    tensors (which does not check dup2), the plain version on CPU
-    tensors."""
-    if g_sorted.device.type == "cpu":
-        return combine_sorted_plain(ids_sorted, g_sorted, n, dup2)
-    if g_sorted.device.type != "cuda":
-        raise ValueError(f"combine_sorted: unsupported device {g_sorted.device}")
-    return _launch(ids_sorted, g_sorted, n)
+    tensors (which does not check dup2 and reads g through its strides),
+    the plain version on CPU tensors."""
+    if g.device.type == "cpu":
+        return combine_sorted_plain(ids_sorted, g, n, dup2, perm)
+    if g.device.type != "cuda":
+        raise ValueError(f"combine_sorted: unsupported device {g.device}")
+    return _launch(ids_sorted, g, n, perm)
 
 
 def combine_from_slots(drec, idx, n, dup2=None, plain=False):
     """Per-slot cotangents drec [T, K, CR] + idx [T, K] Gaussian ids (n =
     sentinel) -> [n + 1, CR] per-Gaussian gradient rows (sentinel row
-    zero): one stable sort of the ids, the columns gathered into that
-    order, then `combine_sorted` (its plain version with plain=True)."""
+    zero): one stable sort of the ids, then `combine_sorted` (its plain
+    version with plain=True) reading the slot rows in place through the
+    sort's permutation."""
     CR = drec.shape[-1]
     ids_sorted, perm = torch.sort(idx.reshape(-1), stable=True)
-    g_sorted = drec.reshape(-1, CR).T[:, perm]  # [CR, m]
+    g = drec.reshape(-1, CR).T  # [CR, m], a view in slot order
     combine = combine_sorted_plain if plain else combine_sorted
-    dg = combine(ids_sorted.contiguous(), g_sorted.contiguous(), n, dup2)
+    dg = combine(ids_sorted, g, n, dup2, perm.to(torch.int32))
     return torch.cat([dg, dg.new_zeros(1, CR)], 0)

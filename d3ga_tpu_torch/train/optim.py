@@ -144,37 +144,22 @@ def _resolve(spec, config):
     return float(spec)
 
 
-def lr_tree_from_config(params, config=None, zero_frozen=()):
+def lr_tree_from_config(params, config=None):
     """The per-leaf learning-rate tree (floats) for an avatar parameter
-    tree. config: dict of lr overrides (the `train:` section); per-cage
-    overrides go in config["cages"][name][lr_key]; zero_frozen lists key
-    paths whose subtree gets rate 0."""
+    tree. config: dict of lr overrides (the `train:` section)."""
     config = config or {}
 
-    def garment_lr(cage_name, key):
-        spec = DEFAULT_GARMENT_LRS.get(key, "lr")
-        cage_cfg = config.get("cages", {}).get(cage_name, {})
-        base = spec[0] if isinstance(spec, tuple) else spec
-        if isinstance(base, str) and base in cage_cfg:
-            v = float(cage_cfg[base])
-            return v * (spec[1] if isinstance(spec, tuple) else 1.0)
-        return _resolve(spec, config)
+    def fill(spec, sub):
+        lr = _resolve(spec, config)
+        return tree_map(lambda _: lr, sub)
 
     tree = {}
     for top, sub in params.items():
         if top == "garments":
             tree[top] = {
-                name: {
-                    k: tree_map(lambda _, n=name, k=k: garment_lr(n, k), v) for k, v in g.items()
-                }
+                name: {k: fill(DEFAULT_GARMENT_LRS.get(k, "lr"), v) for k, v in g.items()}
                 for name, g in sub.items()
             }
         else:
-            lr = _resolve(DEFAULT_TOP_LRS.get(top, "lr"), config)
-            tree[top] = tree_map(lambda _, lr=lr: lr, sub)
-    for path in zero_frozen:
-        node = tree
-        for p in path[:-1]:
-            node = node[p]
-        node[path[-1]] = tree_map(lambda _: 0.0, node[path[-1]])
+            tree[top] = fill(DEFAULT_TOP_LRS.get(top, "lr"), sub)
     return tree

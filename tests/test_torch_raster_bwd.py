@@ -14,7 +14,11 @@ configuration the JAX package itself runs and tests:
 - `pallas_blend_ct.G_CT` = 16 tiles a program (8 by default): the blend
   kernels iterate their tiles with an in-kernel loop, traced once,
   instead of the static 8-way unroll (tests/test_pallas_blend.py covers
-  that path); the per-tile math is the same, the compile half as long;
+  that path); the per-tile math is the same, the compile half as long.
+  With it, `_bgs_bwd` (the raster VJP test) takes its `ct` branch: K3
+  writes [T, CR, K] and the combine reads layout "ct". The default
+  G_CT = 8 takes the `ct_rows` branch (rows_out K3, layout "ct_rows");
+  the combine test runs that layout directly, on the port's drec;
 and each JAX computation is compiled at XLA's optimization level 0
 (`torch_parity.jit_o0`).
 
@@ -128,13 +132,27 @@ def test_bwd_plain_matches_pallas_kernel():
 
 
 def test_combine_from_slots_matches_jax(selection):
+    check_combine_from_slots(selection, "rec")
+
+
+def test_combine_from_slots_ct_rows_matches_jax(selection):
+    check_combine_from_slots(selection, "ct_rows")
+
+
+def check_combine_from_slots(selection, layout):
+    """layout "rec" takes the port's drec [T, K, CR] as it is; "ct_rows"
+    (the default training path's rows_out layout) the same cotangents as
+    [nty, CR, ntx * K], whose columns are in the same slot order."""
     b, cnt, g = selection
     n = b.records_ext.shape[0] - 1
     drec = blend_ct.blend_gather_ct_bwd_plain(b.records_ext, b.idx, cnt, g, b.ntx, b.nty, C)
     t = segsum.combine_from_slots(drec, b.idx, n, DUP2, plain=True)
-    args = (jnp.asarray(drec.numpy()), jnp.asarray(b.idx.numpy()))
+    jd = drec.numpy()
+    if layout == "ct_rows":
+        jd = jd.reshape(b.nty, b.ntx, K, 6 + C).transpose(0, 3, 1, 2).reshape(b.nty, 6 + C, -1)
+    args = (jnp.asarray(jd), jnp.asarray(b.idx.numpy()))
     j = jit_o0(
-        lambda d, i: jseg.combine_from_slots(d, i, n, DUP2, interpret=True, layout="rec"), *args
+        lambda d, i: jseg.combine_from_slots(d, i, n, DUP2, interpret=True, layout=layout), *args
     )(*args)
     assert t.shape == (n + 1, 6 + C)
     rel_close(t.numpy(), np.asarray(j), rtol=1e-4)
@@ -240,6 +258,18 @@ class TestCombineSorted:
         np.add.at(ref, ids, g.T.astype(np.float64))
         np.testing.assert_allclose(out.numpy(), ref[:n], rtol=1e-6, atol=1e-6)
 
+    def test_perm_reads_columns_in_place(self):
+        """Reading the columns through the sort's permutation gives the
+        sums of the gathered columns, bit for bit."""
+        rng = np.random.default_rng(5)
+        n = 300
+        idx = torch.from_numpy(np.minimum(rng.integers(0, n + 60, 900), n).astype(np.int32))
+        g = torch.from_numpy(rng.normal(size=(12, 900)).astype(np.float32))
+        ids_sorted, perm = torch.sort(idx, stable=True)
+        ref = segsum.combine_sorted(ids_sorted, g[:, perm].contiguous(), n, DUP2)
+        out = segsum.combine_sorted(ids_sorted, g, n, DUP2, perm=perm.to(torch.int32))
+        assert torch.equal(out, ref)
+
     def test_checks_the_occurrence_bound(self):
         ids = torch.tensor([0, 1, 1, 1, 5], dtype=torch.int32)
         g = torch.ones(12, 5)
@@ -284,5 +314,13 @@ class TestKernelsOnCard:
         g = torch.from_numpy(rng.normal(size=(12, ids.size)).astype(np.float32))
         ref = segsum.combine_sorted_plain(torch.from_numpy(ids), g, 5000, DUP2)
         out = segsum.combine_sorted(torch.from_numpy(ids).to(cuda_device), g.to(cuda_device), 5000)
+        torch.cuda.synchronize()
+        assert torch.equal(out.cpu(), ref)
+        # slot rows read through a permutation, as combine_from_slots does
+        perm = torch.from_numpy(rng.permutation(ids.size).astype(np.int32))
+        rows = torch.empty(ids.size, 12)
+        rows[perm.long()] = g.T
+        out = segsum.combine_sorted(torch.from_numpy(ids).to(cuda_device), rows.T.to(cuda_device),
+                                    5000, perm=perm.to(cuda_device))
         torch.cuda.synchronize()
         assert torch.equal(out.cpu(), ref)

@@ -181,6 +181,10 @@ def test_optimizer_matches_optax(pair):
     tp = fresh(pair["tparams"])
     tlr = lr_tree_from_config(tp)
     assert tree_leaves(tlr) == jax.tree_util.tree_leaves(jlr)
+    override = {"feature_lr": 0.1, "lr": 2e-3}
+    assert tree_leaves(lr_tree_from_config(tp, override)) == jax.tree_util.tree_leaves(
+        j_lr_tree(jparams, override)
+    )
     ravel, unravel = pair["ravel"], pair["unravel"]
     jp = jnp.asarray(ravel(jparams))
     state = pair["jinit"](jp)
