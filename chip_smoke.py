@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (d3ga_tpu_torch) on one NVIDIA GPU.
 
-Builds the four hand-written kernels from `d3ga_tpu_torch/csrc/` and
+Builds the five hand-written kernels from `d3ga_tpu_torch/csrc/` and
 holds each against its plain PyTorch version at full width: K1 front-K
 extraction and K2 gather + blend on the serving path's selection, K3
 (the blend backward) and K4 (the per-Gaussian combine) on the same
-selection with a seeded random image cotangent. Then it drives the two
-paths of the full-width synthetic avatar (3 garments x 45,000 Gaussians,
-1024 x 667 pixels, random weights from seed 0):
+selection with a seeded random image cotangent, K5 (the sharded path's
+flat-tiles blend, forward and backward) on the whole grid and on the
+tile slices of the ranks of a 4-way banded split. Then it drives the
+three paths of the full-width synthetic avatar (3 garments x 45,000
+Gaussians, 1024 x 667 pixels, random weights from seed 0):
 
 - serving: eval-mode `avatar_forward` + champion `rasterize_tiled` (6
   channels, dupsort_depth, dup 3, K 256) for 20 frames;
@@ -15,8 +17,14 @@ paths of the full-width synthetic avatar (3 garments x 45,000 Gaussians,
   SSIM + regularizers, clipped Adam): one step's loss terms and every
   parameter leaf's gradient with the kernels against the plain versions,
   then 10 steps;
+- sharded: on a NCCL world of one process (one card; NCCL puts no two
+  ranks on one GPU), `rasterize_sharded` on frame 0's Gaussians against
+  the single-device `rasterize_tiled`, then bench_scaling.py's banded
+  objective (`rasterize_collective(banded=True)`, 0.8 L1 + 0.2 (1 -
+  SSIM)): its gradients with the kernels against the plain versions,
+  then 10 forward+backward calls;
 
-and checks that the kernels carried every frame and every step.
+and checks that the kernels carried every frame, step and call.
 
     python3 chip_smoke.py
 
@@ -34,10 +42,14 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from d3ga_tpu_torch.data.synthetic import serving_scene
+from d3ga_tpu_torch.dist.banded import banded_l1_ssim
+from d3ga_tpu_torch.dist.mesh import initialize_distributed, local_mesh
+from d3ga_tpu_torch.dist.raster_shard import rasterize_collective, rasterize_sharded
 from d3ga_tpu_torch.model.avatar import avatar_forward, init_avatar
-from d3ga_tpu_torch.raster import blend_ct, extract, segsum
+from d3ga_tpu_torch.raster import blend_ct, blend_rec, extract, segsum
 from d3ga_tpu_torch.raster.tiles import bin_gaussians, rasterize_tiled
 from d3ga_tpu_torch.train.optim import lr_tree_from_config, make_optimizer
 from d3ga_tpu_torch.train.step import LossWeights, make_train_step, random_bg
@@ -50,6 +62,8 @@ N_GARMENTS, N_PER_GARMENT, CAGE_RES = 3, 45000, 3
 WIDTH, HEIGHT, K, DUP = 667, 1024, 256, 3
 FRAMES = 20
 STEPS = 10
+SHARD_CALLS = 10  # forward+backward calls of the banded objective
+SHARD_EMULATE = 4  # K5 is held at the tile offsets of the ranks of a 4-way banded split
 BG6 = (1.0, 1.0, 1.0, 0.0, 0.0, 0.0)
 DUP2 = DUP * DUP
 # bench_train.py's raster configuration
@@ -242,7 +256,8 @@ def run(dev, report):
     Returns the kernels' entries for the `{"kernels": [...]}` line."""
     with torch.no_grad():
         kernels, scene = serve(dev, report)
-    return kernels + train(dev, report, scene)
+    kernels = kernels + train(dev, report, scene)
+    return kernels + sharded(dev, report, scene)
 
 
 def logger(report):
@@ -427,7 +442,10 @@ def serve(dev, report):
         k2_pairs=pairs, n_contrib=n_contrib, small=small, frame0=fr, aux_frame0=a_k,
         aux_frame0_plain=a_p, kernels=kernels, timings=timings,
     )
-    scene = dict(model=model, camera=camera, binned=binned, cnt=cnt, C=C, pairs=pairs, uniq=uniq)
+    gauss = tuple(t.detach() for t in (
+        pkg["means3D"], pkg["cov3D_precomp"], pkg["opacities"], colors))
+    scene = dict(model=model, camera=camera, binned=binned, cnt=cnt, C=C, pairs=pairs, uniq=uniq,
+                 gauss=gauss, aux_frame0=a_k)
     return kernels, scene
 
 
@@ -610,6 +628,240 @@ def train(dev, report, scene):
         step_terms_rel=term_err, step_grad_rel_l2=leaf_err, step_ms=step_ms,
         steps_per_s=1e3 / step_ms, train_launches=launches, step_profiled=step_prof,
         train_timings=timings,
+    )
+    report["kernels"] = report.get("kernels", []) + kernels
+    return kernels
+
+
+def sharded(dev, report, scene):
+    """The sharded raster on a NCCL world of one: K5 forward and backward
+    against their plain versions at full width (the whole grid, and the
+    slices of emulated ranks of a 4-way banded split), rasterize_sharded
+    against the single-device rasterize_tiled on frame 0's Gaussians, the
+    banded objective's gradients with the kernels against the plain
+    versions, then 10 forward+backward calls of it, each launching K1
+    twice, K5 forward, K5 backward and K4 once. Returns the K5 entries."""
+    line = logger(report)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    store = os.path.abspath(os.path.join(OUT_DIR, f"nccl_store_{os.getpid()}"))
+    if os.path.exists(store):
+        os.remove(store)
+    initialize_distributed(f"file://{store}", 1, 0, device=dev)
+    try:
+        mesh = local_mesh()
+        line(f"sharded: {dist.get_backend()} world of {dist.get_world_size()} "
+             f"(one card), mesh data={mesh.data} x model={mesh.model}")
+        return _sharded_phases(dev, report, scene, mesh, line)
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+
+
+def _sharded_phases(dev, report, scene, mesh, line):
+    group = mesh.model_group
+    b, cnt, C = scene["binned"], scene["cnt"], scene["C"]
+    T, ntx, nty = b.idx.shape[0], b.ntx, b.nty
+    CR = b.records_ext.shape[1]
+    n_contrib = int(cnt.sum())
+
+    # -- K5: flat-tiles blend, forward and backward, vs plain ---------------
+    tps = -(-nty // SHARD_EMULATE) * ntx  # tiles of one band of a 4-way split
+    slices = [(0, T)] + [(r * tps, min(tps, T - r * tps)) for r in range(SHARD_EMULATE)
+                         if r * tps < T]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    g_full = torch.randn((T, 256, C + 1), generator=gen, device=dev)
+    k5 = {"fwd": [], "bwd": []}
+    with torch.no_grad():
+        for off, n in slices:
+            args = (b.records_ext, b.idx[off : off + n].contiguous(), cnt[off : off + n].contiguous(),
+                    off, ntx, C)
+            g = g_full[off : off + n].contiguous()
+            out_k = blend_rec.blend_gather_rec(*args)
+            out_p = blend_rec.blend_gather_rec_plain(*args)
+            drec_k = blend_rec.blend_gather_rec_bwd(*args[:4], g, ntx, C)
+            drec_p = blend_rec.blend_gather_rec_bwd_plain(*args[:4], g, ntx, C)
+            sync(dev)
+            check(bool(torch.isfinite(out_k).all() and torch.isfinite(drec_k).all()),
+                  f"K5 at offset {off}: non-finite output")
+            e = image_err(out_k, out_p)
+            err = (drec_k - drec_p).abs().flatten()
+            kk = max(1, int(np.ceil(0.999 * err.numel())))
+            d = {"max_abs": float(err.max()), "p999_abs": float(err.kthvalue(kk).values),
+                 "rel_l2": rel_l2(drec_k, drec_p), "scale": float(drec_p.abs().max())}
+            k5["fwd"].append(dict(e, offset=off, tiles=n))
+            k5["bwd"].append(dict(d, offset=off, tiles=n))
+            line(f"K5 at tile offset {off} ({n} tiles) vs plain: forward p999_abs="
+                 f"{e['p999_abs']:.3e} frac={e['flip_frac']:.3e} max_abs={e['max_abs']:.3e}; "
+                 f"backward p999_abs={d['p999_abs']:.3e} rel_l2={d['rel_l2']:.3e} "
+                 f"(max |drec| {d['scale']:.3e})")
+            check(image_ok(e), f"K5 forward at offset {off}: outside p999 <= {P999_MAX} / "
+                               f"flips <= {FLIP_MAX}")
+            check(d["p999_abs"] <= K3_P999_REL * d["scale"] and d["rel_l2"] <= K3_REL_L2,
+                  f"K5 backward at offset {off}: outside p999 <= {K3_P999_REL} x max|drec| / "
+                  f"rel_l2 <= {K3_REL_L2}")
+        # the whole grid at offset 0 is K2's image, tile-major
+        img_ct = blend_ct.blend_gather_ct(b.records_ext, b.idx, cnt, ntx, nty, C)
+        full = blend_rec.blend_gather_rec(b.records_ext, b.idx, cnt, 0, ntx, C)
+        as_tiles = img_ct.reshape(C + 1, nty, 16, ntx, 16).permute(1, 3, 2, 4, 0).reshape(T, 256, -1)
+        sync(dev)
+        k5_vs_k2 = float((full - as_tiles).abs().max())
+        line(f"K5 whole grid vs K2's image (tile-major): max_abs={k5_vs_k2:.3e}")
+        check(k5_vs_k2 <= P999_MAX, "K5 and K2 disagree on the whole grid")
+        # timing at the main path's shapes: the whole grid (world size 1)
+        fargs = (b.records_ext, b.idx, cnt, 0, ntx, C)
+        _, pairs = blend_rec.blend_gather_rec_plain(*fargs, count_pairs=True)
+        k5_t = measure(lambda: blend_rec.blend_gather_rec(*fargs), 20, dev)
+        k5_plain_t = measure(lambda: blend_rec.blend_gather_rec_plain(*fargs), 3, dev, warmup=1)
+        k5b_t = measure(lambda: blend_rec.blend_gather_rec_bwd(*fargs[:4], g_full, ntx, C), 20, dev)
+        k5b_plain_t = measure(
+            lambda: blend_rec.blend_gather_rec_bwd_plain(*fargs[:4], g_full, ntx, C), 3, dev,
+            warmup=1)
+    in_bytes = 4 * (scene["uniq"] * CR + n_contrib + T)
+    k5_bytes = in_bytes + 4 * T * 256 * (C + 1)
+    k5b_bytes = in_bytes + 4 * g_full.numel() + 4 * T * b.idx.shape[1] * CR
+    k5_times = {"bytes": k5_bytes / HBM_BYTES_PER_S,
+                "operations": max(pairs * BLEND_FP32_OPS_PER_PAIR / FP32_OPS_PER_S,
+                                  pairs / SFU_OPS_PER_S)}
+    k5b_times = {"bytes": k5b_bytes / HBM_BYTES_PER_S,
+                 "operations": max(pairs * BLEND_BWD_FP32_OPS_PER_PAIR / FP32_OPS_PER_S,
+                                   pairs * BLEND_BWD_SFU_PER_PAIR / SFU_OPS_PER_S)}
+    k5_by, k5b_by = max(k5_times, key=k5_times.get), max(k5b_times, key=k5b_times.get)
+    line(f"K5 work: pixel-record pairs visited={pairs}, bytes forward={k5_bytes} "
+         f"backward={k5b_bytes}")
+
+    # -- rasterize_sharded vs the single-device rasterize_tiled ---------------
+    means, cov3d, opac, colors = scene["gauss"]
+    bg = torch.tensor(BG6, device=dev)
+    with torch.no_grad():
+        img_s, aux_s = rasterize_sharded(
+            mesh, means, scene["camera"], bg, cov3d=cov3d, opacities=opac, colors=colors,
+            max_per_tile=K, dup=DUP, use_pallas=True, shard_select=True)
+        img_1, aux_1 = rasterize_tiled(means, scene["camera"], bg, cov3d, opac, colors,
+                                       max_per_tile=K, dup=DUP, depth_exact=True)
+        sync(dev)
+    # The local selection orders a tile's candidates by quantized depth
+    # (index tie-breaks, as the JAX package's sharded path does), the
+    # single-device one here by exact depth: where a tile holds more than K
+    # candidates, the two can cut different entries at the K-th place. The
+    # image is held on the tiles whose candidates are all selected.
+    sh = image_err(img_s, img_1)
+    full_tiles = (b.counts <= K).reshape(nty, ntx)
+    px = full_tiles.repeat_interleave(16, 0).repeat_interleave(16, 1)[:HEIGHT, :WIDTH]
+    sh_in = image_err(img_s[:, px], img_1[:, px])
+    a_s, a_1 = aux_ints(aux_s), aux_ints(aux_1)
+    line(f"rasterize_sharded (world of 1) vs rasterize_tiled, frame 0, on the "
+         f"{int(full_tiles.sum())} of {T} tiles within K: p999_abs={sh_in['p999_abs']:.3e} "
+         f"frac={sh_in['flip_frac']:.3e} max_abs={sh_in['max_abs']:.3e}; on all tiles: "
+         f"p999_abs={sh['p999_abs']:.3e} frac={sh['flip_frac']:.3e} max_abs={sh['max_abs']:.3e}; "
+         f"aux sharded {a_s} single {a_1}")
+    check(tuple(img_s.shape) == (C, HEIGHT, WIDTH), f"sharded image shape {tuple(img_s.shape)}")
+    check(bool(torch.isfinite(img_s).all()), "sharded image: non-finite values")
+    check(image_ok(sh_in), "rasterize_sharded and rasterize_tiled disagree on the tiles within K")
+    for f in ("overflow", "max_per_tile", "n_contrib"):
+        check(a_s[f] == a_1[f], f"sharded RasterAux.{f} {a_s[f]} != single-device {a_1[f]}")
+    check(a_s["merge_overflow"] == -1, "merge_overflow computed without a front margin")
+
+    # -- the banded objective's gradients: kernels vs plain --------------------
+    tgen = torch.Generator(device=dev).manual_seed(6)
+    target = torch.rand((C, HEIGHT, WIDTH), generator=tgen, device=dev)
+
+    def objective(leaves, plain=False):
+        band, _ = rasterize_collective(
+            leaves[0], scene["camera"], bg, group, mesh.model, cov3d=leaves[1],
+            opacities=leaves[2], colors=leaves[3], max_per_tile=K, dup=DUP, use_pallas=True,
+            banded=True, shard_select=True, plain=plain)
+        loss = banded_l1_ssim(band, target, group, mesh.model)
+        loss.backward()
+        return loss
+
+    def grads(plain):
+        leaves = [t.clone().requires_grad_(True) for t in scene["gauss"]]
+        loss = objective(leaves, plain)
+        return float(loss.detach()), [t.grad for t in leaves]
+
+    loss_k, g_k = grads(False)
+    loss_p, g_p = grads(True)
+    sync(dev)
+    obj_err = [rel_l2(a, c) for a, c in zip(g_k, g_p)]
+    names = ("means", "cov3d", "opacities", "colors")
+    line(f"banded objective, kernels vs plain: loss {loss_k:.7f} vs {loss_p:.7f}; gradients "
+         f"rel_l2 " + ", ".join(f"{n}={e:.3e}" for n, e in zip(names, obj_err)))
+    check(abs(loss_k - loss_p) <= TERM_RTOL * abs(loss_p), "banded objective: loss off")
+    check(all(bool(torch.isfinite(gk).all()) for gk in g_k), "banded objective: non-finite grad")
+    check(max(obj_err) <= GRAD_REL_L2, f"banded objective: a gradient off by rel L2 > {GRAD_REL_L2}")
+
+    # -- the sharded path: 10 forward+backward calls ---------------------------
+    leaves = [t.clone().requires_grad_(True) for t in scene["gauss"]]
+
+    def call():
+        for t in leaves:
+            t.grad = None
+        return objective(leaves)
+
+    call()  # warm-up
+    sync(dev)
+    extract.launches = blend_ct.launches = blend_ct.bwd_launches = segsum.launches = 0
+    blend_rec.launches = blend_rec.bwd_launches = 0
+    per_call = []
+    t0 = time.perf_counter()
+    for _ in range(SHARD_CALLS):
+        loss = call()
+        per_call.append((extract.launches, blend_rec.launches, blend_rec.bwd_launches,
+                         segsum.launches, blend_ct.launches + blend_ct.bwd_launches))
+    sync(dev)
+    call_ms = (time.perf_counter() - t0) * 1e3 / SHARD_CALLS
+    launches = {"extract_slices": extract.launches, "blend_gather_rec": blend_rec.launches,
+                "blend_gather_rec_bwd": blend_rec.bwd_launches, "combine_sorted": segsum.launches}
+    line(f"sharded path: {SHARD_CALLS} objective forward+backward calls, {call_ms:.3f} ms/call; "
+         f"launches {launches}; last loss {float(loss.detach()):.6f}")
+    check(bool(torch.isfinite(loss).all()), "sharded path: non-finite loss")
+    check(per_call == [(2 * (i + 1), i + 1, i + 1, i + 1, 0) for i in range(SHARD_CALLS)],
+          f"launch counts after each call {per_call}: not K1 x2, K5, K5 backward, K4 x1 a call")
+    prof = profile_calls(call, 3, dev)
+    if prof is not None:
+        line(f"sharded objective, profiled ({prof['calls']} calls): wall {prof['wall_ms']:.3f} ms, "
+             f"device busy {prof['device_busy_ms']:.3f} ms (idle share {prof['idle_share']:.3f}; "
+             f"against the unprofiled call {1 - prof['device_busy_ms'] / call_ms:.3f}), "
+             f"{prof['kernels_per_call']:.0f} kernels and {prof['launch_host_ms']:.3f} ms of "
+             f"cudaLaunchKernel a call; top kernels "
+             + "; ".join(f"{k[:60]} {ms:.3f} ms x{n:g}" for k, ms, n in prof["top"][:6]))
+
+    kernels = [
+        {
+            "name": "blend_gather_rec", "route": "cuda",
+            "source": "d3ga_tpu_torch/csrc/blend_rec.cu",
+            "replaces": "d3ga_tpu/raster/pallas_blend_rec.py:283",
+            "launches": launches["blend_gather_rec"],
+            "max_abs_err": max(e["max_abs"] for e in k5["fwd"]),
+            "ms": k5_t["ms"], "plain_ms": k5_plain_t["ms"], "bound_ms": k5_times[k5_by] * 1e3,
+            "bound_by": k5_by, "library_ms": None,
+        },
+        {
+            "name": "blend_gather_rec_bwd", "route": "cuda",
+            "source": "d3ga_tpu_torch/csrc/blend_rec.cu",
+            "replaces": "d3ga_tpu/raster/pallas_blend_rec.py:306",
+            "launches": launches["blend_gather_rec_bwd"],
+            "max_abs_err": max(e["max_abs"] for e in k5["bwd"]),
+            "ms": k5b_t["ms"], "plain_ms": k5b_plain_t["ms"], "bound_ms": k5b_times[k5b_by] * 1e3,
+            "bound_by": k5b_by, "library_ms": None,
+        },
+    ]
+    timings = {"blend_gather_rec": {"kernel": k5_t, "plain": k5_plain_t},
+               "blend_gather_rec_bwd": {"kernel": k5b_t, "plain": k5b_plain_t}}
+    for k in kernels:
+        t = timings[k["name"]]
+        line(f"{k['name']}: ms={k['ms']:.4f} plain_ms={k['plain_ms']:.4f} "
+             f"bound_ms={k['bound_ms']:.4f} ({k['bound_by']}) library_ms={k['library_ms']} "
+             f"launches_per_call={k['launches'] / SHARD_CALLS:g}; wall per call "
+             + ", ".join(f"{nm}={v['call_ms']:.4f}" for nm, v in t.items()))
+    report.update(
+        k5=k5, k5_vs_k2=k5_vs_k2, k5_pairs=pairs, k5_bytes=k5_bytes, k5b_bytes=k5b_bytes,
+        sharded_vs_single=sh, sharded_vs_single_within_k=sh_in, aux_sharded=a_s, aux_single=a_1,
+        objective_grad_rel_l2=obj_err,
+        sharded_call_ms=call_ms, sharded_launches=launches, sharded_profiled=prof,
+        sharded_timings=timings,
     )
     report["kernels"] = report.get("kernels", []) + kernels
     return kernels

@@ -5,42 +5,20 @@
 // gather around it in pallas_segsum.py::blend_gather_segsum_ct's primal:
 // the [T, CR, K] record tensor that the TPU path materializes (33 MB a
 // frame at serving width) is never written; each block gathers its own
-// tile's records through idx.
-//
-// Semantics (those of _blend_fwd_ct): per record, tile-local offsets
-// x = X - sx, y = Y - sy, the falloff polynomial
-//   power = c0 + c1 dx + c2 dy + c3 dx^2 + c4 dy^2 + c5 dx dy
-// at integer pixel offsets (dx, dy) (no +0.5), and
-//   alpha = min(0.99, exp(power + log(max(opacity, 1e-12)))),
-// used only where power <= 0 and alpha >= 1/255; front-to-back, stop at
-// the record where T * (1 - alpha) < 1e-4 (that record is not blended).
-// Output is planar [(C+1), nty*16, ntx*16] with T_bg in the last plane.
-// T is a running product here; the TPU kernel's exp(cumsum(log1p(-a)))
-// differs from it only at rounding level.
+// tile's records through idx. The walk and its semantics are
+// blend_walk.cuh's. Output is planar [(C+1), nty*16, ntx*16] with T_bg in
+// the last plane.
 //
 // Bound on Hopper: operations. Each (pixel, record) pair visited costs
 // one exp and about 25 FP32 operations; at serving width that is
 // 256 * n_contrib pairs at most (fewer after early termination), against
 // 19 MB of output and ~9 MB of inputs.
 //
-// Design: one block of 256 threads per 16x16 tile, one thread per pixel.
-// The tile's counts[t] records are gathered through idx into shared
-// memory in chunks of 256 (their 7 falloff coefficients and C colours,
-// 13 KB at C = 6), each thread converting one record; then every thread
-// walks the chunk front to back from shared memory (broadcast reads).
-// A block-wide vote after each chunk ends the tile once every pixel has
-// terminated. An empty tile writes zeros and T_bg = 1.
+// Design: one block of 256 threads per 16x16 tile over the row-major grid,
+// one thread per pixel (blend_walk.cuh). An empty tile writes zeros and
+// T_bg = 1.
 
-#include <cuda_runtime.h>
-
-#define TILE 16
-#define NPIX (TILE * TILE)
-#define CHUNK NPIX
-
-#define ALPHA_SKIP (1.0f / 255.0f)
-#define ALPHA_MAX 0.99f
-#define T_EPS 1e-4f
-#define OP_EPS 1e-12f
+#include "blend_walk.cuh"
 
 template <int C>
 __global__ void __launch_bounds__(NPIX)
@@ -48,86 +26,20 @@ blend_gather_ct_kernel(const float* __restrict__ rec, int n_ext, int CR,
                        const int* __restrict__ idx, int K,
                        const int* __restrict__ counts, int ntx, int nty,
                        float* __restrict__ out) {
-  // s_c rows: c0, c0 + log(opacity), c1, c2, c3, c4, c5
-  __shared__ float s_c[7][CHUNK];
-  __shared__ float s_col[C][CHUNK];
-
   const int t = blockIdx.x;
   const int tx = t % ntx;
   const int ty = t / ntx;
   const int p = threadIdx.x;
-  const int dx = p % TILE;
-  const int dy = p / TILE;
-  const float sx = (float)(tx * TILE);
-  const float sy = (float)(ty * TILE);
-  const float fx = (float)dx, fy = (float)dy;
-  const float fxx = fx * fx, fyy = fy * fy, fxy = fx * fy;
-
-  const int cnt = min(max(counts[t], 0), K);
-  float T = 1.0f;
   float acc[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = 0.0f;
-  bool done = false;
-
-  for (int base = 0; base < cnt; base += CHUNK) {
-    const int n = min(CHUNK, cnt - base);
-    __syncthreads();  // the previous chunk has been read by every thread
-    if (p < n) {
-      int g = idx[(long long)t * K + base + p];
-      g = min(max(g, 0), n_ext - 1);
-      const float* r = rec + (long long)g * CR;
-      const float x = r[0] - sx;
-      const float y = r[1] - sy;
-      const float A = r[2], B = r[3], Cc = r[4];
-      const float logop = logf(fmaxf(r[5], OP_EPS));
-      const float c0 = -0.5f * (A * x * x + Cc * y * y) - B * x * y;
-      s_c[0][p] = c0;
-      s_c[1][p] = c0 + logop;
-      s_c[2][p] = A * x + B * y;
-      s_c[3][p] = Cc * y + B * x;
-      s_c[4][p] = -0.5f * A;
-      s_c[5][p] = -0.5f * Cc;
-      s_c[6][p] = -B;
-#pragma unroll
-      for (int c = 0; c < C; ++c) s_col[c][p] = r[6 + c];
-    }
-    __syncthreads();
-    if (!done) {
-      for (int k = 0; k < n; ++k) {
-        const float q = s_c[2][k] * fx + s_c[3][k] * fy + s_c[4][k] * fxx +
-                        s_c[5][k] * fyy + s_c[6][k] * fxy;
-        if (!(s_c[0][k] + q <= 0.0f)) continue;
-        const float e = expf(s_c[1][k] + q);
-        if (!(e >= ALPHA_SKIP)) continue;  // min(0.99, e) >= 1/255 iff e >= 1/255
-        const float alpha = fminf(ALPHA_MAX, e);
-        const float test_T = T * (1.0f - alpha);
-        if (test_T < T_EPS) {
-          done = true;
-          break;
-        }
-        const float w = alpha * T;
-#pragma unroll
-        for (int c = 0; c < C; ++c) acc[c] += w * s_col[c][k];
-        T = test_T;
-      }
-    }
-    if (__syncthreads_and(done)) break;
-  }
-
+  const float T = blend_walk_fwd<C>(rec, n_ext, CR, idx + (long long)t * K,
+                                    min(max(counts[t], 0), K), (float)(tx * TILE),
+                                    (float)(ty * TILE), acc);
   const long long wp = (long long)ntx * TILE;
   const long long plane = (long long)nty * TILE * wp;
-  const long long pix = (long long)(ty * TILE + dy) * wp + tx * TILE + dx;
+  const long long pix = (long long)(ty * TILE + p / TILE) * wp + tx * TILE + p % TILE;
 #pragma unroll
   for (int c = 0; c < C; ++c) out[c * plane + pix] = acc[c];
   out[C * plane + pix] = T;
-}
-
-template <int C>
-static void launch(const float* rec, int n_ext, int CR, const int* idx, int K, const int* counts,
-                   int ntx, int nty, float* out, cudaStream_t s) {
-  blend_gather_ct_kernel<C><<<ntx * nty, NPIX, 0, s>>>(rec, n_ext, CR, idx, K, counts, ntx, nty,
-                                                       out);
 }
 
 // Returns the cudaError_t of the launch, or -1 for an unsupported C.
@@ -139,16 +51,9 @@ extern "C" int d3ga_blend_gather_ct(const void* rec, int n_ext, int CR, const vo
   const int* c = (const int*)counts;
   float* o = (float*)out;
   cudaStream_t s = (cudaStream_t)cuda_stream;
-  switch (C) {
-    case 1: launch<1>(r, n_ext, CR, i, K, c, ntx, nty, o, s); break;
-    case 2: launch<2>(r, n_ext, CR, i, K, c, ntx, nty, o, s); break;
-    case 3: launch<3>(r, n_ext, CR, i, K, c, ntx, nty, o, s); break;
-    case 4: launch<4>(r, n_ext, CR, i, K, c, ntx, nty, o, s); break;
-    case 5: launch<5>(r, n_ext, CR, i, K, c, ntx, nty, o, s); break;
-    case 6: launch<6>(r, n_ext, CR, i, K, c, ntx, nty, o, s); break;
-    case 7: launch<7>(r, n_ext, CR, i, K, c, ntx, nty, o, s); break;
-    case 8: launch<8>(r, n_ext, CR, i, K, c, ntx, nty, o, s); break;
-    default: return -1;
-  }
+#define FWD(CC) \
+  blend_gather_ct_kernel<CC><<<ntx * nty, NPIX, 0, s>>>(r, n_ext, CR, i, K, c, ntx, nty, o)
+  D3GA_SWITCH_C(C, FWD)
+#undef FWD
   return (int)cudaGetLastError();
 }

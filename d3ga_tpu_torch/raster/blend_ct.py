@@ -47,8 +47,10 @@ def _pixel_basis(device):
     return torch.stack([torch.ones_like(dx), dx, dy, dx * dx, dy * dy, dx * dy], -1)
 
 
-def _tile_origins(T, ntx, device):
-    tids = torch.arange(T, device=device)
+def _tile_origins(T, ntx, device, offset=0):
+    """[T, 2] pixel origins of tiles offset .. offset + T - 1 of a
+    row-major grid ntx tiles wide."""
+    tids = offset + torch.arange(T, device=device)
     return torch.stack([(tids % ntx) * TILE, (tids // ntx) * TILE], -1).float()
 
 
@@ -78,19 +80,15 @@ def _blend_chunk(rec, org, live, basis):
                 accept=accept, w=w, t_bg=t_bg)
 
 
-def blend_gather_ct_plain(
-    records_ext, idx, counts, ntx, nty, C, tile_chunk=256, count_pairs=False
-):
-    """Plain PyTorch version of K2, mirroring `_blend_fwd_ct` in float32:
-    gather, falloff polynomial, alpha rules, then log-transmittance cumsum
-    over K. Tiles go in chunks of `tile_chunk` so the [chunk, 256, K]
-    intermediates stay bounded. count_pairs=True also returns the number
-    of (pixel, record) pairs a front-to-back walk visits (the kernel's
-    work on this data)."""
+def blend_tiles_plain(records_ext, idx, counts, origin, C, tile_chunk=256):
+    """Gather + blend of each tile's records, tile-major: [T, 256, C+1]
+    (pixel p = dy * 16 + dx, T_bg last) for tiles with pixel origins
+    origin [T, 2], and the number of (pixel, record) pairs a front-to-back
+    walk visits (the kernels' work on this data). Tiles go in chunks of
+    `tile_chunk` so the [chunk, 256, K] intermediates stay bounded."""
     T, K = idx.shape
     dev = records_ext.device
     basis = _pixel_basis(dev)
-    origin = _tile_origins(T, ntx, dev)
     slot = torch.arange(K, device=dev)
     tiles, pairs = [], 0
     for c0 in range(0, T, tile_chunk):
@@ -99,37 +97,22 @@ def blend_gather_ct_plain(
         f = _blend_chunk(rec, origin[c0 : c0 + tile_chunk], live, basis)
         rgb = torch.einsum("bpk,bkc->bpc", f["w"], rec[..., 6 : 6 + C])
         tiles.append(torch.cat([rgb, f["t_bg"][..., None]], -1))
-        if count_pairs:
-            pairs += int((live[:, None, :] & (f["t_before"] >= T_EPS)).sum())
-    out = torch.cat(tiles, 0)  # [T, 256, C+1]
-    out = (
-        out.reshape(nty, ntx, TILE, TILE, C + 1)
-        .permute(4, 0, 2, 1, 3)
-        .reshape(C + 1, nty * TILE, ntx * TILE)
-    )
-    return (out, pairs) if count_pairs else out
+        pairs += (live[:, None, :] & (f["t_before"] >= T_EPS)).sum()
+    return torch.cat(tiles, 0), int(pairs)
 
 
-def blend_gather_ct_bwd_plain(records_ext, idx, counts, g, ntx, nty, C, tile_chunk=256):
-    """Plain PyTorch version of K3: `_blend_bwd_ct` + `_coeffs_transpose_ct`
-    written out in float32 (not autograd of the plain forward, whose
-    gradient differs at the 0.99 clamp and in the opacity term).
-
-    g: [(C+1), nty*16, ntx*16] image cotangent (T_bg plane last).
-    Returns drec [T, K, CR], the cotangent of each slot's gathered record
-    (zero for slots past counts[t])."""
+def blend_tiles_bwd_plain(records_ext, idx, counts, origin, g_t, C, tile_chunk=256):
+    """`_blend_bwd_ct` + `_coeffs_transpose_ct` written out in float32
+    (not autograd of the plain forward, whose gradient differs at the 0.99
+    clamp and in the opacity term), for tiles with pixel origins origin
+    [T, 2] and the tile-major cotangent g_t [T, 256, C+1]. Returns drec
+    [T, K, CR], the cotangent of each slot's gathered record (zero for
+    slots past counts[t])."""
     T, K = idx.shape
     CR = records_ext.shape[1]
     dev = records_ext.device
     basis = _pixel_basis(dev)
-    origin = _tile_origins(T, ntx, dev)
     slot = torch.arange(K, device=dev)
-    # planar image -> [T, 256, C+1], the forward's assembly undone
-    g_t = (
-        g.reshape(C + 1, nty, TILE, ntx, TILE)
-        .permute(1, 3, 2, 4, 0)
-        .reshape(T, NPIX, C + 1)
-    )
     out = []
     for c0 in range(0, T, tile_chunk):
         rec = records_ext[idx[c0 : c0 + tile_chunk].long()]  # [B, K, CR]
@@ -163,6 +146,40 @@ def blend_gather_ct_bwd_plain(records_ext, idx, counts, g, ntx, nty, C, tile_chu
         drec = torch.nn.functional.pad(drec, (0, CR - 6 - C))
         out.append(torch.where(live[..., None], drec, 0.0))
     return torch.cat(out, 0)
+
+
+def blend_gather_ct_plain(
+    records_ext, idx, counts, ntx, nty, C, tile_chunk=256, count_pairs=False
+):
+    """Plain PyTorch version of K2, mirroring `_blend_fwd_ct` in float32:
+    gather, falloff polynomial, alpha rules, then log-transmittance cumsum
+    over K (`blend_tiles_plain`), assembled into the planar image.
+    count_pairs=True also returns the number of (pixel, record) pairs a
+    front-to-back walk visits (the kernel's work on this data)."""
+    T = idx.shape[0]
+    origin = _tile_origins(T, ntx, records_ext.device)
+    out, pairs = blend_tiles_plain(records_ext, idx, counts, origin, C, tile_chunk)
+    out = (
+        out.reshape(nty, ntx, TILE, TILE, C + 1)
+        .permute(4, 0, 2, 1, 3)
+        .reshape(C + 1, nty * TILE, ntx * TILE)
+    )
+    return (out, pairs) if count_pairs else out
+
+
+def blend_gather_ct_bwd_plain(records_ext, idx, counts, g, ntx, nty, C, tile_chunk=256):
+    """Plain PyTorch version of K3 (`blend_tiles_bwd_plain` on the planar
+    image cotangent g: [(C+1), nty*16, ntx*16], T_bg plane last).
+    Returns drec [T, K, CR]."""
+    T = idx.shape[0]
+    # planar image -> [T, 256, C+1], the forward's assembly undone
+    g_t = (
+        g.reshape(C + 1, nty, TILE, ntx, TILE)
+        .permute(1, 3, 2, 4, 0)
+        .reshape(T, NPIX, C + 1)
+    )
+    origin = _tile_origins(T, ntx, records_ext.device)
+    return blend_tiles_bwd_plain(records_ext, idx, counts, origin, g_t, C, tile_chunk)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,0 +1,195 @@
+"""K5: record gather + front-to-back alpha blend on a flat run of tiles
+(the sharded rasterizer's blend), forward and backward.
+
+Replaces the TPU kernels `d3ga_tpu/raster/pallas_blend_rec.py::_run_forward`
+and `::_run_backward` (`_forward_body`, `_blend_fwd`, `_backward_body`,
+`_blend_bwd`, `_coeffs_from_rec`, `_coeffs_transpose`) as reached from
+`pallas_segsum.py::blend_gather_segsum_rec`, with the hand-written CUDA
+kernels of `csrc/blend_rec.cu` (its header gives the bound and the
+design). The math is K2/K3's (`blend_ct.py`); what differs is the tile
+run and the layout:
+
+- the T_loc tiles are tiles `tile_offset .. tile_offset + T_loc - 1` of
+  the row-major grid `ntx` tiles wide: tile t has its pixel origin at
+  ((off + t) % ntx, (off + t) // ntx) * 16 (`_tile_origin`), so one
+  shard's contiguous slice of tiles blends without the rest;
+- the output is tile-major [T_loc, 256, C+1], pixel p = dy * 16 + dx, T_bg
+  last; the cotangent comes in the same layout.
+
+The record gather is fused into both kernels as in K2/K3: records_ext
+[N+1, CR] with a zero sentinel row, idx [T_loc, K] int32. The backward
+writes drec [T_loc, K, CR] (zero for dead slots), which goes straight to
+the per-Gaussian combine (K4, `segsum.combine_from_slots`).
+
+`blend_gather_rec` is one `torch.autograd.Function` for both devices: on
+CUDA tensors K5 forward and K5 backward + K4, on CPU tensors (or with
+plain=True) the plain PyTorch versions. There is no fallback between the
+two. The TPU kernel's count-adaptive half width (`_khalf`) and
+`TILES_PER_BLOCK` are tiling choices, not semantics: the walk stops at
+each tile's count, past which every slot holds the inert sentinel.
+"""
+
+import ctypes
+import functools
+
+import torch
+
+from d3ga_tpu_torch.raster import segsum
+from d3ga_tpu_torch.raster.blend_ct import (
+    MAX_C,
+    NPIX,
+    _tile_origins,
+    blend_tiles_bwd_plain,
+    blend_tiles_plain,
+)
+from d3ga_tpu_torch.utils import cuda_build
+
+# one per launch of the CUDA kernel (never for the plain version)
+launches = 0
+bwd_launches = 0
+
+
+def blend_gather_rec_plain(records_ext, idx, counts, tile_offset, ntx, C, tile_chunk=256,
+                           count_pairs=False):
+    """Plain PyTorch version of K5's forward: [T_loc, 256, C+1]; with
+    count_pairs=True also the (pixel, record) pairs a front-to-back walk
+    visits."""
+    origin = _tile_origins(idx.shape[0], ntx, records_ext.device, int(tile_offset))
+    out, pairs = blend_tiles_plain(records_ext, idx, counts, origin, C, tile_chunk)
+    return (out, pairs) if count_pairs else out
+
+
+def blend_gather_rec_bwd_plain(records_ext, idx, counts, tile_offset, g, ntx, C,
+                               tile_chunk=256):
+    """Plain PyTorch version of K5's backward: drec [T_loc, K, CR] for the
+    tile-major cotangent g [T_loc, 256, C+1]."""
+    origin = _tile_origins(idx.shape[0], ntx, records_ext.device, int(tile_offset))
+    return blend_tiles_bwd_plain(records_ext, idx, counts, origin, g, C, tile_chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = cuda_build.load("blend_rec")
+    common = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+              ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.d3ga_blend_gather_rec.argtypes = common + [ctypes.c_void_p, ctypes.c_void_p]
+    lib.d3ga_blend_gather_rec_bwd.argtypes = common + [ctypes.c_void_p, ctypes.c_void_p,
+                                                       ctypes.c_void_p]
+    lib.d3ga_blend_gather_rec.restype = ctypes.c_int
+    lib.d3ga_blend_gather_rec_bwd.restype = ctypes.c_int
+    return lib
+
+
+def _check(name, records_ext, idx, counts, tile_offset, ntx, C):
+    if records_ext.dtype != torch.float32:
+        raise TypeError(f"{name}: records must be float32, got {records_ext.dtype}")
+    if idx.dtype != torch.int32 or counts.dtype != torch.int32:
+        raise TypeError(f"{name}: idx and counts must be int32")
+    if records_ext.ndim != 2 or idx.ndim != 2 or counts.shape != idx.shape[:1]:
+        raise ValueError(f"{name}: expected records [N+1, CR], idx [T, K], counts [T]")
+    if not 1 <= C <= MAX_C or records_ext.shape[1] < 6 + C:
+        raise ValueError(f"{name}: C={C} with {records_ext.shape[1]} record columns unsupported")
+    if ntx < 1 or tile_offset < 0 or tile_offset + idx.shape[0] >= 2**31:
+        raise ValueError(f"{name}: ntx={ntx}, tile_offset={tile_offset} out of range")
+    if not (idx.device == counts.device == records_ext.device):
+        raise ValueError(f"{name}: inputs on different devices")
+    if not (records_ext.is_contiguous() and idx.is_contiguous() and counts.is_contiguous()):
+        raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def _launch(records_ext, idx, counts, tile_offset, ntx, C):
+    global launches
+    _check("blend_gather_rec", records_ext, idx, counts, tile_offset, ntx, C)
+    n_ext, CR = records_ext.shape
+    T, K = idx.shape
+    out = torch.empty((T, NPIX, C + 1), dtype=torch.float32, device=records_ext.device)
+    if T == 0:
+        return out
+    err = _lib().d3ga_blend_gather_rec(
+        records_ext.data_ptr(), n_ext, CR, idx.data_ptr(), T, K, counts.data_ptr(),
+        int(tile_offset), ntx, C, out.data_ptr(), cuda_build.stream_handle(records_ext.device),
+    )
+    if err != 0:
+        raise RuntimeError(f"blend_gather_rec: kernel launch failed (error {err})")
+    launches += 1
+    return out
+
+
+def _launch_bwd(records_ext, idx, counts, tile_offset, g, ntx, C):
+    global bwd_launches
+    _check("blend_gather_rec_bwd", records_ext, idx, counts, tile_offset, ntx, C)
+    T, K = idx.shape
+    if g.dtype != torch.float32 or tuple(g.shape) != (T, NPIX, C + 1):
+        raise ValueError(f"blend_gather_rec_bwd: cotangent {g.dtype} {tuple(g.shape)}")
+    if g.device != records_ext.device or not g.is_contiguous():
+        raise ValueError("blend_gather_rec_bwd: cotangent on another device or not contiguous")
+    n_ext, CR = records_ext.shape
+    drec = torch.empty((T, K, CR), dtype=torch.float32, device=records_ext.device)
+    if T == 0:
+        return drec
+    err = _lib().d3ga_blend_gather_rec_bwd(
+        records_ext.data_ptr(), n_ext, CR, idx.data_ptr(), T, K, counts.data_ptr(),
+        int(tile_offset), ntx, C, g.data_ptr(), drec.data_ptr(),
+        cuda_build.stream_handle(records_ext.device),
+    )
+    if err != 0:
+        raise RuntimeError(f"blend_gather_rec_bwd: kernel launch failed (error {err})")
+    bwd_launches += 1
+    return drec
+
+
+def blend_gather_rec_bwd(records_ext, idx, counts, tile_offset, g, ntx, C):
+    """K5's backward alone: drec [T_loc, K, CR] for the cotangent g
+    [T_loc, 256, C+1]; the CUDA kernel on CUDA tensors, the plain version
+    on CPU tensors."""
+    if records_ext.device.type == "cpu":
+        return blend_gather_rec_bwd_plain(records_ext, idx, counts, tile_offset, g, ntx, C)
+    if records_ext.device.type != "cuda":
+        raise ValueError(f"blend_gather_rec_bwd: unsupported device {records_ext.device}")
+    return _launch_bwd(records_ext, idx, counts, tile_offset, g.contiguous(), ntx, C)
+
+
+class _BlendGatherRec(torch.autograd.Function):
+    """Gather + flat-tiles blend with the JAX package's custom VJP
+    (`blend_gather_segsum_rec`): the backward is K5's (per-slot
+    cotangents) then the id sort + K4 (per-Gaussian sums), or their plain
+    versions. Saves the inputs only."""
+
+    @staticmethod
+    def forward(ctx, records_ext, idx, counts, tile_offset, ntx, C, dup2, plain):
+        ctx.save_for_backward(records_ext, idx, counts)
+        ctx.meta = (tile_offset, ntx, C, dup2, plain)
+        if plain:
+            return blend_gather_rec_plain(records_ext, idx, counts, tile_offset, ntx, C)
+        return _launch(records_ext, idx, counts, tile_offset, ntx, C)
+
+    @staticmethod
+    def backward(ctx, g):
+        records_ext, idx, counts = ctx.saved_tensors
+        tile_offset, ntx, C, dup2, plain = ctx.meta
+        g = g.to(torch.float32).contiguous()
+        if plain:
+            drec = blend_gather_rec_bwd_plain(records_ext, idx, counts, tile_offset, g, ntx, C)
+        else:
+            drec = _launch_bwd(records_ext, idx, counts, tile_offset, g, ntx, C)
+        n = records_ext.shape[0] - 1
+        dre = segsum.combine_from_slots(drec, idx, n, dup2, plain=plain)
+        return dre, None, None, None, None, None, None, None
+
+
+def blend_gather_rec(records_ext, idx, counts, tile_offset, ntx, C, dup2=None, plain=False):
+    """records_ext [N+1, CR] float32 packed records (x, y, conic a/b/c,
+    opacity, C colours; xy in global pixel coordinates) with a zero
+    sentinel row; idx [T_loc, K] int32 record ids in front-to-back order
+    (N for empty slots); counts [T_loc] int32 live slots per tile (<= K);
+    tile_offset the grid index of the first tile. Returns [T_loc, 256,
+    C+1] (T_bg last), differentiable in records_ext. dup2 bounds the
+    occurrences of one id in idx, checked by the plain combine. CPU
+    tensors, or plain=True, take the plain versions forward and
+    backward."""
+    dev = records_ext.device.type
+    if dev not in ("cpu", "cuda"):
+        raise ValueError(f"blend_gather_rec: unsupported device {records_ext.device}")
+    return _BlendGatherRec.apply(
+        records_ext, idx, counts, int(tile_offset), ntx, C, dup2, plain or dev == "cpu"
+    )

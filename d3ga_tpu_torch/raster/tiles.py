@@ -55,7 +55,8 @@ def visible_cap_drops(t_bg_max, counts, K):
 
 
 def _select_per_tile_depthkey(
-    rects, valid, depth, n_tiles_x, n_tiles_y, K, dup=4, depth_exact=False, plain=False
+    rects, valid, depth, n_tiles_x, n_tiles_y, K, dup=4, depth_exact=False, plain=False,
+    return_depth=False,
 ):
     """Per-tile front-K selection by (tile | depth, index) keys.
 
@@ -77,6 +78,12 @@ def _select_per_tile_depthkey(
     original indices with -1 padding, counts [T] int32, clamp-dropped []
     int32, ties [] int32). plain=True cuts the windows with K1's plain
     version whatever the device.
+
+    return_depth=True also returns the selected entries' depths [T, K]
+    float32 (inf past counts), for the sharded merge: where(valid, depth,
+    inf) rides the sort as a payload (entry e reads Gaussian e // dup^2)
+    and K1 cuts its windows too, a second launch on the float32 stream.
+    The depths are detached: the selection is integer work.
     """
     xmin, xmax, ymin, ymax = (r.to(torch.int64) for r in rects)
     dev = xmin.device
@@ -134,12 +141,19 @@ def _select_per_tile_depthkey(
     counts = starts[1:] - starts[:-1]
     kk = min(K, m)
     extract = extract_slices_plain if plain else extract_slices
-    seg = extract(lo_s, starts[:-1].contiguous(), kk)
+    seg_starts = starts[:-1].contiguous()
+    seg = extract(lo_s, seg_starts, kk)
     live = torch.arange(kk, device=dev)[None] < torch.clamp(counts, max=kk)[:, None]
     out = torch.where(live, seg, -1)
     if K > kk:
         out = torch.nn.functional.pad(out, (0, K - kk), value=-1)
-    return out, counts, clamp_dropped, ties
+    if not return_depth:
+        return out, counts, clamp_dropped, ties
+    payload = torch.where(valid, depth.detach().to(torch.float32), torch.inf)[perm // dup2]
+    dsel = torch.where(live, extract(payload.contiguous(), seg_starts, kk), torch.inf)
+    if K > kk:
+        dsel = torch.nn.functional.pad(dsel, (0, K - kk), value=torch.inf)
+    return out, counts, clamp_dropped, ties, dsel
 
 
 class Binned(NamedTuple):

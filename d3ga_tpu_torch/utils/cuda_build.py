@@ -3,9 +3,10 @@
 Each source is compiled on its own by `nvcc` for sm_90a into a shared
 library with a plain C interface, loaded with ctypes: no PyTorch headers,
 so a build takes seconds. Libraries go to `build/kernels/` at the root of
-the checkout (git-ignored), named by a hash of the source and the flags,
-so a changed source is rebuilt and an unchanged one is reused. The first
-call of a kernel builds it; `build_all` builds every source in parallel.
+the checkout (git-ignored), named by a hash of the source, the shared
+headers (`csrc/*.cuh`) and the flags, so a changed source is rebuilt and
+an unchanged one is reused. The first call of a kernel builds it;
+`build_all` builds every source in parallel.
 """
 
 import ctypes
@@ -17,7 +18,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNEL_SOURCES = ("extract", "blend_ct", "blend_ct_bwd", "segsum")
+KERNEL_SOURCES = ("extract", "blend_ct", "blend_ct_bwd", "segsum", "blend_rec")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -37,7 +38,8 @@ def nvcc_path() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the source, the shared headers it may include, and the flags
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
