@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (d3ga_tpu_torch) on one NVIDIA GPU.
 
-Builds the five hand-written kernels from `d3ga_tpu_torch/csrc/` and
-holds each against its plain PyTorch version at full width: K1 front-K
+Builds the hand-written kernels from `d3ga_tpu_torch/csrc/` and holds
+each against its plain PyTorch version at full width: K1 front-K
 extraction and K2 gather + blend on the serving path's selection, K3
 (the blend backward) and K4 (the per-Gaussian combine) on the same
 selection with a seeded random image cotangent, K5 (the sharded path's
 flat-tiles blend, forward and backward) on the whole grid and on the
-tile slices of the ranks of a 4-way banded split. Then it drives the
-three paths of the full-width synthetic avatar (3 garments x 45,000
+tile slices of the ranks of a 4-way banded split, K7 (the image-layout
+blend, forward and backward) on the serving selection. Then it drives
+the paths of the full-width synthetic avatar (3 garments x 45,000
 Gaussians, 1024 x 667 pixels, random weights from seed 0):
 
 - serving: eval-mode `avatar_forward` + champion `rasterize_tiled` (6
@@ -23,6 +24,12 @@ Gaussians, 1024 x 667 pixels, random weights from seed 0):
   objective (`rasterize_collective(banded=True)`, 0.8 L1 + 0.2 (1 -
   SSIM)): its gradients with the kernels against the plain versions,
   then 10 forward+backward calls;
+- variants: the training step under the ActorsHQ actor's raster settings
+  (dupsort_tile, dup 4) in the rec layout (K7) and the ct layout (K2/K3),
+  each with one step's gradients kernels vs plain and then 5 steps; the
+  xla backend (topk funnel, `_blend_tiles`) forward + backward against
+  the same selection blended by K2, with its peak memory; the public
+  API's backends against the oracle on a small scene;
 
 and checks that the kernels carried every frame, step and call.
 
@@ -49,7 +56,8 @@ from d3ga_tpu_torch.dist.banded import banded_l1_ssim
 from d3ga_tpu_torch.dist.mesh import initialize_distributed, local_mesh
 from d3ga_tpu_torch.dist.raster_shard import rasterize_collective, rasterize_sharded
 from d3ga_tpu_torch.model.avatar import avatar_forward, init_avatar
-from d3ga_tpu_torch.raster import blend_ct, blend_rec, extract, segsum
+from d3ga_tpu_torch.raster import api, blend_ct, blend_rec, extract, segsum, tiles
+from d3ga_tpu_torch.raster.camera import focal2fov, make_camera
 from d3ga_tpu_torch.raster.tiles import bin_gaussians, rasterize_tiled
 from d3ga_tpu_torch.train.optim import lr_tree_from_config, make_optimizer
 from d3ga_tpu_torch.train.step import LossWeights, make_train_step, random_bg
@@ -72,6 +80,14 @@ TRAIN_CONFIG = {
 }
 # the small cross-device check: the CPU tests' slice size
 SMALL = dict(n_garments=2, n_gaussians=150, width=64, height=48, k=128)
+# the ActorsHQ actor's raster settings (configs/actorshq_actor02.yml)
+ACTORSHQ_CONFIG = {
+    "raster_backend": "pallas_blend", "raster_opts": {"coarse": "dupsort_tile", "dup": 4},
+}
+VARIANT_STEPS = 5  # training steps under those settings, in each blend layout
+# the API's backends against the oracle: tests/test_torch_api.py's scene
+# (120 Gaussians, 80 x 56 pixels; the oracle holds [rows x W, N] per chunk)
+API_N, API_W, API_H = 120, 80, 56
 
 # image tolerances (PALLAS_PARITY.json's columns): threshold flips of the
 # alpha >= 1/255 and T < 1e-4 rules dominate max-abs, so p999 and the
@@ -196,6 +212,16 @@ def profile_calls(fn, calls, dev):
     }
 
 
+def profile_summary(prof, unprofiled_ms):
+    """One line of profile_calls' result, the idle share also against the
+    unprofiled wall time of a call."""
+    return (f"wall {prof['wall_ms']:.3f} ms, device busy {prof['device_busy_ms']:.3f} ms (idle "
+            f"share {prof['idle_share']:.3f}; against the unprofiled call "
+            f"{1 - prof['device_busy_ms'] / unprofiled_ms:.3f}), {prof['kernels_per_call']:.0f} "
+            f"kernels and {prof['launch_host_ms']:.3f} ms of cudaLaunchKernel a call; top kernels "
+            + "; ".join(f"{k[:60]} {ms:.3f} ms x{n:g}" for k, ms, n in prof["top"][:6]))
+
+
 def measure(fn, iters, dev, warmup=2):
     """{"call_ms": wall per call (events), "device_ms": kernel time per
     call (profiler), "ms": device_ms where recorded, else call_ms}."""
@@ -223,6 +249,19 @@ def image_ok(e):
     return e["p999_abs"] <= P999_MAX and e["flip_frac"] <= FLIP_MAX
 
 
+def slot_err(a, b):
+    """Per-slot cotangents a against the plain b: max and p999 abs error,
+    relative L2, and b's largest |value| (the scale the p999 is held to)."""
+    err = (a - b).abs().flatten()
+    k = max(1, int(np.ceil(0.999 * err.numel())))
+    return {"max_abs": float(err.max()), "p999_abs": float(err.kthvalue(k).values),
+            "rel_l2": rel_l2(a, b), "scale": float(b.abs().max())}
+
+
+def slot_ok(e):
+    return e["p999_abs"] <= K3_P999_REL * e["scale"] and e["rel_l2"] <= K3_REL_L2
+
+
 def aux_ints(aux):
     return {f: int(getattr(aux, f)) for f in aux._fields}
 
@@ -241,9 +280,16 @@ def render(params, model, camera, lbs, k, plain=False):
     img, aux = rasterize_tiled(
         pkg["means3D"], camera, torch.tensor(BG6, device=colors.device),
         cov3d=pkg["cov3D_precomp"], opacities=pkg["opacities"], colors=colors,
-        max_per_tile=k, dup=DUP, plain=plain,
+        max_per_tile=k, use_pallas=True, coarse="dupsort_depth", dup=DUP, plain=plain,
     )
     return pkg, img, aux
+
+
+def reset_launch_counts():
+    """Every kernel's launch counter to 0."""
+    extract.launches = blend_ct.launches = blend_ct.bwd_launches = segsum.launches = 0
+    blend_rec.launches = blend_rec.bwd_launches = 0
+    blend_rec.img_launches = blend_rec.img_bwd_launches = 0
 
 
 def rel_l2(a, b):
@@ -257,7 +303,8 @@ def run(dev, report):
     with torch.no_grad():
         kernels, scene = serve(dev, report)
     kernels = kernels + train(dev, report, scene)
-    return kernels + sharded(dev, report, scene)
+    kernels = kernels + sharded(dev, report, scene)
+    return kernels + variants(dev, report, scene)
 
 
 def logger(report):
@@ -378,8 +425,7 @@ def serve(dev, report):
     # -- the serving path: 20 frames --------------------------------------
     render(params, model, camera, pose(0), K)  # warm-up
     sync(dev)
-    extract.launches = 0
-    blend_ct.launches = 0
+    reset_launch_counts()
     finite = torch.ones((), dtype=torch.bool, device=dev)
     t0 = time.perf_counter()
     per_frame = []
@@ -470,15 +516,11 @@ def train(dev, report, scene):
         drec_p = blend_ct.blend_gather_ct_bwd_plain(*bwd_args)
         sync(dev)
         check(bool(torch.isfinite(drec).all()), "K3: non-finite cotangents")
-        err = (drec - drec_p).abs().flatten()
-        scale = float(drec_p.abs().max())
-        kk = max(1, int(np.ceil(0.999 * err.numel())))
-        k3 = {"max_abs": float(err.max()), "p999_abs": float(err.kthvalue(kk).values),
-              "rel_l2": rel_l2(drec, drec_p), "scale": scale}
+        k3 = slot_err(drec, drec_p)
         line(f"K3 blend_gather_ct_bwd vs plain at full width: max_abs={k3['max_abs']:.3e} "
-             f"p999_abs={k3['p999_abs']:.3e} rel_l2={k3['rel_l2']:.3e} (max |drec| {scale:.3e})")
-        check(k3["p999_abs"] <= K3_P999_REL * scale and k3["rel_l2"] <= K3_REL_L2,
-              f"K3: outside p999 <= {K3_P999_REL} x max|drec| / rel_l2 <= {K3_REL_L2}")
+             f"p999_abs={k3['p999_abs']:.3e} rel_l2={k3['rel_l2']:.3e} "
+             f"(max |drec| {k3['scale']:.3e})")
+        check(slot_ok(k3), f"K3: outside p999 <= {K3_P999_REL} x max|drec| / rel_l2 <= {K3_REL_L2}")
         k3_t = measure(lambda: blend_ct.blend_gather_ct_bwd(*bwd_args), 20, dev)
         k3_plain_t = measure(
             lambda: blend_ct.blend_gather_ct_bwd_plain(*bwd_args), 3, dev, warmup=1
@@ -541,6 +583,7 @@ def train(dev, report, scene):
         "silhouette": torch.full((3, HEIGHT, WIDTH), 0.5, device=dev),
     }
     bg = random_bg(torch.Generator().manual_seed(2), dev)
+    scene.update(batch=batch, bg=bg)
     _, terms_k, _, grads_k = step.loss_and_grads(params, batch, bg, 0)
     _, terms_p, _, grads_p = step_plain.loss_and_grads(params, batch, bg, 0)
     sync(dev)
@@ -563,7 +606,7 @@ def train(dev, report, scene):
     step(params, batch, gen, 0)  # warm-up
     sync(dev)
     start = [p.detach().clone() for p in tree_leaves(params)]
-    extract.launches = blend_ct.launches = blend_ct.bwd_launches = segsum.launches = 0
+    reset_launch_counts()
     per_step, finite = [], torch.ones((), dtype=torch.bool, device=dev)
     t0 = time.perf_counter()
     for i in range(STEPS):
@@ -588,12 +631,7 @@ def train(dev, report, scene):
     step_prof = profile_calls(lambda: step(params, batch, gen, STEPS + 1), 3, dev)
     if step_prof is not None:
         line(f"training step, profiled ({step_prof['calls']} steps): "
-             f"wall {step_prof['wall_ms']:.3f} ms, device busy {step_prof['device_busy_ms']:.3f} ms (idle share "
-             f"{step_prof['idle_share']:.3f}; against the unprofiled step "
-             f"{1 - step_prof['device_busy_ms'] / step_ms:.3f}), "
-             f"{step_prof['kernels_per_call']:.0f} kernels and "
-             f"{step_prof['launch_host_ms']:.3f} ms of cudaLaunchKernel a step; top kernels "
-             + "; ".join(f"{k[:60]} {ms:.3f} ms x{n:g}" for k, ms, n in step_prof["top"][:6]))
+             f"{profile_summary(step_prof, step_ms)}")
 
     kernels = [
         {
@@ -686,10 +724,7 @@ def _sharded_phases(dev, report, scene, mesh, line):
             check(bool(torch.isfinite(out_k).all() and torch.isfinite(drec_k).all()),
                   f"K5 at offset {off}: non-finite output")
             e = image_err(out_k, out_p)
-            err = (drec_k - drec_p).abs().flatten()
-            kk = max(1, int(np.ceil(0.999 * err.numel())))
-            d = {"max_abs": float(err.max()), "p999_abs": float(err.kthvalue(kk).values),
-                 "rel_l2": rel_l2(drec_k, drec_p), "scale": float(drec_p.abs().max())}
+            d = slot_err(drec_k, drec_p)
             k5["fwd"].append(dict(e, offset=off, tiles=n))
             k5["bwd"].append(dict(d, offset=off, tiles=n))
             line(f"K5 at tile offset {off} ({n} tiles) vs plain: forward p999_abs="
@@ -698,7 +733,7 @@ def _sharded_phases(dev, report, scene, mesh, line):
                  f"(max |drec| {d['scale']:.3e})")
             check(image_ok(e), f"K5 forward at offset {off}: outside p999 <= {P999_MAX} / "
                                f"flips <= {FLIP_MAX}")
-            check(d["p999_abs"] <= K3_P999_REL * d["scale"] and d["rel_l2"] <= K3_REL_L2,
+            check(slot_ok(d),
                   f"K5 backward at offset {off}: outside p999 <= {K3_P999_REL} x max|drec| / "
                   f"rel_l2 <= {K3_REL_L2}")
         # the whole grid at offset 0 is K2's image, tile-major
@@ -738,8 +773,9 @@ def _sharded_phases(dev, report, scene, mesh, line):
         img_s, aux_s = rasterize_sharded(
             mesh, means, scene["camera"], bg, cov3d=cov3d, opacities=opac, colors=colors,
             max_per_tile=K, dup=DUP, use_pallas=True, shard_select=True)
-        img_1, aux_1 = rasterize_tiled(means, scene["camera"], bg, cov3d, opac, colors,
-                                       max_per_tile=K, dup=DUP, depth_exact=True)
+        img_1, aux_1 = rasterize_tiled(
+            means, scene["camera"], bg, cov3d=cov3d, opacities=opac, colors=colors,
+            max_per_tile=K, use_pallas=True, coarse="dupsort_depth", dup=DUP, depth_exact=True)
         sync(dev)
     # The local selection orders a tile's candidates by quantized depth
     # (index tie-breaks, as the JAX package's sharded path does), the
@@ -802,8 +838,7 @@ def _sharded_phases(dev, report, scene, mesh, line):
 
     call()  # warm-up
     sync(dev)
-    extract.launches = blend_ct.launches = blend_ct.bwd_launches = segsum.launches = 0
-    blend_rec.launches = blend_rec.bwd_launches = 0
+    reset_launch_counts()
     per_call = []
     t0 = time.perf_counter()
     for _ in range(SHARD_CALLS):
@@ -821,12 +856,8 @@ def _sharded_phases(dev, report, scene, mesh, line):
           f"launch counts after each call {per_call}: not K1 x2, K5, K5 backward, K4 x1 a call")
     prof = profile_calls(call, 3, dev)
     if prof is not None:
-        line(f"sharded objective, profiled ({prof['calls']} calls): wall {prof['wall_ms']:.3f} ms, "
-             f"device busy {prof['device_busy_ms']:.3f} ms (idle share {prof['idle_share']:.3f}; "
-             f"against the unprofiled call {1 - prof['device_busy_ms'] / call_ms:.3f}), "
-             f"{prof['kernels_per_call']:.0f} kernels and {prof['launch_host_ms']:.3f} ms of "
-             f"cudaLaunchKernel a call; top kernels "
-             + "; ".join(f"{k[:60]} {ms:.3f} ms x{n:g}" for k, ms, n in prof["top"][:6]))
+        line(f"sharded objective, profiled ({prof['calls']} calls): "
+             f"{profile_summary(prof, call_ms)}")
 
     kernels = [
         {
@@ -865,6 +896,267 @@ def _sharded_phases(dev, report, scene, mesh, line):
     )
     report["kernels"] = report.get("kernels", []) + kernels
     return kernels
+
+
+def launch_counts():
+    """(K1, K2, K3, K7, K7 backward, K4) launches so far."""
+    return (extract.launches, blend_ct.launches, blend_ct.bwd_launches, blend_rec.img_launches,
+            blend_rec.img_bwd_launches, segsum.launches)
+
+
+def variants(dev, report, scene):
+    """The rest of the single-device rasterizer: K7 (the image-layout
+    blend) forward and backward against the plain versions, and its image
+    against K2's, on the champion selection; the training step under the
+    ActorsHQ actor's raster settings (dupsort_tile, dup 4) in the rec
+    layout (K7) and in the ct layout (K2/K3), each with one step's
+    gradients kernels vs plain, then 5 steps; the xla backend (the topk
+    funnel and `_blend_tiles`), forward + backward, against the same
+    selection blended by K2; the public API's backends against the oracle
+    on a small scene. Returns the K7 entries."""
+    line = logger(report)
+    b, cnt, C = scene["binned"], scene["cnt"], scene["C"]
+    T, ntx, nty = b.idx.shape[0], b.ntx, b.nty
+    CR = b.records_ext.shape[1]
+    n_contrib = int(cnt.sum())
+
+    # -- K7: image-layout blend, forward and backward, vs plain and K2 -------
+    gen = torch.Generator(device=dev).manual_seed(7)
+    g = torch.randn((nty * 16, ntx * 16, C + 1), generator=gen, device=dev)
+    args = (b.records_ext, b.idx, cnt, ntx, nty, C)
+    with torch.no_grad():
+        out_k = blend_rec.blend_gather_img(*args)
+        out_p, pairs = blend_rec.blend_gather_img_plain(*args, count_pairs=True)
+        planar = blend_ct.blend_gather_ct(*args)
+        drec_k = blend_rec.blend_gather_img_bwd(*args[:3], g, ntx, nty, C)
+        drec_p = blend_rec.blend_gather_img_bwd_plain(*args[:3], g, ntx, nty, C)
+        sync(dev)
+        check(bool(torch.isfinite(out_k).all() and torch.isfinite(drec_k).all()),
+              "K7: non-finite output")
+        k7 = image_err(out_k, out_p)
+        k7_is_k2 = bool(torch.equal(out_k, planar.permute(1, 2, 0)))
+        k7b = slot_err(drec_k, drec_p)
+        line(f"K7 blend_gather_img vs plain at full width: max_abs={k7['max_abs']:.3e} "
+             f"p999_abs={k7['p999_abs']:.3e} frac={k7['flip_frac']:.3e}; equals K2's image "
+             f"(channels last) to the last bit: {k7_is_k2}; backward p999_abs="
+             f"{k7b['p999_abs']:.3e} rel_l2={k7b['rel_l2']:.3e} (max |drec| {k7b['scale']:.3e})")
+        check(image_ok(k7), f"K7 forward: outside p999 <= {P999_MAX} / flips <= {FLIP_MAX}")
+        check(k7_is_k2, "K7's image differs from K2's")
+        check(slot_ok(k7b), f"K7 backward: outside p999 <= {K3_P999_REL} x max|drec| / "
+                            f"rel_l2 <= {K3_REL_L2}")
+        k7_t = measure(lambda: blend_rec.blend_gather_img(*args), 20, dev)
+        k7_plain_t = measure(lambda: blend_rec.blend_gather_img_plain(*args), 3, dev, warmup=1)
+        k7b_t = measure(lambda: blend_rec.blend_gather_img_bwd(*args[:3], g, ntx, nty, C), 20, dev)
+        k7b_plain_t = measure(
+            lambda: blend_rec.blend_gather_img_bwd_plain(*args[:3], g, ntx, nty, C), 3, dev,
+            warmup=1)
+    del out_p, planar, drec_k, drec_p
+    in_bytes = 4 * (scene["uniq"] * CR + n_contrib + T)
+    k7_bytes = in_bytes + 4 * out_k.numel()
+    k7b_bytes = in_bytes + 4 * g.numel() + 4 * T * b.idx.shape[1] * CR
+    k7_times = {"bytes": k7_bytes / HBM_BYTES_PER_S,
+                "operations": max(pairs * BLEND_FP32_OPS_PER_PAIR / FP32_OPS_PER_S,
+                                  pairs / SFU_OPS_PER_S)}
+    k7b_times = {"bytes": k7b_bytes / HBM_BYTES_PER_S,
+                 "operations": max(pairs * BLEND_BWD_FP32_OPS_PER_PAIR / FP32_OPS_PER_S,
+                                   pairs * BLEND_BWD_SFU_PER_PAIR / SFU_OPS_PER_S)}
+    k7_by, k7b_by = max(k7_times, key=k7_times.get), max(k7b_times, key=k7b_times.get)
+    line(f"K7 work: pixel-record pairs visited={pairs}, bytes forward={k7_bytes} "
+         f"backward={k7b_bytes}")
+
+    # -- the ActorsHQ raster settings, rec and ct layouts -------------------------
+    model = scene["model"]._replace(config=dict(scene["model"].config, **ACTORSHQ_CONFIG))
+    batch, bg = scene["batch"], scene["bg"]
+    weights = LossWeights(enable_vgg_from=0)
+    expect = {  # (K1, K2, K3, K7, K7 backward, K4) launches after step i
+        "rec": lambda i: (0, 0, 0, i, i, i),
+        "ct": lambda i: (0, i, i, 0, 0, i),
+    }
+    actorshq = {}
+    saved_layout = tiles.BLEND_LAYOUT
+    try:
+        for layout in ("rec", "ct"):
+            tiles.BLEND_LAYOUT = layout  # the module constant, as the tests set it
+            params = init_avatar(torch.Generator().manual_seed(0), model)
+            tx = make_optimizer(params, lr_tree_from_config(params))
+            step = make_train_step(model, tx, max_per_tile=K, loss_weights=weights)
+            step_plain = make_train_step(model, tx, max_per_tile=K, loss_weights=weights,
+                                         plain=True)
+            _, terms_k, aux_k, grads_k = step.loss_and_grads(params, batch, bg, 0)
+            _, terms_p, _, grads_p = step_plain.loss_and_grads(params, batch, bg, 0)
+            sync(dev)
+            term_err = {k: abs(float(terms_k[k].detach()) - float(v.detach()))
+                        / max(abs(float(v.detach())), 1e-30) for k, v in terms_p.items()}
+            leaf_err = [rel_l2(a, c) for a, c in zip(grads_k, grads_p)]
+            worst = int(np.argmax(leaf_err))
+            counters = {k: int(aux_k[k]) for k in ("raster_overflow", "raster_visible_overflow",
+                                                   "raster_clamp_overflow")}
+            line(f"ActorsHQ raster settings ({layout} layout), one step kernels vs plain: terms "
+                 f"rel max {max(term_err.values()):.3e}; gradients over {len(leaf_err)} leaves "
+                 f"rel_l2 max {leaf_err[worst]:.3e} (leaf {worst}), median "
+                 f"{float(np.median(leaf_err)):.3e}; {counters}")
+            check(all(e <= TERM_RTOL for e in term_err.values()),
+                  f"ActorsHQ {layout}: a loss term off by > {TERM_RTOL}")
+            check(all(bool(torch.isfinite(gk).all()) for gk in grads_k),
+                  f"ActorsHQ {layout}: non-finite gradient")
+            check(leaf_err[worst] <= GRAD_REL_L2,
+                  f"ActorsHQ {layout}: a gradient leaf off by rel L2 > {GRAD_REL_L2}")
+            del grads_k, grads_p, step_plain
+
+            gen = torch.Generator().manual_seed(3)
+            step(params, batch, gen, 0)  # warm-up
+            sync(dev)
+            reset_launch_counts()
+            per_step, finite = [], torch.ones((), dtype=torch.bool, device=dev)
+            t0 = time.perf_counter()
+            for i in range(VARIANT_STEPS):
+                _, m = step(params, batch, gen, i + 1)
+                for v in m.values():
+                    finite &= torch.isfinite(torch.as_tensor(v, device=dev)).all()
+                per_step.append(launch_counts())
+            sync(dev)
+            step_ms = (time.perf_counter() - t0) * 1e3 / VARIANT_STEPS
+            launches = dict(zip(("extract_slices", "blend_gather_ct", "blend_gather_ct_bwd",
+                                 "blend_gather_img", "blend_gather_img_bwd", "combine_sorted"),
+                                launch_counts()))
+            line(f"ActorsHQ raster settings ({layout} layout): {VARIANT_STEPS} steps, "
+                 f"{step_ms:.3f} ms/step; launches {launches}; last losses "
+                 + ", ".join(f"{k}={float(v):.5f}" for k, v in m.items() if k.endswith("loss")))
+            check(bool(finite), f"ActorsHQ {layout}: a non-finite loss term")
+            check(per_step == [expect[layout](i + 1) for i in range(VARIANT_STEPS)],
+                  f"ActorsHQ {layout}: launch counts after each step {per_step}")
+            prof = profile_calls(lambda: step(params, batch, gen, VARIANT_STEPS + 1), 3, dev)
+            if prof is not None:
+                line(f"ActorsHQ raster settings ({layout} layout), profiled ({prof['calls']} "
+                     f"steps): {profile_summary(prof, step_ms)}")
+            actorshq[layout] = dict(terms_rel=term_err, grad_rel_l2=leaf_err, counters=counters,
+                                    step_ms=step_ms, launches=launches, profiled=prof)
+            del step, tx, params
+    finally:
+        tiles.BLEND_LAYOUT = saved_layout
+
+    # -- the xla backend: topk funnel + _blend_tiles, forward + backward --------
+    cam = scene["camera"]
+    bg6 = torch.tensor(BG6, device=dev)
+    leaves = [t.clone().requires_grad_(True) for t in scene["gauss"]]
+    g_img = torch.randn((C, HEIGHT, WIDTH), generator=torch.Generator(device=dev).manual_seed(8),
+                        device=dev)
+
+    def xla_call():
+        for t in leaves:
+            t.grad = None
+        img, aux = rasterize_tiled(leaves[0], cam, bg6, cov3d=leaves[1], opacities=leaves[2],
+                                   colors=leaves[3], max_per_tile=K)
+        img.backward(g_img)
+        return img.detach(), aux
+
+    sync(dev)
+    base = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    img_x, aux_x = xla_call()
+    sync(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - base if dev.type == "cuda" else None
+    means, cov3d, opac, colors = scene["gauss"]
+    with torch.no_grad():
+        img_c, aux_c = rasterize_tiled(means, cam, bg6, cov3d=cov3d, opacities=opac,
+                                       colors=colors, max_per_tile=K, use_pallas=True,
+                                       coarse="topk")
+        sync(dev)
+    xe = image_err(img_x, img_c)
+    a_x, a_c = aux_ints(aux_x), aux_ints(aux_c)
+    xla_ms = timer_ms(xla_call, 3, dev, warmup=1)
+    xla_prof = profile_calls(xla_call, 2, dev)
+    if xla_prof is not None:
+        line(f"xla backend forward + backward, profiled ({xla_prof['calls']} calls): "
+             f"{profile_summary(xla_prof, xla_ms)}")
+    line(f"xla backend (topk, _blend_tiles) vs the same selection blended by K2: p999_abs="
+         f"{xe['p999_abs']:.3e} frac={xe['flip_frac']:.3e} max_abs={xe['max_abs']:.3e}; aux "
+         f"{a_x}; forward + backward {xla_ms:.3f} ms/call, peak memory "
+         f"{'not measured' if peak is None else f'{peak / 2**30:.3f} GiB'} above the "
+         f"{base / 2**30:.3f} GiB held before the call")
+    check(image_ok(xe), "xla backend and K2 disagree on the topk selection")
+    check(a_x == a_c, f"xla backend counters {a_x} != K2's {a_c}")
+    check(all(bool(torch.isfinite(t.grad).all()) and float(t.grad.abs().max()) > 0
+              for t in leaves), "xla backend: gradients non-finite or all zero")
+    del leaves, img_x, img_c
+
+    # -- the public API's backends against the oracle, small scene ---------------
+    s = api_scene(dev)
+    small_cam = make_camera(np.eye(3), np.zeros(3), focal2fov(60.0, API_W),
+                            focal2fov(60.0, API_H), API_W, API_H, device=dev)
+    kw = dict(scales=s["scales"], rotations=s["rotations"], colors=s["colors"])
+    ref, _ = api.rasterize(small_cam, s["means"], s["opacities"], s["bg"],
+                           settings=api.RasterSettings(backend="oracle"), **kw)
+    api_err = {}
+    try:
+        for backend, layout in (("tiled", "ct"), ("pallas", "ct"), ("pallas", "rec")):
+            tiles.BLEND_LAYOUT = layout
+            img, aux = api.rasterize(
+                small_cam, s["means"], s["opacities"], s["bg"],
+                settings=api.RasterSettings(backend=backend, max_per_tile=128), **kw)
+            sync(dev)
+            api_err[f"{backend}/{layout}"] = e = image_err(img, ref)
+            check(int(aux.overflow) == 0, f"api {backend}/{layout}: the small scene overflowed")
+            check(image_ok(e), f"api {backend}/{layout} and the oracle disagree")
+    finally:
+        tiles.BLEND_LAYOUT = saved_layout
+    line(f"api.rasterize vs the oracle ({API_N} Gaussians, {API_W}x{API_H}): "
+         + "; ".join(f"{k} p999_abs={e['p999_abs']:.3e} max_abs={e['max_abs']:.3e}"
+                     for k, e in api_err.items()))
+
+    rec_launches = actorshq["rec"]["launches"]
+    kernels = [
+        {
+            "name": "blend_gather_img", "route": "cuda",
+            "source": "d3ga_tpu_torch/csrc/blend_rec.cu",
+            "replaces": "d3ga_tpu/raster/pallas_blend_rec.py:457",
+            "launches": rec_launches["blend_gather_img"], "max_abs_err": k7["max_abs"],
+            "ms": k7_t["ms"], "plain_ms": k7_plain_t["ms"], "bound_ms": k7_times[k7_by] * 1e3,
+            "bound_by": k7_by, "library_ms": None,
+        },
+        {
+            "name": "blend_gather_img_bwd", "route": "cuda",
+            "source": "d3ga_tpu_torch/csrc/blend_rec.cu",
+            "replaces": "d3ga_tpu/raster/pallas_blend_rec.py:481",
+            "launches": rec_launches["blend_gather_img_bwd"], "max_abs_err": k7b["max_abs"],
+            "ms": k7b_t["ms"], "plain_ms": k7b_plain_t["ms"],
+            "bound_ms": k7b_times[k7b_by] * 1e3, "bound_by": k7b_by, "library_ms": None,
+        },
+    ]
+    timings = {"blend_gather_img": {"kernel": k7_t, "plain": k7_plain_t},
+               "blend_gather_img_bwd": {"kernel": k7b_t, "plain": k7b_plain_t}}
+    for k in kernels:
+        t = timings[k["name"]]
+        line(f"{k['name']}: ms={k['ms']:.4f} plain_ms={k['plain_ms']:.4f} "
+             f"bound_ms={k['bound_ms']:.4f} ({k['bound_by']}) library_ms={k['library_ms']} "
+             f"launches_per_step={k['launches'] / VARIANT_STEPS:g}; wall per call "
+             + ", ".join(f"{nm}={v['call_ms']:.4f}" for nm, v in t.items()))
+    report.update(
+        k7=k7, k7_is_k2=k7_is_k2, k7b=k7b, k7_pairs=pairs, k7_bytes=k7_bytes,
+        k7b_bytes=k7b_bytes, actorshq=actorshq, xla_vs_k2=xe, xla_aux=a_x, xla_ms=xla_ms,
+        xla_profiled=xla_prof,
+        xla_peak_bytes=peak, xla_base_bytes=base, api_vs_oracle=api_err,
+        variant_timings=timings,
+    )
+    report["kernels"] = report.get("kernels", []) + kernels
+    return kernels
+
+
+def api_scene(dev):
+    """tests/test_torch_api.py's scene: API_N Gaussians in front of an
+    identity camera, scales + unit quaternions, colours, from seed 0."""
+    rng = np.random.default_rng(0)
+    n = API_N
+    means = np.concatenate([rng.uniform(-0.8, 0.8, (n, 2)), rng.uniform(4.0, 6.0, (n, 1))], -1)
+    scales = np.exp(rng.uniform(-3.5, -2.2, (n, 3)))
+    q = rng.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    opac = rng.uniform(0.3, 0.95, (n, 1))
+    colors = rng.uniform(0, 1, (n, 3))
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    return {"means": t(means), "scales": t(scales), "rotations": t(q), "opacities": t(opac),
+            "colors": t(colors), "bg": t([0.1, 0.2, 0.3])}
 
 
 def main():

@@ -57,7 +57,8 @@ def main(argv=None):
         colors = torch.cat([pkg["rgb"], pkg["silhouette_rgb"]], -1)
         return rasterize_tiled(
             pkg["means3D"], camera, bg, cov3d=pkg["cov3D_precomp"],
-            opacities=pkg["opacities"], colors=colors, max_per_tile=256, dup=3,
+            opacities=pkg["opacities"], colors=colors, max_per_tile=256, use_pallas=True,
+            coarse="dupsort_depth", dup=3,
         )
 
     with torch.no_grad():

@@ -3,9 +3,12 @@ counterpart of d3ga_tpu/raster/project.py.
 
 Dense over N Gaussians, 3DGS `preprocess` semantics: frustum cull at view
 z <= 0.2, clip-space projection with 1/(w + 1e-7), EWA cov2D = A Vrk A^T
-with fov clamping, +0.3 dilation, conic = inverse 2D covariance, radius
-= ceil(3 sqrt(lambda_max)). Colours are given per Gaussian (the serving
-path's `colors`); SH colours are not ported yet.
+with fov clamping, +0.3 dilation (with `antialiasing`, the opacity
+scaled by sqrt(det / det_dilated), the dr_aa variant), conic = inverse
+2D covariance, radius = ceil(3 sqrt(lambda_max)). The 3D covariance comes
+packed (`cov3d`) or from `scales` x `scale_modifier` and `rotations`;
+colours come per Gaussian (`colors`) or from SH coefficients (`shs`,
+evaluated along the view direction and clamped at 0).
 
 Gradients follow JAX's AD where the two frameworks could split them
 differently: the fov clamp gives half the gradient at a tie with either
@@ -19,7 +22,8 @@ from typing import NamedTuple
 
 import torch
 
-from d3ga_tpu_torch.ops.covariance import unstrip_symmetric
+from d3ga_tpu_torch.ops.covariance import covariance_from_scaling_rotation, unstrip_symmetric
+from d3ga_tpu_torch.ops.sh import eval_sh
 from d3ga_tpu_torch.raster.camera import Camera, ndc2pix
 
 NEAR_CULL_Z = 0.2
@@ -45,12 +49,19 @@ def _clip(v, lo, hi):
 def project_gaussians(
     means3d: torch.Tensor,
     camera: Camera,
-    cov3d: torch.Tensor,
-    opacities: torch.Tensor,
-    colors: torch.Tensor,
+    cov3d: torch.Tensor = None,
+    scales: torch.Tensor = None,
+    rotations: torch.Tensor = None,
+    opacities: torch.Tensor = None,
+    colors: torch.Tensor = None,
+    shs: torch.Tensor = None,
+    sh_degree: int = 0,
+    scale_modifier: float = 1.0,
+    antialiasing: bool = False,
 ) -> Projected:
-    """means3d: [N, 3]; cov3d: [N, 6] packed; opacities: [N] or [N, 1];
-    colors: [N, C]."""
+    """means3d: [N, 3]; cov3d: [N, 6] packed or None (then scales [N, 3]
+    and rotations [N, 4]); opacities: [N] or [N, 1]; colors: [N, C] or
+    None (then shs: [N, (sh_degree + 1)^2 or more, C])."""
     n = means3d.shape[0]
     p_hom = torch.cat([means3d, means3d.new_ones(n, 1)], dim=-1)
     p_view = p_hom @ camera.world_view.T
@@ -61,7 +72,10 @@ def project_gaussians(
     p_w = 1.0 / (w_safe + 1e-7)
     p_proj = p_clip[:, :3] * p_w[:, None]
 
-    Vrk = unstrip_symmetric(cov3d)
+    if cov3d is None:
+        Vrk = covariance_from_scaling_rotation(scales * scale_modifier, rotations)
+    else:
+        Vrk = unstrip_symmetric(cov3d)
 
     focal_x = camera.width / (2.0 * camera.tanfovx)
     focal_y = camera.height / (2.0 * camera.tanfovy)
@@ -87,9 +101,17 @@ def project_gaussians(
     c00 = cov2d[:, 0, 0]
     c01 = cov2d[:, 0, 1]
     c11 = cov2d[:, 1, 1]
+    det_orig = c00 * c11 - c01 * c01
     c00d = c00 + DILATION
     c11d = c11 + DILATION
     det = c00d * c11d - c01 * c01
+
+    opac = opacities.reshape(n)
+    if antialiasing:
+        # the dr_aa energy-preserving opacity scale, clamped at the CUDA
+        # kernel's 0.000025
+        det_dil_safe = torch.where(det > 0, det, 1.0)
+        opac = opac * torch.sqrt(torch.maximum(det.new_tensor(0.000025), det_orig / det_dil_safe))
 
     det_ok = det > 0
     det_safe = torch.where(det_ok, det, 1.0)
@@ -105,6 +127,13 @@ def project_gaussians(
         [ndc2pix(p_proj[:, 0], camera.width), ndc2pix(p_proj[:, 1], camera.height)],
         dim=-1,
     )
+    if colors is None:
+        dirs = means3d - camera.camera_center[None]
+        norm = torch.linalg.vector_norm(dirs, dim=-1, keepdim=True)
+        dirs = dirs / torch.maximum(norm, norm.new_tensor(1e-12))
+        sh_rgb = eval_sh(shs, dirs, sh_degree)
+        colors = torch.maximum(sh_rgb, sh_rgb.new_tensor(0.0))
+
     valid = in_front & det_ok & (radius_f > 0)
     radius = torch.where(valid, radius_f, 0.0).to(torch.int32)
     return Projected(
@@ -112,7 +141,7 @@ def project_gaussians(
         depth=p_view[:, 2],
         conic=conic,
         color=colors,
-        opacity=opacities.reshape(n),
+        opacity=opac,
         radius=radius,
         valid=valid,
     )

@@ -14,7 +14,9 @@ with a random background colour per step, drawn from the caller's
 `torch.Generator` and handed to `render_frame`.
 
 Ported: the fused branch (RGB and silhouette share one 6-channel raster
-pass of the champion `dupsort_depth` rasterizer) and the gt composition,
+pass, with the model config's `raster_backend` and `raster_opts`: the
+XLA blend or the hand-written kernels, any selection funnel; the `fused`
+backend raises, not ported) and the gt composition,
 with canvas padding (`pixel_valid`) and `boundary_fg`. Not ported yet,
 each raising NotImplementedError naming its ROADMAP item: the non-fused
 `detach_silhouette` branch, the background network, learnable blur,
@@ -29,10 +31,12 @@ import torch
 
 from d3ga_tpu_torch.model.avatar import MODEL_TODO as TRAIN_TODO
 from d3ga_tpu_torch.model.avatar import AvatarModel, avatar_forward, resolve_camera
-from d3ga_tpu_torch.raster.tiles import rasterize_tiled
+from d3ga_tpu_torch.raster.tiles import FUSED_TODO, rasterize_tiled
 from d3ga_tpu_torch.train.losses import full_float32, l1_loss, masked_psnr, masked_ssim, ssim
 
-RASTER_TODO = "not ported yet (ROADMAP.md, queue 1: 'Non-champion raster variants')"
+# the model config's raster_opts that reach rasterize_tiled: the funnel
+# and its knobs
+RASTER_OPTS = ("coarse", "dup", "depth_exact", "block_cap", "sub_block", "sub_cap", "super_factor")
 
 
 class LossWeights(NamedTuple):
@@ -46,21 +50,21 @@ class LossWeights(NamedTuple):
 
 
 def _raster_opts(cfg):
-    """The model config's rasterizer options, checked against the one
-    configuration the port has: the Pallas-blend backend with the
-    `dupsort_depth` selection (bench_train.py's)."""
+    """The model config's rasterizer options as `rasterize_tiled`
+    keywords, as the JAX package reads them: raster_backend "xla" (the
+    default) blends with `_blend_tiles`, "pallas_blend" with the
+    hand-written kernels, each with raster_opts' funnel (coarse "topk"
+    and dup 2 unless given)."""
     backend = cfg.get("raster_backend", "xla")
+    if backend == "fused":
+        raise NotImplementedError(FUSED_TODO)
+    if backend not in ("xla", "pallas_blend"):
+        raise ValueError(f"raster_backend={backend!r}: expected 'xla', 'pallas_blend' or 'fused'")
     opts = dict(cfg.get("raster_opts", {}))
-    coarse = opts.pop("coarse", "topk")
-    if backend != "pallas_blend" or coarse != "dupsort_depth":
-        raise NotImplementedError(
-            f"raster_backend={backend!r}, coarse={coarse!r}: only 'pallas_blend' with "
-            f"'dupsort_depth' is ported, {RASTER_TODO}"
-        )
-    unknown = set(opts) - {"dup", "depth_exact"}
+    unknown = set(opts) - set(RASTER_OPTS)
     if unknown:
-        raise NotImplementedError(f"raster_opts {sorted(unknown)}: {RASTER_TODO}")
-    return dict(dup=opts.get("dup", 2), depth_exact=opts.get("depth_exact", True))
+        raise ValueError(f"raster_opts {sorted(unknown)}: expected a subset of {RASTER_OPTS}")
+    return dict(opts, use_pallas=backend == "pallas_blend")
 
 
 def render_frame(
@@ -115,8 +119,9 @@ def render_frame(
     colors6 = torch.cat([pkg["rgb"], pkg["silhouette_rgb"]], -1)
     bg6 = torch.cat([bg, bg.new_zeros(3)])
     both, aux_rgb = rasterize_tiled(
-        pkg["means3D"], camera, bg6, cov3d=pkg["cov3D_precomp"], opacities=pkg["opacities"],
-        colors=colors6, max_per_tile=max_per_tile, plain=plain, **opts,
+        pkg["means3D"], camera, bg6, cov3d=pkg.get("cov3D_precomp"), scales=pkg.get("scales"),
+        rotations=pkg.get("rotations"), opacities=pkg["opacities"], colors=colors6,
+        max_per_tile=max_per_tile, plain=plain, **opts,
     )
     pred_image = both[:3]
     pred_sil = both[3:]

@@ -75,8 +75,8 @@ def test_project_gaussians():
     j = jax.jit(lambda m, c, o, col: j_project(m, jcam, cov3d=c, opacities=o, colors=col))(
         *map(jnp.asarray, (means, cov6, opac, colors))
     )
-    t = t_project(torch.from_numpy(means), tcam, torch.from_numpy(cov6),
-                  torch.from_numpy(opac), torch.from_numpy(colors))
+    t = t_project(torch.from_numpy(means), tcam, cov3d=torch.from_numpy(cov6),
+                  opacities=torch.from_numpy(opac), colors=torch.from_numpy(colors))
     for f in ("xy", "depth", "conic", "color", "opacity"):
         np.testing.assert_allclose(getattr(t, f).numpy(), np.asarray(getattr(j, f)),
                                    rtol=1e-5, atol=1e-5)
@@ -270,7 +270,8 @@ class TestRasterizeTiled:
         timg, taux = ttiles.rasterize_tiled(
             *map(torch.from_numpy, (means,)), tcam, torch.from_numpy(bg),
             cov3d=torch.from_numpy(cov6), opacities=torch.from_numpy(opac),
-            colors=torch.from_numpy(colors), max_per_tile=K, dup=3, depth_exact=depth_exact,
+            colors=torch.from_numpy(colors), max_per_tile=K, use_pallas=True,
+            coarse="dupsort_depth", dup=3, depth_exact=depth_exact,
         )
         np.testing.assert_allclose(timg.numpy(), np.asarray(jimg), rtol=0, atol=IMG_ATOL)
         assert taux._fields == jaux._fields
@@ -278,12 +279,21 @@ class TestRasterizeTiled:
             assert int(getattr(taux, f)) == int(getattr(jaux, f)), f
         assert int(jaux.depth_ties) > 0
 
-    def test_other_funnels_raise(self):
+    def test_other_funnels_raise(self, monkeypatch):
+        """A funnel neither package has raises, and so do the JAX package's
+        TPU-only routes (D3GA_REC_GRAD, D3GA_REORDER, D3GA_SELEXT) set to
+        other than their defaults."""
         _, tcam = cameras(32, 32)
-        x = torch.zeros(4, 3)
-        with pytest.raises(NotImplementedError, match="dupsort_depth"):
-            ttiles.rasterize_tiled(x, tcam, torch.ones(3), torch.zeros(4, 6), torch.ones(4, 1),
-                                   torch.ones(4, 3), coarse="topk")
+        args = (torch.zeros(4, 3), tcam, torch.ones(3))
+        kw = dict(cov3d=torch.zeros(4, 6), opacities=torch.ones(4, 1), colors=torch.ones(4, 3))
+        with pytest.raises(ValueError, match="coarse"):
+            ttiles.rasterize_tiled(*args, coarse="bogus", **kw)
+        for name, value in (("D3GA_REC_GRAD", "add"), ("D3GA_REORDER", "sortpayload"),
+                            ("D3GA_SELEXT", "slice")):
+            with monkeypatch.context() as m:
+                m.setenv(name, value)
+                with pytest.raises(NotImplementedError, match="ROADMAP"):
+                    ttiles.rasterize_tiled(*args, **kw)
 
 
 @pytest.fixture

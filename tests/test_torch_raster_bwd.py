@@ -198,7 +198,8 @@ def test_rasterize_tiled_is_differentiable(selection):
     )
     _, tcam = cameras(W, H)
     img, aux = ttiles.rasterize_tiled(
-        means, tcam, torch.ones(6), cov6, opac, colors, max_per_tile=K, dup=DUP
+        means, tcam, torch.ones(6), cov3d=cov6, opacities=opac, colors=colors, max_per_tile=K,
+        use_pallas=True, coarse="dupsort_depth", dup=DUP,
     )
     img.square().sum().backward()
     for t in (means, cov6, opac, colors):
@@ -231,7 +232,7 @@ def test_project_gradients_match_jax():
 
     jg = jax.grad(j_loss, (0, 1, 2))(*map(jnp.asarray, (means, cov6, opac)))
     tm, tc, to = (torch.from_numpy(a).requires_grad_(True) for a in (means, cov6, opac))
-    p = t_project(tm, tcam, tc, to, torch.from_numpy(colors))
+    p = t_project(tm, tcam, cov3d=tc, opacities=to, colors=torch.from_numpy(colors))
     loss = ((p.xy * torch.from_numpy(w_xy)).sum() + (p.conic * torch.from_numpy(w_conic)).sum()
             + p.opacity.sum() + p.depth.sum())
     loss.backward()

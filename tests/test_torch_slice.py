@@ -76,7 +76,7 @@ def slice_pair():
                 pkg["means3D"], tcam, torch.from_numpy(BG6), cov3d=pkg["cov3D_precomp"],
                 opacities=pkg["opacities"],
                 colors=torch.cat([pkg["rgb"], pkg["silhouette_rgb"]], -1),
-                max_per_tile=K, dup=3,
+                max_per_tile=K, use_pallas=True, coarse="dupsort_depth", dup=3,
             )
 
     return lambda lbs: jax_frame(jparams, jnp.asarray(lbs)), port_frame, lbs_dim

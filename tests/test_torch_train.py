@@ -250,9 +250,9 @@ def test_unported_options_raise(pair):
         render_frame(dict(tp, bg_net={}), tm, tb, bg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         render_frame(tp, tm, tb, bg, band_ctx=("x", 2))
-    topk = tm._replace(config=dict(tm.config, raster_opts={"coarse": "topk"}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render_frame(tp, topk, tb, bg)
+    fused = tm._replace(config=dict(tm.config, raster_backend="fused"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.*K9"):
+        render_frame(tp, fused, tb, bg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_optimizer(tp, lr_tree_from_config(tp), grad_accum=2)
 

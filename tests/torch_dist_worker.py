@@ -71,7 +71,8 @@ def gathered(mesh, d, out, margin):
     # the single-device port on the same scene
     y = _leaves(d, "scene.")
     ref, raux = rasterize_tiled(
-        y["means"], cam, bg, y["cov3d"], y["opacities"], y["colors"], max_per_tile=K, dup=DUP,
+        y["means"], cam, bg, cov3d=y["cov3d"], opacities=y["opacities"], colors=y["colors"],
+        max_per_tile=K, use_pallas=True, coarse="dupsort_depth", dup=DUP,
     )
     (ref**2).sum().backward()
     out["single.img"] = ref.detach().numpy()
@@ -130,7 +131,9 @@ def ties(mesh, d, out, margin):
     cam, bg = _camera(d, "ties."), torch.from_numpy(d["ties.bg"])
     leaves = (x["cov3d"], x["opacities"], x["colors"])
     out["ties.single"] = rasterize_tiled(
-        x["means"], cam, bg, *leaves, max_per_tile=K, dup=DUP, depth_exact=True)[0].numpy()
+        x["means"], cam, bg, cov3d=leaves[0], opacities=leaves[1], colors=leaves[2],
+        max_per_tile=K, use_pallas=True, coarse="dupsort_depth", dup=DUP,
+        depth_exact=True)[0].numpy()
     out["ties.counts"] = bin_gaussians(x["means"], cam, *leaves, K, DUP).counts.numpy()
 
 
