@@ -8,9 +8,12 @@ extraction and K2 gather + blend on the serving path's selection, K3
 selection with a seeded random image cotangent, K5 (the sharded path's
 flat-tiles blend, forward and backward) on the whole grid and on the
 tile slices of the ranks of a 4-way banded split, K7 (the image-layout
-blend, forward and backward) on the serving selection. Then it drives
-the paths of the full-width synthetic avatar (3 garments x 45,000
-Gaussians, 1024 x 667 pixels, random weights from seed 0):
+blend, forward and backward) on the serving selection, K9 (the fused
+select + blend, forward and backward, through both of its input layouts)
+on frame 0's Gaussians, K8 (the blend over precomputed coefficients,
+forward and backward) at the stage bench's shapes. Then it drives the
+paths of the full-width synthetic avatar (3 garments x 45,000 Gaussians,
+1024 x 667 pixels, random weights from seed 0):
 
 - serving: eval-mode `avatar_forward` + champion `rasterize_tiled` (6
   channels, dupsort_depth, dup 3, K 256) for 20 frames;
@@ -30,6 +33,12 @@ Gaussians, 1024 x 667 pixels, random weights from seed 0):
   xla backend (topk funnel, `_blend_tiles`) forward + backward against
   the same selection blended by K2, with its peak memory; the public
   API's backends against the oracle on a small scene;
+- fused: `rasterize_tiled_fused` (K9) against `rasterize_tiled`'s topk
+  funnel at the same block cap; the training step with `raster_backend:
+  fused`, one step's gradients kernels vs plain, then 5 steps; the stage
+  bench (`d3ga_tpu_torch/bench_stages.py`, bench.py's 135,000-Gaussian
+  scene: per-stage times, K8 forward and backward among them), its JSON
+  in run_out/bench_stages.json;
 
 and checks that the kernels carried every frame, step and call.
 
@@ -56,8 +65,10 @@ from d3ga_tpu_torch.dist.banded import banded_l1_ssim
 from d3ga_tpu_torch.dist.mesh import initialize_distributed, local_mesh
 from d3ga_tpu_torch.dist.raster_shard import rasterize_collective, rasterize_sharded
 from d3ga_tpu_torch.model.avatar import avatar_forward, init_avatar
-from d3ga_tpu_torch.raster import api, blend_ct, blend_rec, extract, segsum, tiles
+from d3ga_tpu_torch import bench_stages
+from d3ga_tpu_torch.raster import api, blend, blend_ct, blend_rec, extract, fused, segsum, tiles
 from d3ga_tpu_torch.raster.camera import focal2fov, make_camera
+from d3ga_tpu_torch.raster.project import project_gaussians
 from d3ga_tpu_torch.raster.tiles import bin_gaussians, rasterize_tiled
 from d3ga_tpu_torch.train.optim import lr_tree_from_config, make_optimizer
 from d3ga_tpu_torch.train.step import LossWeights, make_train_step, random_bg
@@ -85,6 +96,13 @@ ACTORSHQ_CONFIG = {
     "raster_backend": "pallas_blend", "raster_opts": {"coarse": "dupsort_tile", "dup": 4},
 }
 VARIANT_STEPS = 5  # training steps under those settings, in each blend layout
+FUSED_CONFIG = {"raster_backend": "fused"}  # the JAX package's fused backend
+FUSED_STEPS = 5  # training steps under it
+BLOCK_CAP = 4096  # rasterize_tiled_fused's default candidates a block
+STAGE_ITERS = 10  # calls per stage of the stage bench
+# the stage bench's scene: bench.py's (135,000 Gaussians, 1024 x 667, K 256)
+STAGE_SCENE = dict(n=bench_stages.N_GAUSS, width=bench_stages.WIDTH,
+                   height=bench_stages.HEIGHT, k=bench_stages.K)
 # the API's backends against the oracle: tests/test_torch_api.py's scene
 # (120 Gaussians, 80 x 56 pixels; the oracle holds [rows x W, N] per chunk)
 API_N, API_W, API_H = 120, 80, 56
@@ -117,6 +135,26 @@ BLEND_FP32_OPS_PER_PAIR = 25  # falloff polynomial, alpha rules, T update, 6 col
 # dalpha (8), and the 12 per-pixel contributions to the per-record sums
 BLEND_BWD_FP32_OPS_PER_PAIR = 60
 BLEND_BWD_SFU_PER_PAIR = 3  # exp in each walk, one division
+# K8/K9's polynomial walk (coeff_walk.cuh) at C colours, FMAs counted as
+# two operations, as the FP32 peak counts them.
+COEFF_BWD_SFU_PER_PAIR = 2  # exp and the division of the one counted walk
+
+
+def coeff_fwd_ops(C):
+    """Forward FP32 operations a pair: the falloff polynomial (5 FMAs),
+    opacity * exp, the 0.99 clamp, T * (1 - alpha), w = alpha T (15), and
+    the C colour FMAs."""
+    return 15 + 2 * C
+
+
+def coeff_bwd_ops(C):
+    """Backward FP32 operations a pair, for one walk (the first walk, which
+    finds T_bg, is not counted, so this stays a lower bound): the
+    forward's 15, dw (C FMAs), the suffix R -= dw w (2), dlg (1), dalpha
+    (3), dpower and its five basis products (6), dopacity (1), the C
+    colour cotangents, and one add for each of the 7 + C per-record sums."""
+    return 35 + 4 * C
+
 
 OUT_DIR = "run_out"
 
@@ -290,6 +328,7 @@ def reset_launch_counts():
     extract.launches = blend_ct.launches = blend_ct.bwd_launches = segsum.launches = 0
     blend_rec.launches = blend_rec.bwd_launches = 0
     blend_rec.img_launches = blend_rec.img_bwd_launches = 0
+    blend.launches = blend.bwd_launches = fused.launches = fused.bwd_launches = 0
 
 
 def rel_l2(a, b):
@@ -304,7 +343,8 @@ def run(dev, report):
         kernels, scene = serve(dev, report)
     kernels = kernels + train(dev, report, scene)
     kernels = kernels + sharded(dev, report, scene)
-    return kernels + variants(dev, report, scene)
+    kernels = kernels + variants(dev, report, scene)
+    return kernels + fused_phase(dev, report, scene)
 
 
 def logger(report):
@@ -898,10 +938,20 @@ def _sharded_phases(dev, report, scene, mesh, line):
     return kernels
 
 
+KERNEL_NAMES = ("extract_slices", "blend_gather_ct", "blend_gather_ct_bwd", "combine_sorted",
+                "blend_gather_rec", "blend_gather_rec_bwd", "blend_gather_img",
+                "blend_gather_img_bwd", "blend_tiles_coeffs", "blend_tiles_coeffs_bwd",
+                "fused_select_blend", "fused_select_blend_bwd")
+
+
 def launch_counts():
-    """(K1, K2, K3, K7, K7 backward, K4) launches so far."""
-    return (extract.launches, blend_ct.launches, blend_ct.bwd_launches, blend_rec.img_launches,
-            blend_rec.img_bwd_launches, segsum.launches)
+    """Every kernel's launches so far, in KERNEL_NAMES' order: K1, K2, K3,
+    K4, K5, K5 backward, K7, K7 backward, K8, K8 backward, K9, K9
+    backward."""
+    return (extract.launches, blend_ct.launches, blend_ct.bwd_launches, segsum.launches,
+            blend_rec.launches, blend_rec.bwd_launches, blend_rec.img_launches,
+            blend_rec.img_bwd_launches, blend.launches, blend.bwd_launches, fused.launches,
+            fused.bwd_launches)
 
 
 def variants(dev, report, scene):
@@ -968,9 +1018,9 @@ def variants(dev, report, scene):
     model = scene["model"]._replace(config=dict(scene["model"].config, **ACTORSHQ_CONFIG))
     batch, bg = scene["batch"], scene["bg"]
     weights = LossWeights(enable_vgg_from=0)
-    expect = {  # (K1, K2, K3, K7, K7 backward, K4) launches after step i
-        "rec": lambda i: (0, 0, 0, i, i, i),
-        "ct": lambda i: (0, i, i, 0, 0, i),
+    expect = {  # launch_counts() after step i
+        "rec": lambda i: (0, 0, 0, i, 0, 0, i, i, 0, 0, 0, 0),
+        "ct": lambda i: (0, i, i, i, 0, 0, 0, 0, 0, 0, 0, 0),
     }
     actorshq = {}
     saved_layout = tiles.BLEND_LAYOUT
@@ -1016,9 +1066,7 @@ def variants(dev, report, scene):
                 per_step.append(launch_counts())
             sync(dev)
             step_ms = (time.perf_counter() - t0) * 1e3 / VARIANT_STEPS
-            launches = dict(zip(("extract_slices", "blend_gather_ct", "blend_gather_ct_bwd",
-                                 "blend_gather_img", "blend_gather_img_bwd", "combine_sorted"),
-                                launch_counts()))
+            launches = dict(zip(KERNEL_NAMES, launch_counts()))
             line(f"ActorsHQ raster settings ({layout} layout): {VARIANT_STEPS} steps, "
                  f"{step_ms:.3f} ms/step; launches {launches}; last losses "
                  + ", ".join(f"{k}={float(v):.5f}" for k, v in m.items() if k.endswith("loss")))
@@ -1138,6 +1186,280 @@ def variants(dev, report, scene):
         xla_profiled=xla_prof,
         xla_peak_bytes=peak, xla_base_bytes=base, api_vs_oracle=api_err,
         variant_timings=timings,
+    )
+    report["kernels"] = report.get("kernels", []) + kernels
+    return kernels
+
+
+def bound(bytes_, pairs, fp32_per_pair, sfu_per_pair):
+    """(bound ms, "bytes" or "operations") for a walk of `pairs`
+    (pixel, slot) pairs that must move `bytes_`."""
+    times = {"bytes": bytes_ / HBM_BYTES_PER_S,
+             "operations": max(pairs * fp32_per_pair / FP32_OPS_PER_S,
+                               pairs * sfu_per_pair / SFU_OPS_PER_S)}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
+
+
+def fused_phase(dev, report, scene):
+    """K9 (the fused select + blend) forward and backward against its plain
+    versions through both input layouts, on frame 0's Gaussians at the
+    default block cap; `rasterize_tiled_fused` against `rasterize_tiled`'s
+    topk funnel; the training step with `raster_backend: fused`, one
+    step's gradients kernels vs plain, then 5 steps with K9 and its
+    backward launched once a step; K8 forward and backward against their
+    plain versions at the stage bench's shapes, then the stage bench, its
+    JSON in run_out/bench_stages.json. Returns the K8 and K9 entries."""
+    line = logger(report)
+    means, cov3d, opac, colors = scene["gauss"]
+    cam, C = scene["camera"], scene["C"]
+    ntx, nty = -(-WIDTH // 16), -(-HEIGHT // 16)
+
+    # -- K9 against its plain version, both layouts ------------------------
+    with torch.no_grad():
+        proj = project_gaussians(means, cam, cov3d=cov3d, opacities=opac, colors=colors)
+        vals, rects, _, _, _ = tiles.fused_candidates(proj, ntx, nty, BLOCK_CAP)
+        NB, kb = rects.shape
+        NC = kb // fused.CHUNK
+        layouts = {
+            1: (vals.reshape(NB, NC, fused.CHUNK, fused.NCH).permute(0, 1, 3, 2).contiguous(),
+                rects.reshape(NB, NC, fused.CHUNK).contiguous()),
+            2: (vals.permute(0, 2, 1).contiguous(), rects[:, None, :].contiguous()),
+        }
+        ref, ref_counts, pairs = fused.select_blend_plain(vals, rects, K, C, count_pairs=True)
+        g = torch.randn(ref.shape, generator=torch.Generator(device=dev).manual_seed(9),
+                        device=dev)
+        dref = fused.select_blend_bwd_plain(vals, rects, g, K, C)
+        # the candidates some tile selects: all the kernels must read of vals
+        lanes, _ = fused._select(rects, K)
+        n_sel = int(torch.zeros(NB, kb + 1, dtype=torch.bool, device=dev)
+                    .scatter_(1, lanes.reshape(NB, -1), True)[:, :kb].sum())
+    k9, k9b = {}, {}
+    for variant, (v, r) in layouts.items():
+        fn = fused.fused_select_blend if variant == 1 else fused.fused_select_blend2
+        v = v.clone().requires_grad_(True)
+        out, counts = fn(v, r, K, C)
+        out.backward(g)  # the one Function's backward, back to this layout
+        out = out.detach()
+        dv = fused._records(v.grad)
+        sync(dev)
+        check(bool(torch.isfinite(out).all() and torch.isfinite(dv).all()),
+              f"K9 v{variant}: non-finite output")
+        check(torch.equal(counts, ref_counts), f"K9 v{variant}: counts differ from plain")
+        k9[variant] = image_err(out, ref)
+        k9b[variant] = slot_err(dv, dref)
+        line(f"K9 v{variant} layout vs plain (NB={NB}, kb={kb}, K={K}, C={C}): counts equal; "
+             f"forward p999_abs={k9[variant]['p999_abs']:.3e} "
+             f"frac={k9[variant]['flip_frac']:.3e} max_abs={k9[variant]['max_abs']:.3e}; "
+             f"backward rel_l2={k9b[variant]['rel_l2']:.3e} "
+             f"p999_abs={k9b[variant]['p999_abs']:.3e} (max |dvals| "
+             f"{k9b[variant]['scale']:.3e})")
+        check(image_ok(k9[variant]),
+              f"K9 v{variant} forward: outside p999 <= {P999_MAX} / flips <= {FLIP_MAX}")
+        check(k9b[variant]["rel_l2"] <= K3_REL_L2,
+              f"K9 v{variant} backward: d(vals) rel L2 > {K3_REL_L2}")
+        del v, out, dv
+    with torch.no_grad():
+        k9_t = measure(lambda: fused.select_blend(vals, rects, K, C), 20, dev)
+        k9_plain_t = measure(lambda: fused.select_blend_plain(vals, rects, K, C), 3, dev,
+                             warmup=1)
+        k9b_t = measure(lambda: fused.select_blend_bwd(vals, rects, g, K, C), 20, dev)
+        k9b_plain_t = measure(lambda: fused.select_blend_bwd_plain(vals, rects, g, K, C), 3, dev,
+                              warmup=1)
+    # bytes: the used channels (6 + C) of the selected candidates, every
+    # rect; the tiles and counts out. Backward: the cotangent of the tiles
+    # that hold a slot in, all of d(vals) out
+    in_bytes = 4 * (n_sel * (6 + C) + rects.numel())
+    live_tiles = int((ref_counts > 0).sum())
+    k9_bound = bound(in_bytes + 4 * (ref.numel() + ref_counts.numel()), pairs,
+                     coeff_fwd_ops(C), 1)
+    k9b_bound = bound(in_bytes + 4 * (live_tiles * fused.NPIX * (C + 1) + vals.numel()), pairs,
+                      coeff_bwd_ops(C), COEFF_BWD_SFU_PER_PAIR)
+    line(f"K9 work: NB={NB} blocks, kb={kb}, {n_sel} candidates selected, {live_tiles} tiles "
+         f"with a slot, pixel-slot pairs visited={pairs}, in-image tiles with counts over "
+         f"K={int((ref_counts > K).sum())}")
+    del ref, dref, g, layouts, lanes
+
+    # -- rasterize_tiled_fused against rasterize_tiled's topk funnel --------
+    bg = torch.tensor(BG6, device=dev)
+    kw = dict(cov3d=cov3d, opacities=opac, colors=colors, max_per_tile=K)
+    with torch.no_grad():
+        img_f, aux_f = tiles.rasterize_tiled_fused(means, cam, bg, block_cap=BLOCK_CAP, **kw)
+        img_t, aux_t = rasterize_tiled(means, cam, bg, coarse="topk", block_cap=BLOCK_CAP,
+                                       super_factor=2, use_pallas=True, **kw)
+        sync(dev)
+    fe = image_err(img_f, img_t)
+    a_f, a_t = aux_ints(aux_f), aux_ints(aux_t)
+    line(f"rasterize_tiled_fused vs rasterize_tiled (topk, block cap {BLOCK_CAP}, K2) on frame "
+         f"0: p999_abs={fe['p999_abs']:.3e} frac={fe['flip_frac']:.3e} "
+         f"max_abs={fe['max_abs']:.3e}; aux fused {a_f} topk {a_t}")
+    check(tuple(img_f.shape) == (C, HEIGHT, WIDTH), f"fused image shape {tuple(img_f.shape)}")
+    check(image_ok(fe), "rasterize_tiled_fused and rasterize_tiled disagree")
+    for f in ("overflow", "max_per_tile", "n_contrib"):
+        check(a_f[f] == a_t[f], f"fused RasterAux.{f} {a_f[f]} != topk path's {a_t[f]}")
+    del img_f, img_t
+
+    # -- the training step, raster_backend: fused ---------------------------
+    model = scene["model"]._replace(config=dict(scene["model"].config, **FUSED_CONFIG))
+    batch, bgc = scene["batch"], scene["bg"]
+    weights = LossWeights(enable_vgg_from=0)
+    params = init_avatar(torch.Generator().manual_seed(0), model)
+    tx = make_optimizer(params, lr_tree_from_config(params))
+    step = make_train_step(model, tx, max_per_tile=K, loss_weights=weights)
+    step_plain = make_train_step(model, tx, max_per_tile=K, loss_weights=weights, plain=True)
+    _, terms_k, aux_k, grads_k = step.loss_and_grads(params, batch, bgc, 0)
+    _, terms_p, _, grads_p = step_plain.loss_and_grads(params, batch, bgc, 0)
+    sync(dev)
+    term_err = {k: abs(float(terms_k[k].detach()) - float(v.detach()))
+                / max(abs(float(v.detach())), 1e-30) for k, v in terms_p.items()}
+    leaf_err = [rel_l2(a, c) for a, c in zip(grads_k, grads_p)]
+    worst = int(np.argmax(leaf_err))
+    line(f"fused backend, one step kernels vs plain: terms rel max {max(term_err.values()):.3e}; "
+         f"gradients over {len(leaf_err)} leaves rel_l2 max {leaf_err[worst]:.3e} (leaf {worst}), "
+         f"median {float(np.median(leaf_err)):.3e}; overflow {int(aux_k['raster_overflow'])}")
+    check(all(e <= TERM_RTOL for e in term_err.values()), f"fused step: a loss term off by > {TERM_RTOL}")
+    check(all(bool(torch.isfinite(gk).all()) for gk in grads_k), "fused step: non-finite gradient")
+    check(leaf_err[worst] <= GRAD_REL_L2, f"fused step: a gradient leaf off by rel L2 > {GRAD_REL_L2}")
+    del grads_k, grads_p, step_plain
+
+    gen = torch.Generator().manual_seed(3)
+    step(params, batch, gen, 0)  # warm-up
+    sync(dev)
+    reset_launch_counts()
+    per_step, finite = [], torch.ones((), dtype=torch.bool, device=dev)
+    t0 = time.perf_counter()
+    for i in range(FUSED_STEPS):
+        _, m = step(params, batch, gen, i + 1)
+        for v in m.values():
+            finite &= torch.isfinite(torch.as_tensor(v, device=dev)).all()
+        per_step.append(launch_counts())
+    sync(dev)
+    step_ms = (time.perf_counter() - t0) * 1e3 / FUSED_STEPS
+    k9_launches = {"fused_select_blend": fused.launches,
+                   "fused_select_blend_bwd": fused.bwd_launches}
+    line(f"fused backend: {FUSED_STEPS} steps, {step_ms:.3f} ms/step; launches {k9_launches}; "
+         "last losses " + ", ".join(f"{k}={float(v):.5f}" for k, v in m.items()
+                                    if k.endswith("loss")))
+    check(bool(finite), "fused step: a non-finite loss term")
+    expect = [(0,) * 10 + (i + 1, i + 1) for i in range(FUSED_STEPS)]
+    check(per_step == expect, f"fused backend: launch counts after each step {per_step}: not K9 "
+                              "and its backward once a step, and no other kernel")
+    fused_prof = profile_calls(lambda: step(params, batch, gen, FUSED_STEPS + 1), 3, dev)
+    if fused_prof is not None:
+        line(f"fused backend, profiled ({fused_prof['calls']} steps): "
+             f"{profile_summary(fused_prof, step_ms)}")
+    del step, tx, params
+
+    # -- K8 against its plain version at the stage bench's shapes ------------
+    inp = bench_stages.prepare(dev, **STAGE_SCENE)
+    co, col, op = inp["coeffs"], inp["color_t"], inp["opac_in"]
+    T8, K8K = co.shape[:2]
+    with torch.no_grad():
+        out8 = blend.blend_tiles_coeffs(co, col, op)
+        ref8, pairs8 = blend.blend_tiles_coeffs_plain(co, col, op, count_pairs=True)
+        g8 = torch.randn(out8.shape, generator=torch.Generator(device=dev).manual_seed(10),
+                         device=dev)
+        d8 = blend.blend_tiles_coeffs_bwd(co, col, op, g8)
+        d8_ref = blend.blend_tiles_coeffs_bwd_plain(co, col, op, g8)
+        sync(dev)
+        check(bool(torch.isfinite(out8).all()) and all(bool(torch.isfinite(d).all()) for d in d8),
+              "K8: non-finite output")
+        k8 = image_err(out8, ref8)
+        k8b = {n: slot_err(a, b) for n, a, b in zip(("coeffs", "colors", "opacs"), d8, d8_ref)}
+        line(f"K8 blend_tiles_coeffs vs plain (T={T8}, K={K8K}, C={col.shape[-1]}): forward "
+             f"p999_abs={k8['p999_abs']:.3e} frac={k8['flip_frac']:.3e} "
+             f"max_abs={k8['max_abs']:.3e}; backward rel_l2 "
+             + ", ".join(f"d{n}={e['rel_l2']:.3e}" for n, e in k8b.items()))
+        check(image_ok(k8), f"K8 forward: outside p999 <= {P999_MAX} / flips <= {FLIP_MAX}")
+        check(all(e["rel_l2"] <= K3_REL_L2 for e in k8b.values()),
+              f"K8 backward: a cotangent off by rel L2 > {K3_REL_L2}")
+        k8_t = measure(lambda: blend.blend_tiles_coeffs(co, col, op), 20, dev)
+        k8_plain_t = measure(lambda: blend.blend_tiles_coeffs_plain(co, col, op), 3, dev, warmup=1)
+        k8b_t = measure(lambda: blend.blend_tiles_coeffs_bwd(co, col, op, g8), 20, dev)
+        k8b_plain_t = measure(lambda: blend.blend_tiles_coeffs_bwd_plain(co, col, op, g8), 3, dev,
+                              warmup=1)
+    C8 = col.shape[-1]
+    k8_in = 4 * T8 * K8K * (6 + 1 + C8)  # the six used coefficients, opacity, colours
+    k8_bound = bound(k8_in + 4 * out8.numel(), pairs8, coeff_fwd_ops(C8), 1)
+    k8b_bound = bound(k8_in + 4 * g8.numel() + 4 * T8 * K8K * (8 + C8 + 1), pairs8,
+                      coeff_bwd_ops(C8), COEFF_BWD_SFU_PER_PAIR)
+    line(f"K8 work: pixel-slot pairs visited={pairs8} on {inp['n_contrib']} live slots")
+    del out8, ref8, g8, d8, d8_ref
+
+    # -- the stage bench: K8's main path -------------------------------------
+    sync(dev)
+    reset_launch_counts()
+    stage_ms = bench_stages.run(inp, STAGE_ITERS)
+    sync(dev)
+    k8_launches = {"blend_tiles_coeffs": blend.launches,
+                   "blend_tiles_coeffs_bwd": blend.bwd_launches}
+    bench = {"card": report.get("card"), "device": torch.cuda.get_device_name(dev)
+             if dev.type == "cuda" else "cpu", "n_gaussians": STAGE_SCENE["n"],
+             "width": STAGE_SCENE["width"], "height": STAGE_SCENE["height"],
+             "k": STAGE_SCENE["k"], "tiles": inp["ntx"] * inp["nty"],
+             "n_contrib": inp["n_contrib"], "iters": STAGE_ITERS, "ms": stage_ms}
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "bench_stages.json"), "w") as f:
+        json.dump(bench, f, indent=1)
+    line("stage bench (bench.py's scene, ms a call): "
+         + ", ".join(f"{k}={v:.4f}" for k, v in stage_ms.items()) + f"; launches {k8_launches}")
+    check(all(np.isfinite(v) for v in stage_ms.values()), "stage bench: a time is not finite")
+    check(k8_launches["blend_tiles_coeffs"] > 0 and k8_launches["blend_tiles_coeffs_bwd"] > 0,
+          f"stage bench: K8 not launched {k8_launches}")
+    del inp
+
+    kernels = [
+        {
+            "name": "blend_tiles_coeffs", "route": "cuda",
+            "source": "d3ga_tpu_torch/csrc/blend_coeffs.cu",
+            "replaces": "d3ga_tpu/raster/pallas_blend.py:238",
+            "launches": k8_launches["blend_tiles_coeffs"], "max_abs_err": k8["max_abs"],
+            "ms": k8_t["ms"], "plain_ms": k8_plain_t["ms"], "bound_ms": k8_bound[0],
+            "bound_by": k8_bound[1], "library_ms": None,
+        },
+        {
+            "name": "blend_tiles_coeffs_bwd", "route": "cuda",
+            "source": "d3ga_tpu_torch/csrc/blend_coeffs.cu",
+            "replaces": "d3ga_tpu/raster/pallas_blend.py:264",
+            "launches": k8_launches["blend_tiles_coeffs_bwd"],
+            "max_abs_err": max(e["max_abs"] for e in k8b.values()),
+            "ms": k8b_t["ms"], "plain_ms": k8b_plain_t["ms"], "bound_ms": k8b_bound[0],
+            "bound_by": k8b_bound[1], "library_ms": None,
+        },
+        {
+            "name": "fused_select_blend", "route": "cuda",
+            "source": "d3ga_tpu_torch/csrc/fused.cu",
+            "replaces": "d3ga_tpu/raster/attic/pallas_fused2.py:376",
+            "launches": k9_launches["fused_select_blend"],
+            "max_abs_err": max(e["max_abs"] for e in k9.values()),
+            "ms": k9_t["ms"], "plain_ms": k9_plain_t["ms"], "bound_ms": k9_bound[0],
+            "bound_by": k9_bound[1], "library_ms": None,
+        },
+        {
+            "name": "fused_select_blend_bwd", "route": "cuda",
+            "source": "d3ga_tpu_torch/csrc/fused.cu",
+            "replaces": "d3ga_tpu/raster/attic/pallas_fused2.py:407",
+            "launches": k9_launches["fused_select_blend_bwd"],
+            "max_abs_err": max(e["max_abs"] for e in k9b.values()),
+            "ms": k9b_t["ms"], "plain_ms": k9b_plain_t["ms"], "bound_ms": k9b_bound[0],
+            "bound_by": k9b_bound[1], "library_ms": None,
+        },
+    ]
+    timings = {"blend_tiles_coeffs": {"kernel": k8_t, "plain": k8_plain_t},
+               "blend_tiles_coeffs_bwd": {"kernel": k8b_t, "plain": k8b_plain_t},
+               "fused_select_blend": {"kernel": k9_t, "plain": k9_plain_t},
+               "fused_select_blend_bwd": {"kernel": k9b_t, "plain": k9b_plain_t}}
+    for k in kernels:
+        t = timings[k["name"]]
+        line(f"{k['name']}: ms={k['ms']:.4f} plain_ms={k['plain_ms']:.4f} "
+             f"bound_ms={k['bound_ms']:.4f} ({k['bound_by']}) library_ms={k['library_ms']} "
+             f"launches={k['launches']}; wall per call "
+             + ", ".join(f"{nm}={v['call_ms']:.4f}" for nm, v in t.items()))
+    report.update(
+        k9=k9, k9b=k9b, k9_pairs=pairs, k9_blocks=NB, k9_kb=kb, fused_vs_topk=fe, aux_fused=a_f,
+        aux_topk=a_t, fused_terms_rel=term_err, fused_grad_rel_l2=leaf_err, fused_step_ms=step_ms,
+        fused_launches=k9_launches, fused_profiled=fused_prof, k8=k8, k8b=k8b, k8_pairs=pairs8,
+        stage_bench=bench, fused_timings=timings,
     )
     report["kernels"] = report.get("kernels", []) + kernels
     return kernels

@@ -12,9 +12,9 @@ import torch
 
 from d3ga_tpu_torch.raster.camera import Camera
 from d3ga_tpu_torch.raster.oracle import rasterize_oracle
-from d3ga_tpu_torch.raster.tiles import FUSED_TODO, rasterize_tiled
+from d3ga_tpu_torch.raster.tiles import rasterize_tiled, rasterize_tiled_fused
 
-BACKENDS = ("tiled", "pallas", "oracle")
+BACKENDS = ("tiled", "pallas", "fused", "oracle")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,7 +26,7 @@ class RasterSettings:
     antialiasing: bool = False
     max_per_tile: int = 256
     # "tiled" (the XLA blend), "pallas" (the hand-written blend kernels),
-    # "oracle"; "fused" raises (not ported)
+    # "fused" (the fused select + blend kernel K9), "oracle"
     backend: str = "tiled"
     # selection-funnel knobs (see tiles._select_per_tile)
     block_cap: int = 4096
@@ -58,8 +58,6 @@ def rasterize(
         raise ValueError("provide exactly one of cov3d or (scales, rotations)")
     if (colors is None) == (shs is None):
         raise ValueError("provide exactly one of colors or shs")
-    if settings.backend == "fused":
-        raise NotImplementedError(FUSED_TODO)
     if settings.backend not in BACKENDS:
         raise ValueError(f"unknown backend {settings.backend!r}")
 
@@ -70,6 +68,14 @@ def rasterize(
     )
     if settings.backend == "oracle":
         return rasterize_oracle(means3d, camera, bg_color, **kwargs), None
+    if settings.backend == "fused":
+        # as the JAX package: the fused path takes neither scale_modifier
+        # nor antialiasing, and drops them silently (ROADMAP queue 3)
+        kwargs.pop("scale_modifier")
+        kwargs.pop("antialiasing")
+        return rasterize_tiled_fused(
+            means3d, camera, bg_color, max_per_tile=settings.max_per_tile, **kwargs
+        )
     return rasterize_tiled(
         means3d, camera, bg_color, max_per_tile=settings.max_per_tile,
         use_pallas=settings.backend == "pallas", block_cap=settings.block_cap,

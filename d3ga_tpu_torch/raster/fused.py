@@ -1,0 +1,315 @@
+"""K9: fused per-tile selection + compaction + alpha blend over 8x8-tile
+blocks of candidates, forward and backward (counterpart of
+d3ga_tpu/raster/attic/pallas_fused.py and attic/pallas_fused2.py).
+
+The two JAX variants compute one function: per 8x8-tile block, each
+tile's first K overlapping candidates in rank order, then the blend of
+`pallas_blend.py` over their tile-local falloff coefficients. They differ
+only in how a TPU compacts lanes (v1: banded one-hot matmuls, v2: masked
+lane-roll butterflies), and in their input layouts:
+
+- `fused_select_blend` (v1): vals [NB, NC, 16, 128], rects [NB, NC, 128];
+- `fused_select_blend2` (v2): vals [NB, 16, KB], rects [NB, 1, KB];
+
+kb = NC * 128 = KB candidates a block, in depth-rank order. The 16
+channels are (x, y in block-local pixels, conic A, B, C, opacity, C
+colours, zero padding); rects pack each candidate's block-local tile rect
+(xmin | xmax << 8 | ymin << 16 | ymax << 24). Invalid candidates have
+rect 0 and opacity 0. C <= 10. Both return (tiles [NB, 64, 256, C+1]
+with T_bg last, counts [NB, 64] int32, the uncapped overlap counts). Both
+hand their inputs over as records-major vals [NB, kb, 16] and rects
+[NB, kb] (a view where the caller's tensor allows it: the fused raster
+builds that layout, so its calls copy nothing) to `select_blend`, one
+`torch.autograd.Function`; autograd carries d(vals) back to the caller's
+layout. On CUDA tensors that Function runs the hand-written kernels of
+`csrc/fused.cu` (its header gives the bound and the design); on CPU
+tensors (or with plain=True) the plain versions below. There is no
+fallback between the two.
+
+The plain versions work block by block: per tile the rect mask, the
+first K overlapping lanes in rank order (the inclusive position cumsum's
+first K), the records gathered and shifted from block-local to
+tile-local coordinates, the falloff coefficients, then K8's plain blend
+(`blend.py`). The backward routes each slot's cotangent back to its
+lane, summed in tile order.
+"""
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as Fn
+
+from d3ga_tpu_torch.raster import blend
+from d3ga_tpu_torch.utils import cuda_build
+
+TILE = 16
+NPIX = TILE * TILE
+BLOCK = 8
+TB = BLOCK * BLOCK  # tiles a block
+CHUNK = 128
+NCH = 16  # record channels
+MAX_C = NCH - 6
+MAX_K = 1024  # the kernels keep a tile's K lane ids in shared memory
+BLOCK_CHUNK = 8  # blocks a step of the plain versions: [8 * 64, 256, K] intermediates
+
+# one per launch of the CUDA kernels (never for the plain versions); the
+# backward's two kernels (per tile, then per block and lane) count once
+launches = 0
+bwd_launches = 0
+
+
+def _layout(vals):
+    if vals.ndim == 4:
+        return 1
+    if vals.ndim == 3:
+        return 2
+    raise ValueError(f"fused_select_blend: vals of shape {tuple(vals.shape)}: expected "
+                     "[NB, NC, 16, 128] (v1) or [NB, 16, KB] (v2)")
+
+
+def _records(vals):
+    """The caller's layout -> records-major [NB, kb, 16] (a view)."""
+    if _layout(vals) == 1:
+        NB, NC = vals.shape[:2]
+        return vals.permute(0, 1, 3, 2).reshape(NB, NC * CHUNK, NCH)
+    return vals.permute(0, 2, 1)
+
+
+def _tile_origins(device):
+    """[64] x and y pixel origins of a block's tiles, tile t = ty * 8 + tx."""
+    t = torch.arange(TB, device=device)
+    return (t % BLOCK * TILE).float(), (t // BLOCK * TILE).float()
+
+
+def _select(rects, K):
+    """rects [nb, kb] packed -> (lanes [nb, 64, min(K, kb)] the first
+    overlapping lanes of each tile, ascending, kb past its count; counts
+    [nb, 64] int32, uncapped)."""
+    kb = rects.shape[1]
+    r = rects[:, None, :]
+    t = torch.arange(TB, device=rects.device)[None, :, None]
+    tx, ty = t % BLOCK, t // BLOCK
+    m = ((tx >= (r & 0xFF)) & (tx < ((r >> 8) & 0xFF))
+         & (ty >= ((r >> 16) & 0xFF)) & (ty < ((r >> 24) & 0xFF)))  # [nb, 64, kb]
+    j = torch.arange(kb, device=rects.device)
+    lanes = torch.topk(torch.where(m, j, kb), min(K, kb), dim=-1, largest=False,
+                       sorted=True).values
+    return lanes, m.sum(-1).to(torch.int32)
+
+
+def _tile_inputs(rec, rects, K, C):
+    """K8's inputs for a chunk of blocks: rec [nb, kb, 16] records-major.
+    Returns (coeffs [nb*64, Kk, 8], colors [nb*64, Kk, C], opacs
+    [nb*64, 1, Kk], the slots' records [nb, 64, Kk, 16] (0 past each
+    tile's count), lanes, hit mask, counts)."""
+    nb, kb, _ = rec.shape
+    lanes, counts = _select(rects, K)
+    hit = lanes < kb
+    Kk = lanes.shape[-1]
+    idx = torch.where(hit, lanes, 0).reshape(nb, TB * Kk, 1).expand(-1, -1, NCH)
+    slot = torch.gather(rec, 1, idx).reshape(nb, TB, Kk, NCH)
+    slot = torch.where(hit[..., None], slot, 0.0)
+    sx, sy = _tile_origins(rec.device)
+    xy = torch.stack([slot[..., 0] - sx[:, None], slot[..., 1] - sy[:, None]], -1)
+    coeffs = blend.falloff_coeffs(xy, slot[..., 2:5]).reshape(nb * TB, Kk, 8)
+    colors = slot[..., 6 : 6 + C].reshape(nb * TB, Kk, C)
+    opacs = slot[..., 5].reshape(nb * TB, 1, Kk)
+    return coeffs, colors, opacs, slot, lanes, hit, counts
+
+
+def select_blend_plain(vals, rects, K, C, block_chunk=BLOCK_CHUNK, count_pairs=False):
+    """Plain PyTorch version of K9's forward on records-major vals
+    [NB, kb, 16] and rects [NB, kb]: (tiles [NB, 64, 256, C+1], counts
+    [NB, 64] int32); count_pairs=True also returns the (pixel, slot) pairs
+    a front-to-back walk visits. Blocks go `block_chunk` at a time so the
+    [chunk * 64, 256, K] intermediates stay bounded."""
+    NB = vals.shape[0]
+    tiles, counts, pairs = [], [], 0
+    for b0 in range(0, NB, block_chunk):
+        sl = slice(b0, b0 + block_chunk)
+        coeffs, colors, opacs, *_, cnt = _tile_inputs(vals[sl], rects[sl], K, C)
+        out, p = blend.blend_tiles_coeffs_plain(coeffs, colors, opacs, count_pairs=True)
+        tiles.append(out.reshape(-1, TB, NPIX, C + 1))
+        counts.append(cnt)
+        pairs += p
+    tiles, counts = torch.cat(tiles, 0), torch.cat(counts, 0)
+    return (tiles, counts, pairs) if count_pairs else (tiles, counts)
+
+
+def select_blend_bwd_plain(vals, rects, g, K, C, block_chunk=BLOCK_CHUNK):
+    """Plain PyTorch version of K9's backward: the cotangent g
+    [NB, 64, 256, C+1] of the tiles to d(vals) [NB, kb, 16] — K8's plain
+    backward per tile, the transpose of the tile-local coefficients
+    (`_coeffs_transpose`), and each slot's (x, y, A, B, C, opacity,
+    colours) cotangent added to its lane in tile order; 0 in the padding
+    channels and for lanes no tile selected."""
+    NB, kb, _ = vals.shape
+    out = []
+    for b0 in range(0, NB, block_chunk):
+        sl = slice(b0, b0 + block_chunk)
+        coeffs, colors, opacs, slot, lanes, hit, _ = _tile_inputs(vals[sl], rects[sl], K, C)
+        nb, Kk = slot.shape[0], slot.shape[2]
+        dco, dcol, dop = blend.blend_tiles_coeffs_bwd_plain(
+            coeffs, colors, opacs, g[sl].reshape(nb * TB, NPIX, C + 1))
+        d0, d1, d2, d3, d4, d5 = dco.reshape(nb, TB, Kk, 8)[..., :6].unbind(-1)
+        sx, sy = _tile_origins(vals.device)
+        x, y = slot[..., 0] - sx[:, None], slot[..., 1] - sy[:, None]
+        A, B, Cc = slot[..., 2], slot[..., 3], slot[..., 4]
+        drec = torch.stack([
+            -d0 * (A * x + B * y) + d1 * A + d2 * B,
+            -d0 * (Cc * y + B * x) + d1 * B + d2 * Cc,
+            -0.5 * d0 * x * x + d1 * x - 0.5 * d3,
+            -d0 * x * y + d1 * y + d2 * x - d5,
+            -0.5 * d0 * y * y + d2 * y - 0.5 * d4,
+            dop.reshape(nb, TB, Kk),
+        ], -1)
+        drec = torch.cat([drec, dcol.reshape(nb, TB, Kk, C)], -1)
+        drec = torch.where(hit[..., None], drec, 0.0).reshape(nb, TB * Kk, 6 + C)
+        # tile order: slot rows are tile-major, scatter_add_ sums in index order
+        idx = torch.where(hit, lanes, kb).reshape(nb, TB * Kk, 1).expand(-1, -1, 6 + C)
+        dv = vals.new_zeros((nb, kb + 1, 6 + C)).scatter_add_(1, idx, drec)
+        out.append(Fn.pad(dv[:, :kb], (0, NCH - 6 - C)))
+    return torch.cat(out, 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernels():
+    lib = cuda_build.load("fused")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fwd, bwd = lib.d3ga_fused, lib.d3ga_fused_bwd
+    fwd.argtypes = [p, p, i, i, i, i, p, p, p]
+    bwd.argtypes = [p, p, p, i, i, i, i, p, p, p, p, p]
+    fwd.restype = bwd.restype = ctypes.c_int
+    return fwd, bwd
+
+
+def _check(name, vals, rects, K, C):
+    """Checks the kernels' records-major inputs; returns (NB, kb)."""
+    if vals.dtype != torch.float32 or rects.dtype != torch.int32:
+        raise TypeError(f"{name}: vals must be float32 and rects int32")
+    if not (vals.is_contiguous() and rects.is_contiguous()):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    if vals.device != rects.device:
+        raise ValueError(f"{name}: inputs on different devices")
+    if vals.ndim != 3 or vals.shape[2] != NCH or tuple(rects.shape) != tuple(vals.shape[:2]):
+        raise ValueError(f"{name}: vals {tuple(vals.shape)} and rects {tuple(rects.shape)}: "
+                         f"expected [NB, kb, {NCH}] and [NB, kb]")
+    if not 1 <= C <= MAX_C:
+        raise ValueError(f"{name}: C={C} unsupported (1..{MAX_C})")
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"{name}: K={K} unsupported (1..{MAX_K})")
+    return vals.shape[:2]
+
+
+def _launch(vals, rects, K, C):
+    global launches
+    NB, kb = _check("select_blend", vals, rects, K, C)
+    dev = vals.device
+    tiles = torch.empty((NB, TB, NPIX, C + 1), dtype=torch.float32, device=dev)
+    counts = torch.empty((NB, TB), dtype=torch.int32, device=dev)
+    if NB == 0:
+        return tiles, counts
+    err = _kernels()[0](vals.data_ptr(), rects.data_ptr(), NB, kb, K, C, tiles.data_ptr(),
+                        counts.data_ptr(), cuda_build.stream_handle(dev))
+    if err != 0:
+        raise RuntimeError(f"select_blend: kernel launch failed (error {err})")
+    launches += 1
+    return tiles, counts
+
+
+def _launch_bwd(vals, rects, g, K, C):
+    global bwd_launches
+    NB, kb = _check("select_blend_bwd", vals, rects, K, C)
+    dev = vals.device
+    if (g.dtype != torch.float32 or tuple(g.shape) != (NB, TB, NPIX, C + 1)
+            or not g.is_contiguous() or g.device != dev):
+        raise ValueError(f"select_blend_bwd: cotangent {g.dtype} {tuple(g.shape)} on {g.device}")
+    dvals = torch.empty_like(vals)
+    if NB == 0:
+        return dvals
+    # the per-tile kernel's slot rows, lane ids and live-slot counts
+    drec = torch.empty((NB * TB, K, 6 + C), dtype=torch.float32, device=dev)
+    sel = torch.empty((NB * TB, K), dtype=torch.int32, device=dev)
+    live = torch.empty((NB * TB,), dtype=torch.int32, device=dev)
+    err = _kernels()[1](vals.data_ptr(), rects.data_ptr(), g.data_ptr(), NB, kb, K, C,
+                        drec.data_ptr(), sel.data_ptr(), live.data_ptr(), dvals.data_ptr(),
+                        cuda_build.stream_handle(dev))
+    if err != 0:
+        raise RuntimeError(f"select_blend_bwd: kernel launch failed (error {err})")
+    bwd_launches += 1
+    return dvals
+
+
+def _device(name, vals):
+    if vals.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {vals.device}")
+    return vals.device.type
+
+
+def select_blend_bwd(vals, rects, g, K, C):
+    """K9's backward without autograd: d(vals) [NB, kb, 16] for the
+    tiles' cotangent g [NB, 64, 256, C+1]; the kernels on CUDA tensors,
+    the plain version on CPU tensors."""
+    if _device("select_blend_bwd", vals) == "cpu":
+        return select_blend_bwd_plain(vals, rects, g, K, C)
+    return _launch_bwd(vals, rects, g.contiguous(), K, C)
+
+
+class _FusedSelectBlend(torch.autograd.Function):
+    """K9 with the JAX package's custom VJP (the backward recomputes the
+    selection); saves the inputs only."""
+
+    @staticmethod
+    def forward(ctx, vals, rects, K, C, plain):
+        ctx.save_for_backward(vals, rects)
+        ctx.meta = (K, C, plain)
+        if plain:
+            tiles, counts = select_blend_plain(vals, rects, K, C)
+        else:
+            tiles, counts = _launch(vals, rects, K, C)
+        ctx.mark_non_differentiable(counts)
+        return tiles, counts
+
+    @staticmethod
+    def backward(ctx, g, _g_counts):
+        vals, rects = ctx.saved_tensors
+        K, C, plain = ctx.meta
+        g = g.to(torch.float32).contiguous()
+        if plain:
+            dvals = select_blend_bwd_plain(vals, rects, g, K, C)
+        else:
+            dvals = _launch_bwd(vals, rects, g, K, C)
+        return dvals, None, None, None, None
+
+
+def select_blend(vals, rects, K, C, plain=False):
+    """K9 on records-major vals [NB, kb, 16] float32 and rects [NB, kb]
+    int32: (tiles [NB, 64, 256, C+1] with T_bg last, counts [NB, 64]
+    int32), differentiable in vals. CPU tensors, or plain=True, take the
+    plain versions forward and backward."""
+    dev = _device("select_blend", vals)
+    return _FusedSelectBlend.apply(vals.contiguous(), rects.contiguous(), K, C,
+                                   plain or dev == "cpu")
+
+
+def _apply(vals, rects, K, C, plain, layout):
+    if _layout(vals) != layout:
+        raise ValueError(f"fused_select_blend{'' if layout == 1 else '2'}: vals of shape "
+                         f"{tuple(vals.shape)} is not the v{layout} layout")
+    return select_blend(_records(vals), rects.reshape(rects.shape[0], -1), K, C, plain)
+
+
+def fused_select_blend(vals, rects, K, C, plain=False):
+    """v1 layout: vals [NB, NC, 16, 128] float32 (kb = NC * 128
+    candidates a block, chunked channels-first records), rects
+    [NB, NC, 128] int32. Returns (tiles [NB, 64, 256, C+1] with T_bg
+    last, counts [NB, 64] int32), differentiable in vals. CPU tensors,
+    or plain=True, take the plain versions forward and backward."""
+    return _apply(vals, rects, K, C, plain, 1)
+
+
+def fused_select_blend2(vals, rects, K, C, plain=False):
+    """v2 layout: vals [NB, 16, KB] float32 (channels-major records),
+    rects [NB, 1, KB] int32; otherwise as `fused_select_blend`."""
+    return _apply(vals, rects, K, C, plain, 2)

@@ -1,6 +1,6 @@
 """Tile-binned Gaussian-splat rasterizer (counterpart of
 d3ga_tpu/raster/tiles.py): every single-device configuration of the JAX
-package but the fused backend.
+package.
 
   1. project all N Gaussians densely (`project.py`);
   2. per-tile selection of the front-most K overlapping Gaussians by one
@@ -28,6 +28,12 @@ package but the fused backend.
          (`blend_rec.py::blend_gather_img`) into the image layout; its
          backward is K7's, then K4.
 
+`rasterize_tiled_fused` (the `fused` backend) runs the projection, the
+depth argsort and the topk funnel's 8x8-tile block lists, then one kernel
+for the rest: K9 (`fused.py`) selects each tile's first K candidates from
+its block's list and blends them, and its backward routes the
+cotangents back to the block's candidates.
+
 Overflow counters make every cap visible (`RasterAux`).
 """
 
@@ -38,6 +44,7 @@ import torch
 import torch.nn.functional as Fn
 
 from d3ga_tpu_torch.raster.blend_ct import blend_gather_ct
+from d3ga_tpu_torch.raster import fused
 from d3ga_tpu_torch.raster.blend_rec import blend_gather_img
 from d3ga_tpu_torch.raster.camera import Camera
 from d3ga_tpu_torch.raster.extract import extract_slices, extract_slices_plain
@@ -59,12 +66,6 @@ COARSE = ("topk", "dupsort", "dupsort_tile", "dupsort_depth")
 # them bit-identical), with the defaults the port implements.
 TPU_ROUTES = {"D3GA_REC_GRAD": "segsum", "D3GA_REORDER": "argsort", "D3GA_SELEXT": "pallas"}
 ROUTES_TODO = "not ported (ROADMAP.md, queue 1: 'Non-champion raster variants')"
-# the fused select + blend backend (api backend "fused", raster_backend
-# "fused" in a model config)
-FUSED_TODO = (
-    "the fused select + blend backend (K9, rasterize_tiled_fused) is not ported yet "
-    "(ROADMAP.md, queue 2: 'K9')"
-)
 
 
 class RasterAux(NamedTuple):
@@ -710,4 +711,151 @@ def rasterize_tiled(
     )
     if return_alpha:
         return image, alpha_img, aux
+    return image, aux
+
+
+def fused_candidates(proj, ntx, nty, block_cap=4096):
+    """K9's inputs from the projected Gaussians: the stable depth argsort,
+    the reorder and the topk funnel's 8x8-tile block lists (superblocks of
+    2x2 blocks, `block_cap` candidates a block, padded to whole 128-lane
+    chunks). Returns (vals [NB, kb, 16] records-major: x, y in block-local
+    pixels, conic, opacity, colours, zero padding; rects [NB, kb] int32
+    block-local packed tile rects, 0 for invalid candidates; the block
+    lists' overflow; nbx; nby). Differentiable in the projected records."""
+    BLOCK = fused.BLOCK
+    if ntx >= 256 or nty >= 256:
+        raise ValueError(f"tile grid {ntx}x{nty} exceeds the 255-per-side rect packing limit")
+    nbx = -(-ntx // BLOCK)
+    nby = -(-nty // BLOCK)
+    n_blocks = nbx * nby
+    valid = proj.valid & (proj.radius > 0)
+    order = torch.argsort(torch.where(valid, proj.depth.detach(), torch.inf), stable=True)
+    C = proj.color.shape[-1]
+    records = torch.cat([proj.xy, proj.conic, proj.opacity[:, None], proj.color], -1)
+    records, radius_s, valid_s = reorder_records(records, proj.radius, valid, order)
+    n = records.shape[0]
+    kb = min(block_cap, n)
+    dev = records.device
+
+    rects = tuple(r.to(torch.int64) for r in tile_rect(records[:, 0:2].detach(), radius_s, TILE,
+                                                         ntx, nty))
+    block_ranks, _, _, block_overflow = _coarse_block_lists(
+        rects, valid_s, torch.arange(n, device=dev), nbx, nby, BLOCK, kb
+    )
+    # the kernel consumes whole 128-lane chunks
+    kb_pad = (-kb) % fused.CHUNK
+    if kb_pad:
+        block_ranks = Fn.pad(block_ranks, (0, kb_pad), value=BIG_RANK)
+        kb += kb_pad
+    cand_ok = block_ranks < BIG_RANK
+    safe = torch.where(cand_ok, block_ranks, 0)
+
+    # per-block candidate records. Invalid candidates read the zero
+    # sentinel row: the gather's backward then sums by sorted segments and
+    # skips that run (an indexing gather's backward sums it serially)
+    records_ext = torch.cat([records, records.new_zeros(1, records.shape[1])], 0)
+    rec_b = Fn.embedding(torch.where(cand_ok, block_ranks, n), records_ext, padding_idx=n)
+    bids = torch.arange(n_blocks, device=dev)
+    bx0 = (bids % nbx) * BLOCK
+    by0 = (bids // nbx) * BLOCK
+    block_px = torch.stack([bx0 * TILE, by0 * TILE], -1).to(rec_b.dtype)
+    vals = torch.cat(
+        [rec_b[..., 0:2] - block_px[:, None, :], rec_b[..., 2 : 6 + C],
+         rec_b.new_zeros(n_blocks, kb, fused.NCH - 6 - C)], -1,
+    )
+
+    # block-local clamped rects (invalid -> 0 = never overlaps)
+    xmin, xmax, ymin, ymax = (r[safe] for r in rects)
+    lxmin = torch.clamp(xmin - bx0[:, None], 0, BLOCK)
+    lxmax = torch.clamp(xmax - bx0[:, None], 0, BLOCK)
+    lymin = torch.clamp(ymin - by0[:, None], 0, BLOCK)
+    lymax = torch.clamp(ymax - by0[:, None], 0, BLOCK)
+    rects_l = torch.where(
+        cand_ok, lxmin | (lxmax << 8) | (lymin << 16) | (lymax << 24), 0
+    ).to(torch.int32)
+    return vals, rects_l, block_overflow, nbx, nby
+
+
+def rasterize_tiled_fused(
+    means3d,
+    camera: Camera,
+    bg_color,
+    cov3d=None,
+    scales=None,
+    rotations=None,
+    opacities=None,
+    colors=None,
+    shs=None,
+    sh_degree: int = 0,
+    max_per_tile: int = 256,
+    block_cap: int = 4096,
+    return_alpha: bool = False,
+    interpret: bool = False,
+    variant: int = 2,
+    plain: bool = False,
+):
+    """Render [C, H, W] (and, with return_alpha, alpha [H, W]) and
+    RasterAux through the fused select + blend kernel K9: the JAX
+    package's `rasterize_tiled_fused`, with its signature and defaults,
+    differentiable in every Gaussian input. The projection, the stable
+    depth argsort and the topk funnel's block lists (superblocks of 2x2
+    blocks, `block_cap` candidates a block) come first; K9 then selects
+    each tile's first `max_per_tile` and blends them. Same semantics as
+    `rasterize_tiled(coarse="topk", super_factor=2)`.
+
+    variant 1 or 2 picks the JAX kernel's input layout (v1 [NB, NC, 16,
+    128], v2 [NB, 16, kb]); both reach the same kernels. `interpret` is
+    the JAX kernels' and is ignored. plain=True runs K9's plain versions,
+    forward and backward, whatever the device. Only the in-image tiles
+    count in overflow, max_per_tile and n_contrib; visible_overflow,
+    depth_ties and clamp_overflow are -1, as in the JAX package."""
+    if variant not in (1, 2):
+        raise ValueError(f"variant={variant!r}: expected 1 or 2")
+    BLOCK = fused.BLOCK
+    H, W = camera.height, camera.width
+    ntx = -(-W // TILE)
+    nty = -(-H // TILE)
+    proj = project_gaussians(
+        means3d, camera, cov3d=cov3d, scales=scales, rotations=rotations, opacities=opacities,
+        colors=colors, shs=shs, sh_degree=sh_degree,
+    )
+    C = proj.color.shape[-1]
+    vals, rects_l, block_overflow, nbx, nby = fused_candidates(proj, ntx, nty, block_cap)
+    n_blocks, kb = rects_l.shape
+    dev = vals.device
+
+    if variant == 2:
+        tiles, counts = fused.fused_select_blend2(
+            vals.permute(0, 2, 1), rects_l[:, None, :], max_per_tile, C, plain=plain)
+    else:
+        NC = kb // fused.CHUNK
+        tiles, counts = fused.fused_select_blend(
+            vals.reshape(n_blocks, NC, fused.CHUNK, fused.NCH).permute(0, 1, 3, 2),
+            rects_l.reshape(n_blocks, NC, fused.CHUNK), max_per_tile, C, plain=plain)
+    # tiles [NB, 64, 256, C+1]; T_bg in the last channel
+
+    # untile (padded block grid, then crop)
+    img = (
+        tiles.reshape(nby, nbx, BLOCK, BLOCK, TILE, TILE, C + 1)
+        .permute(0, 2, 4, 1, 3, 5, 6)
+        .reshape(nby * BLOCK * TILE, nbx * BLOCK * TILE, C + 1)[:H, :W]
+    )
+    t_bg = img[..., C]
+    bg = torch.as_tensor(bg_color, dtype=img.dtype, device=dev)
+    image = img[..., :C].permute(2, 0, 1) + t_bg[None] * bg[:, None, None]
+
+    # only tiles inside the image count
+    cnt = counts.reshape(nby, nbx, BLOCK, BLOCK)
+    tile_in_x = torch.arange(nbx * BLOCK, device=dev) < ntx
+    tile_in_y = torch.arange(nby * BLOCK, device=dev) < nty
+    inside = tile_in_y.reshape(nby, 1, BLOCK, 1) & tile_in_x.reshape(1, nbx, 1, BLOCK)
+    cnt = torch.where(inside, cnt, 0)
+    aux = RasterAux(
+        overflow=(torch.sum(torch.clamp(cnt - max_per_tile, min=0)) + block_overflow).to(
+            torch.int32),
+        max_per_tile=torch.max(cnt).to(torch.int32),
+        n_contrib=torch.sum(torch.clamp(cnt, max=max_per_tile)).to(torch.int32),
+    )
+    if return_alpha:
+        return image, 1.0 - t_bg, aux
     return image, aux

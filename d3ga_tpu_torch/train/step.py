@@ -15,8 +15,8 @@ with a random background colour per step, drawn from the caller's
 
 Ported: the fused branch (RGB and silhouette share one 6-channel raster
 pass, with the model config's `raster_backend` and `raster_opts`: the
-XLA blend or the hand-written kernels, any selection funnel; the `fused`
-backend raises, not ported) and the gt composition,
+XLA blend or the hand-written kernels, any selection funnel, or the
+fused select + blend kernel) and the gt composition,
 with canvas padding (`pixel_valid`) and `boundary_fg`. Not ported yet,
 each raising NotImplementedError naming its ROADMAP item: the non-fused
 `detach_silhouette` branch, the background network, learnable blur,
@@ -31,7 +31,7 @@ import torch
 
 from d3ga_tpu_torch.model.avatar import MODEL_TODO as TRAIN_TODO
 from d3ga_tpu_torch.model.avatar import AvatarModel, avatar_forward, resolve_camera
-from d3ga_tpu_torch.raster.tiles import FUSED_TODO, rasterize_tiled
+from d3ga_tpu_torch.raster.tiles import rasterize_tiled, rasterize_tiled_fused
 from d3ga_tpu_torch.train.losses import full_float32, l1_loss, masked_psnr, masked_ssim, ssim
 
 # the model config's raster_opts that reach rasterize_tiled: the funnel
@@ -50,14 +50,15 @@ class LossWeights(NamedTuple):
 
 
 def _raster_opts(cfg):
-    """The model config's rasterizer options as `rasterize_tiled`
-    keywords, as the JAX package reads them: raster_backend "xla" (the
-    default) blends with `_blend_tiles`, "pallas_blend" with the
+    """The model config's rasterizer options as keywords of its rasterizer
+    (`_rasterizer`), as the JAX package reads them: raster_backend "xla"
+    (the default) blends with `_blend_tiles`, "pallas_blend" with the
     hand-written kernels, each with raster_opts' funnel (coarse "topk"
-    and dup 2 unless given)."""
+    and dup 2 unless given); "fused" takes none (the JAX package ignores
+    raster_opts there, ROADMAP queue 3)."""
     backend = cfg.get("raster_backend", "xla")
     if backend == "fused":
-        raise NotImplementedError(FUSED_TODO)
+        return {}
     if backend not in ("xla", "pallas_blend"):
         raise ValueError(f"raster_backend={backend!r}: expected 'xla', 'pallas_blend' or 'fused'")
     opts = dict(cfg.get("raster_opts", {}))
@@ -65,6 +66,14 @@ def _raster_opts(cfg):
     if unknown:
         raise ValueError(f"raster_opts {sorted(unknown)}: expected a subset of {RASTER_OPTS}")
     return dict(opts, use_pallas=backend == "pallas_blend")
+
+
+def _rasterizer(cfg):
+    """(the rasterize function, its keywords) of the model config:
+    `rasterize_tiled_fused` for raster_backend "fused", else
+    `rasterize_tiled`."""
+    fn = rasterize_tiled_fused if cfg.get("raster_backend") == "fused" else rasterize_tiled
+    return fn, _raster_opts(cfg)
 
 
 def render_frame(
@@ -97,7 +106,7 @@ def render_frame(
         raise NotImplementedError(f"use_random_bg: {TRAIN_TODO}")
     if vgg_params is not None and loss_weights.enable_vgg_from > 0:
         raise NotImplementedError(f"the VGG term: {TRAIN_TODO}")
-    opts = _raster_opts(cfg)
+    rasterize, opts = _rasterizer(cfg)
 
     batch = dict(batch, iteration=iteration)
     batch = resolve_camera(params, model, batch, training=training)
@@ -118,7 +127,7 @@ def render_frame(
     # one fused rasterization with 6 colour channels (RGB + silhouette)
     colors6 = torch.cat([pkg["rgb"], pkg["silhouette_rgb"]], -1)
     bg6 = torch.cat([bg, bg.new_zeros(3)])
-    both, aux_rgb = rasterize_tiled(
+    both, aux_rgb = rasterize(
         pkg["means3D"], camera, bg6, cov3d=pkg.get("cov3D_precomp"), scales=pkg.get("scales"),
         rotations=pkg.get("rotations"), opacities=pkg["opacities"], colors=colors6,
         max_per_tile=max_per_tile, plain=plain, **opts,

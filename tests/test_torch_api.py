@@ -179,6 +179,6 @@ def test_rasterize_checks_inputs(scene):
         tapi.rasterize(tcam, m, o, bg, colors=col)
     with pytest.raises(ValueError, match="colors"):
         tapi.rasterize(tcam, m, o, bg, cov3d=cov)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*K9"):
+    with pytest.raises(ValueError, match="unknown backend"):
         tapi.rasterize(tcam, m, o, bg, cov3d=cov, colors=col,
-                       settings=tapi.RasterSettings(backend="fused"))
+                       settings=tapi.RasterSettings(backend="cuda"))

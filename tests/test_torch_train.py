@@ -250,9 +250,6 @@ def test_unported_options_raise(pair):
         render_frame(dict(tp, bg_net={}), tm, tb, bg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         render_frame(tp, tm, tb, bg, band_ctx=("x", 2))
-    fused = tm._replace(config=dict(tm.config, raster_backend="fused"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*K9"):
-        render_frame(tp, fused, tb, bg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_optimizer(tp, lr_tree_from_config(tp), grad_accum=2)
 

@@ -92,8 +92,9 @@ def test_render_frame_actorshq_settings_match_jax(monkeypatch):
 def test_raster_opts_map_to_rasterize_tiled():
     """raster_backend and raster_opts as the JAX package reads them: the
     xla default takes the XLA blend with rasterize_tiled's own defaults,
-    pallas_blend the kernels with the given funnel; fused raises (not
-    ported); an option rasterize_tiled does not take is refused."""
+    pallas_blend the kernels with the given funnel; fused takes
+    rasterize_tiled_fused and ignores raster_opts; an option
+    rasterize_tiled does not take is refused."""
     assert tstep._raster_opts({}) == {"use_pallas": False}
     assert tstep._raster_opts(ACTORSHQ) == {"coarse": "dupsort_tile", "dup": 4,
                                             "use_pallas": True}
@@ -101,8 +102,10 @@ def test_raster_opts_map_to_rasterize_tiled():
             "sub_block": 4, "sub_cap": 256, "super_factor": 2}
     assert tstep._raster_opts({"raster_backend": "xla", "raster_opts": full}) == dict(
         full, use_pallas=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*K9"):
-        tstep._raster_opts({"raster_backend": "fused"})
+    fused = {"raster_backend": "fused", "raster_opts": {"max_per_tile": 64}}
+    assert tstep._raster_opts(fused) == {}
+    assert tstep._rasterizer(fused) == (ttiles.rasterize_tiled_fused, {})
+    assert tstep._rasterizer(ACTORSHQ)[0] is ttiles.rasterize_tiled
     with pytest.raises(ValueError, match="max_per_tile"):
         tstep._raster_opts({"raster_opts": {"max_per_tile": 64}})
     with pytest.raises(ValueError, match="raster_backend"):
