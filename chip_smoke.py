@@ -11,9 +11,12 @@ tile slices of the ranks of a 4-way banded split, K7 (the image-layout
 blend, forward and backward) on the serving selection, K9 (the fused
 select + blend, forward and backward, through both of its input layouts)
 on frame 0's Gaussians, K8 (the blend over precomputed coefficients,
-forward and backward) at the stage bench's shapes. Then it drives the
-paths of the full-width synthetic avatar (3 garments x 45,000 Gaussians,
-1024 x 667 pixels, random weights from seed 0):
+forward and backward) at the stage bench's shapes, and the card probes
+P1-P3 (the port of the TPU tools mxu_probe, widerow_probe and fused_bisect:
+matmuls in FP32 SIMT, TF32 and 3xTF32, a roll + select chain, a
+passthrough over narrow and wide rows, K9's forward cut at four stages).
+Then it drives the paths of the full-width synthetic avatar (3 garments x
+45,000 Gaussians, 1024 x 667 pixels, random weights from seed 0):
 
 - serving: eval-mode `avatar_forward` + champion `rasterize_tiled` (6
   channels, dupsort_depth, dup 3, K 256) for 20 frames;
@@ -39,8 +42,12 @@ paths of the full-width synthetic avatar (3 garments x 45,000 Gaussians,
   bench (`d3ga_tpu_torch/bench_stages.py`, bench.py's 135,000-Gaussian
   scene: per-stage times, K8 forward and backward among them), its JSON
   in run_out/bench_stages.json;
+- probes: the probes' own runs (`d3ga_tpu_torch/probes/`: P1's 15
+  matmul cases on one CTA and on one CTA per SM, its 4 roll cases, P2's
+  passthroughs and gathers, P3's stages on frame 0's K9 inputs and K9's
+  backward's two kernels apart), one JSON line each;
 
-and checks that the kernels carried every frame, step and call.
+and checks that the kernels carried every frame, step, call and probe.
 
     python3 chip_smoke.py
 
@@ -65,7 +72,10 @@ from d3ga_tpu_torch.dist.banded import banded_l1_ssim
 from d3ga_tpu_torch.dist.mesh import initialize_distributed, local_mesh
 from d3ga_tpu_torch.dist.raster_shard import rasterize_collective, rasterize_sharded
 from d3ga_tpu_torch.model.avatar import avatar_forward, init_avatar
-from d3ga_tpu_torch import bench_stages
+from d3ga_tpu_torch import bench_stages, probes
+from d3ga_tpu_torch.probes import (COEFF_BWD_SFU_PER_PAIR, FP32_OPS_PER_S, HBM_BYTES_PER_S,
+                                    SFU_OPS_PER_S, bound, coeff_bwd_ops, coeff_fwd_ops,
+                                    device_events, fused_bisect, mxu, widerow)
 from d3ga_tpu_torch.raster import api, blend, blend_ct, blend_rec, extract, fused, segsum, tiles
 from d3ga_tpu_torch.raster.camera import focal2fov, make_camera
 from d3ga_tpu_torch.raster.project import project_gaussians
@@ -103,6 +113,25 @@ STAGE_ITERS = 10  # calls per stage of the stage bench
 # the stage bench's scene: bench.py's (135,000 Gaussians, 1024 x 667, K 256)
 STAGE_SCENE = dict(n=bench_stages.N_GAUSS, width=bench_stages.WIDTH,
                    height=bench_stages.HEIGHT, k=bench_stages.K)
+# the probes phase (P1-P3): the loop probes' longer timed launch, the
+# calls each passthrough and stage is timed over, the matmul and roll
+# cases (the TPU tools' lists), widerow's size divisor (1: full size)
+PROBE_TARGET_MS = 10.0
+PROBE_ITERS = 10
+PROBE_MATMUL_CASES = mxu.CASES
+PROBE_ROLL_CASES = mxu.ROLL_CASES
+PROBE_SCALE = 1
+# P1 tolerances: each kernel against its plain version at the same
+# precision (float32 sums in another order; TF32 products are exact in
+# float32), and TF32 / 3xTF32 against float64 (TF32 keeps 10 mantissa bits;
+# 3xTF32 drops only the small x small term)
+MATMUL_REL_L2 = 1e-6
+MATMUL_FP64_REL_L2 = {"default": 2e-3, "high": 1e-5}
+# P3 stage 2 against plain: sums of up to K records in another order, each
+# channel's error relative to its largest |value|
+STAGE2_REL = 1e-5
+# tools/fused_bisect.py's shapes: K 256, C 3, 2 blocks of 4 chunks of 128
+BISECT_K, BISECT_C, BISECT_NB, BISECT_NC = 256, 3, 2, 4
 # the API's backends against the oracle: tests/test_torch_api.py's scene
 # (120 Gaussians, 80 x 56 pixels; the oracle holds [rows x W, N] per chunk)
 API_N, API_W, API_H = 120, 80, 56
@@ -124,36 +153,11 @@ K4_REL = 1e-6
 # threshold flips above reach every upstream leaf)
 TERM_RTOL, GRAD_REL_L2 = 1e-5, 1e-3
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM3
-# 3.35 TB/s, FP32 67 TFLOP/s; special-function unit 16 results per clock
-# per SM (Hopper white paper) x 132 SMs x 1.98 GHz boost
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-SFU_OPS_PER_S = 16 * 132 * 1.98e9
 BLEND_FP32_OPS_PER_PAIR = 25  # falloff polynomial, alpha rules, T update, 6 colour FMAs
 # backward: the forward recompute (25), then dw (12), the suffix and
 # dalpha (8), and the 12 per-pixel contributions to the per-record sums
 BLEND_BWD_FP32_OPS_PER_PAIR = 60
 BLEND_BWD_SFU_PER_PAIR = 3  # exp in each walk, one division
-# K8/K9's polynomial walk (coeff_walk.cuh) at C colours, FMAs counted as
-# two operations, as the FP32 peak counts them.
-COEFF_BWD_SFU_PER_PAIR = 2  # exp and the division of the one counted walk
-
-
-def coeff_fwd_ops(C):
-    """Forward FP32 operations a pair: the falloff polynomial (5 FMAs),
-    opacity * exp, the 0.99 clamp, T * (1 - alpha), w = alpha T (15), and
-    the C colour FMAs."""
-    return 15 + 2 * C
-
-
-def coeff_bwd_ops(C):
-    """Backward FP32 operations a pair, for one walk (the first walk, which
-    finds T_bg, is not counted, so this stays a lower bound): the
-    forward's 15, dw (C FMAs), the suffix R -= dw w (2), dlg (1), dalpha
-    (3), dpower and its five basis products (6), dopacity (1), the C
-    colour cotangents, and one add for each of the 7 + C per-record sums."""
-    return 35 + 4 * C
 
 
 OUT_DIR = "run_out"
@@ -190,70 +194,44 @@ def timer_ms(fn, iters, dev, warmup=2):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def device_events(prof, DeviceType):
-    """The profile's kernels: device events, less the ranges that
-    record_function annotations (e.g. Optimizer.step) mirror onto the
-    device timeline, which would count their kernels twice."""
-    return [
-        e for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
-    ]
-
-
 def device_ms(fn, iters, dev):
     """Device milliseconds per call: the summed duration of the kernels
-    `fn` launches, from torch.profiler (CUPTI); None where it records no
-    device activity."""
-    if dev.type != "cuda":
-        return None
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in device_events(prof, DeviceType))
-    return us / 1e3 / iters if us > 0 else None
+    `fn` launches, from torch.profiler (CUPTI, `probes.device_ms`); None
+    where it records no device activity."""
+    d = probes.device_ms(fn, iters, dev)
+    return None if d is None else d["total"]
 
 
 def profile_calls(fn, calls, dev):
-    """torch.profiler over `calls` calls (after one unprofiled): wall and
-    device-busy milliseconds per call, the device's idle share, kernels
-    launched per call, host time in cudaLaunchKernel per call, and the
-    kernels by device time; None off the card."""
-    if dev.type != "cuda":
+    """torch.profiler over `calls` calls (`probes.profiled`: after an
+    unprofiled call and a warm-up one): wall and device-busy milliseconds
+    per call, the device's idle share, kernels launched per call, host
+    time in cudaLaunchKernel per call, and the kernels by device time;
+    None off the card."""
+    run = probes.profiled(fn, calls, dev)
+    if run is None:
         return None
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / calls
+    prof, wall, rec = run
+    rec = max(rec, 1)
     events = prof.key_averages()
-    kern = device_events(prof, DeviceType)
-    busy = sum(e.self_device_time_total for e in kern) / 1e3 / calls
+    kern = sorted(((e.key, *probes.per_call(e, rec)) for e in device_events(prof, DeviceType)),
+                  key=lambda k: -k[1])
+    busy = sum(ms for _, ms, _ in kern)
     launch = sum(e.self_cpu_time_total for e in events if e.key == "cudaLaunchKernel")
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:12]
     return {
-        "calls": calls, "wall_ms": wall, "device_busy_ms": busy, "idle_share": 1 - busy / wall,
-        "kernels_per_call": sum(e.count for e in kern) / calls,
-        "launch_host_ms": launch / 1e3 / calls,
-        "top": [(e.key, e.self_device_time_total / 1e3 / calls, e.count / calls) for e in top],
+        "calls": calls, "recorded_calls": rec, "wall_ms": wall, "device_busy_ms": busy,
+        "idle_share": 1 - busy / wall, "kernels_per_call": sum(n for _, _, n in kern),
+        "launch_host_ms": launch / 1e3 / calls, "top": kern[:12],
     }
 
 
 def profile_summary(prof, unprofiled_ms):
     """One line of profile_calls' result, the idle share also against the
     unprofiled wall time of a call."""
-    return (f"wall {prof['wall_ms']:.3f} ms, device busy {prof['device_busy_ms']:.3f} ms (idle "
+    return (f"wall {prof['wall_ms']:.3f} ms, device busy {prof['device_busy_ms']:.3f} ms over "
+            f"{prof['recorded_calls']} recorded of {prof['calls']} calls (idle "
             f"share {prof['idle_share']:.3f}; against the unprofiled call "
             f"{1 - prof['device_busy_ms'] / unprofiled_ms:.3f}), {prof['kernels_per_call']:.0f} "
             f"kernels and {prof['launch_host_ms']:.3f} ms of cudaLaunchKernel a call; top kernels "
@@ -329,6 +307,7 @@ def reset_launch_counts():
     blend_rec.launches = blend_rec.bwd_launches = 0
     blend_rec.img_launches = blend_rec.img_bwd_launches = 0
     blend.launches = blend.bwd_launches = fused.launches = fused.bwd_launches = 0
+    probes.reset_launches()
 
 
 def rel_l2(a, b):
@@ -344,7 +323,8 @@ def run(dev, report):
     kernels = kernels + train(dev, report, scene)
     kernels = kernels + sharded(dev, report, scene)
     kernels = kernels + variants(dev, report, scene)
-    return kernels + fused_phase(dev, report, scene)
+    kernels = kernels + fused_phase(dev, report, scene)
+    return kernels + probes_phase(dev, report, scene)
 
 
 def logger(report):
@@ -1191,16 +1171,6 @@ def variants(dev, report, scene):
     return kernels
 
 
-def bound(bytes_, pairs, fp32_per_pair, sfu_per_pair):
-    """(bound ms, "bytes" or "operations") for a walk of `pairs`
-    (pixel, slot) pairs that must move `bytes_`."""
-    times = {"bytes": bytes_ / HBM_BYTES_PER_S,
-             "operations": max(pairs * fp32_per_pair / FP32_OPS_PER_S,
-                               pairs * sfu_per_pair / SFU_OPS_PER_S)}
-    by = max(times, key=times.get)
-    return times[by] * 1e3, by
-
-
 def fused_phase(dev, report, scene):
     """K9 (the fused select + blend) forward and backward against its plain
     versions through both input layouts, on frame 0's Gaussians at the
@@ -1461,6 +1431,198 @@ def fused_phase(dev, report, scene):
         fused_launches=k9_launches, fused_profiled=fused_prof, k8=k8, k8b=k8b, k8_pairs=pairs8,
         stage_bench=bench, fused_timings=timings,
     )
+    report["kernels"] = report.get("kernels", []) + kernels
+    return kernels
+
+
+def stage_err(a, b):
+    """P3 stage 2: the largest error of each channel relative to that
+    channel's largest |value| in b."""
+    scale = b.abs().amax(dim=(0, 1, 2)).clamp(min=1e-30)
+    return float(((a - b).abs().amax(dim=(0, 1, 2)) / scale).max())
+
+
+def hold_stages(vals, rects, K, C, where, line):
+    """P3's four stages against their plain versions (0-1 exactly, 2 by
+    STAGE2_REL, 3 bit-equal to K9's tiles and within the image tolerance
+    of plain); returns each stage's max abs error against plain."""
+    k9_tiles, _ = fused.select_blend(vals, rects, K, C)
+    errs = []
+    for s in range(len(fused_bisect.STAGES)):
+        out = fused_bisect.stage(vals, rects, K, C, s)
+        ref = fused_bisect.stage_plain(vals, rects, K, C, s)
+        sync(vals.device)
+        check(bool(torch.isfinite(out).all()), f"P3 stage {s} ({where}): non-finite output")
+        errs.append(float((out - ref).abs().max()))
+        if s < 2:
+            check(torch.equal(out, ref), f"P3 stage {s} ({where}): differs from plain")
+        elif s == 2:
+            e = stage_err(out, ref)
+            check(e <= STAGE2_REL, f"P3 stage 2 ({where}): rel {e:.3e} > {STAGE2_REL}")
+        else:
+            check(torch.equal(out, k9_tiles), f"P3 stage 3 ({where}): not K9's tiles to the bit")
+            check(image_ok(image_err(out, ref)), f"P3 stage 3 ({where}): outside the image "
+                                                 "tolerance of plain")
+    line(f"P3 stages vs plain ({where}: NB={vals.shape[0]}, kb={vals.shape[1]}, K={K}, C={C}): "
+         f"0-1 equal, 2 rel <= {STAGE2_REL}, 3 bit-equal to K9; max abs "
+         + ", ".join(f"{e:.3e}" for e in errs))
+    return errs
+
+
+def probes_phase(dev, report, scene):
+    """P1-P3, the card probes: each probe kernel against its plain version
+    (P2's passthrough and the roll bit-equal; P1's matmuls by relative L2
+    against their plain versions and TF32 / 3xTF32 against float64, the
+    one-CTA-per-SM launch equal to the one-CTA one; P3's stages at the
+    TPU bisect's shapes and at frame 0's K9 shapes), then with the launch
+    counts at 0 the probes' runs (`mxu.run_matmul`, `mxu.run_roll`,
+    `widerow.run`, `fused_bisect.run` on frame 0), one JSON line each, and
+    the kernels' entries (P1's times per op, the rest per call)."""
+    line = logger(report)
+    gen = torch.Generator(device=dev)
+
+    # -- P2: the passthrough, bit-equal -------------------------------------
+    for name, shape, bs in widerow.PASS_CASES:
+        x = torch.randn(shape, generator=gen.manual_seed(4), device=dev)
+        out = widerow.passthrough(x, bs)
+        check(torch.equal(out, widerow.passthrough_plain(x)), f"P2 {name}: not bit-equal to plain")
+    line(f"P2 passthrough vs plain: bit-equal on {len(widerow.PASS_CASES)} operands")
+
+    # -- P1: the matmuls at each case's shape, one CTA and one per SM -------
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else 1
+    mm_err, mm_abs = {}, {p: 0.0 for p in mxu.PRECISIONS}
+    for name, M, K_, N, prec, cl in PROBE_MATMUL_CASES:
+        a, b = mxu.operands(M, K_, N, cl, device=dev)
+        out = mxu.matmul(a, b, 1, prec, cl)
+        many = mxu.matmul(a.expand(sms, -1, -1).contiguous(), b.expand(sms, -1, -1).contiguous(),
+                          1, prec, cl)
+        ref = mxu.matmul_plain(a, b, 1, prec, cl)
+        ref64 = a.double() @ (b.double().t() if cl else b.double())
+        sync(dev)
+        check(bool(torch.isfinite(out).all()), f"P1 {name}: non-finite output")
+        check(torch.equal(many, out.expand_as(many)), f"P1 {name}: one CTA per SM differs from one CTA")
+        e = {"plain": rel_l2(out, ref), "fp64": rel_l2(out, ref64)}
+        mm_err[name] = e
+        mm_abs[prec] = max(mm_abs[prec], float((out - ref).abs().max()))
+        check(e["plain"] <= MATMUL_REL_L2, f"P1 {name}: rel L2 {e['plain']:.3e} against plain "
+                                           f"> {MATMUL_REL_L2}")
+        if prec in MATMUL_FP64_REL_L2:
+            check(e["fp64"] <= MATMUL_FP64_REL_L2[prec], f"P1 {name}: rel L2 {e['fp64']:.3e} "
+                                                         f"against float64 > {MATMUL_FP64_REL_L2[prec]}")
+        del many
+    line("P1 matmuls vs plain (rel L2) and float64: "
+         + "; ".join(f"{n}: {e['plain']:.2e} / {e['fp64']:.2e}" for n, e in mm_err.items()))
+
+    # -- P1: the roll, bit-equal --------------------------------------------
+    roll_abs = 0.0
+    for name, R, L, axis, shifts in PROBE_ROLL_CASES:
+        x = mxu.roll_input(R, L, device=dev)
+        out, ref = mxu.roll(x, 2, shifts, axis), mxu.roll_plain(x, 2, shifts, axis)
+        roll_abs = max(roll_abs, float((out - ref).abs().max()))
+        check(torch.equal(out, ref), f"P1 {name}: not bit-equal to plain")
+    line(f"P1 roll vs plain: bit-equal on {len(PROBE_ROLL_CASES)} cases (2 trips)")
+
+    # -- P3: the stages at the bisect's shapes, then at frame 0's -----------
+    bv, br = (torch.from_numpy(t).to(dev)
+              for t in fused_bisect.make_inputs(BISECT_NB, BISECT_NC, BISECT_C))
+    hold_stages(bv, br, BISECT_K, BISECT_C, "the bisect's shapes", line)
+    means, cov3d, opac, colors = scene["gauss"]
+    cam, C = scene["camera"], scene["C"]
+    with torch.no_grad():
+        proj = project_gaussians(means, cam, cov3d=cov3d, opacities=opac, colors=colors)
+        vals, rects, _, _, _ = tiles.fused_candidates(proj, -(-WIDTH // 16), -(-HEIGHT // 16),
+                                                      BLOCK_CAP)
+        stage_abs = hold_stages(vals, rects, K, C, "frame 0", line)
+    del proj
+
+    # -- the probes' runs ----------------------------------------------------
+    sync(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        mm_rows = mxu.run_matmul(dev, PROBE_MATMUL_CASES, target_ms=PROBE_TARGET_MS)
+        roll_rows = mxu.run_roll(dev, PROBE_ROLL_CASES, target_ms=PROBE_TARGET_MS)
+        wr_rows = widerow.run(dev, iters=PROBE_ITERS, scale=PROBE_SCALE)
+        # the fused phase's cotangent, so the backward's split adds up to its time
+        g = torch.randn((vals.shape[0], fused.TB, fused.NPIX, C + 1),
+                        generator=torch.Generator(device=dev).manual_seed(9), device=dev)
+        st_rows, pairs = fused_bisect.run(vals, rects, K, C, iters=PROBE_ITERS, g=g)
+    sync(dev)
+    run_s = time.perf_counter() - t0
+    counts = {**{(k if k == "roll" else f"matmul_{k}"): n for k, n in mxu.launches.items()},
+              "passthrough": widerow.launches,
+              **{f"stage{s}": n for s, n in fused_bisect.launches.items()}}
+    lines = [probes.emit("mxu_matmul", dev, mm_rows), probes.emit("mxu_roll", dev, roll_rows),
+             probes.emit("widerow", dev, wr_rows),
+             probes.emit("fused_bisect", dev, [dict(r, blocks=vals.shape[0], kb=vals.shape[1],
+                                                    K=K, C=C, pairs=pairs) for r in st_rows])]
+    for ln in lines:
+        report.setdefault("log", []).append(json.dumps(ln))
+    bwd = st_rows[-1]["device_ms"]
+    check(all(r["ms"] is not None for r in st_rows[:-1]),
+          "P3: a stage's launches did not queue behind the spin")
+    line(f"probes run: {run_s:.1f} s; launches {counts}; K9 forward stages (ms a call, "
+         f"{st_rows[0]['clock']}; delta): "
+         + ", ".join(f"{r['stage']} {r['ms']:.4f} ({r['delta_ms']:+.4f})" for r in st_rows[:-1])
+         + f"; K9 backward kernels {bwd}")
+    check(all(n > 0 for n in counts.values()), f"probes: a probe kernel was not launched {counts}")
+    check(dev.type != "cuda" or bwd is not None, "P3: no device time for K9's backward kernels")
+    check(all(np.isfinite(r["one_cta"]["ns_per_op"]) for r in mm_rows), "P1: a time is not finite")
+
+    # -- the kernels' entries ------------------------------------------------
+    def case_row(prec):
+        """The matmul entries' case: the largest product at this precision."""
+        return max((r for r in mm_rows if r["precision"] == prec),
+                   key=lambda r: r["M"] * r["K"] * r["N"])
+
+    kernels = []
+    for prec, label in (("highest", "fp32"), ("default", "tf32"), ("high", "3xtf32")):
+        r = case_row(prec)
+        a, b = mxu.operands(r["M"], r["K"], r["N"], r["contract_last"], device=dev)
+        plain = probes.time_ms(lambda: mxu.matmul_plain(a, b, 1, prec, r["contract_last"]), 3,
+                               dev, warmup=1) / probes.UNROLL
+        kernels.append({
+            "name": f"probe_matmul_{label}", "route": "cuda",
+            "source": "d3ga_tpu_torch/csrc/probes_mxu.cu", "replaces": "tools/mxu_probe.py:56",
+            "launches": mxu.launches[prec], "max_abs_err": mm_abs[prec],
+            "ms": r["one_cta"]["ns_per_op"] * 1e-6, "plain_ms": plain,
+            "bound_ms": r["bound_ns"] * 1e-6, "bound_by": "operations",
+            "library_ms": r["library_ms"],
+        })
+    r = roll_rows[0]
+    x = mxu.roll_input(r["rows"], r["lanes"], device=dev)
+    plain = probes.time_ms(lambda: mxu.roll_plain(x, 2, r["shifts"], r["axis"]), 3, dev,
+                           warmup=1) / (2 * probes.UNROLL)
+    kernels.append({
+        "name": "probe_roll", "route": "cuda", "source": "d3ga_tpu_torch/csrc/probes_mxu.cu",
+        "replaces": "tools/mxu_probe.py:96", "launches": mxu.launches["roll"],
+        "max_abs_err": roll_abs, "ms": r["ns_per_op"] * 1e-6, "plain_ms": plain,
+        "bound_ms": r["bound_ns"] * 1e-6, "bound_by": "operations", "library_ms": None,
+    })
+    r = wr_rows[0]
+    kernels.append({
+        "name": "probe_passthrough", "route": "cuda",
+        "source": "d3ga_tpu_torch/csrc/probes_widerow.cu", "replaces": "tools/widerow_probe.py:65",
+        "launches": widerow.launches, "max_abs_err": 0.0, "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": "bytes",
+        "library_ms": r["library_ms"],
+    })
+    for s, r in enumerate(st_rows[:-1]):
+        plain = probes.time_ms(lambda: fused_bisect.stage_plain(vals, rects, K, C, s), 2, dev,
+                               warmup=1)
+        kernels.append({
+            "name": f"fused_stage{s}", "route": "cuda", "source": "d3ga_tpu_torch/csrc/fused.cu",
+            "replaces": fused_bisect.REPLACES[s], "launches": fused_bisect.launches[s],
+            "max_abs_err": stage_abs[s], "ms": r["ms"], "plain_ms": plain,
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+        })
+    for k in kernels:
+        line(f"{k['name']}: ms={k['ms']:.6f} plain_ms={k['plain_ms']:.6f} "
+             f"bound_ms={k['bound_ms']:.6f} ({k['bound_by']}) library_ms={k['library_ms']} "
+             f"launches={k['launches']}")
+    report.update(probe_matmul_err=mm_err, probe_launches=counts, probe_run_s=run_s,
+                  probe_rows={"mxu_matmul": mm_rows, "mxu_roll": roll_rows, "widerow": wr_rows,
+                              "fused_bisect": st_rows})
     report["kernels"] = report.get("kernels", []) + kernels
     return kernels
 

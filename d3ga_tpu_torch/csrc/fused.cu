@@ -48,6 +48,15 @@
 //   rect covers in tile order, finds its slot by binary search in each
 //   tile's ascending lane list, and sums the slot rows: deterministic, no
 //   atomics, the TPU kernels' order (tile 0 to 63).
+//
+// Stage cuts (probe P3, the counterpart of the TPU bisect
+// tools/fused_bisect.py): fused_kernel's STAGE parameter stops the forward
+// early, so each cut runs K9's own code up to its point. STAGE 0 writes
+// 1.0 to every output; 1 runs the selection and writes the tile's count to
+// every pixel and channel; 2 also sums channels [0, C] of the first
+// min(count, K) selected candidates (threads stride the slots, then warp
+// shuffles and the 8 warps' partials in order) and writes that sum plus
+// the count; 3 is K9. Only STAGE 3 writes counts.
 
 #include "coeff_walk.cuh"
 
@@ -118,7 +127,7 @@ struct CandRows {
   }
 };
 
-template <int C>
+template <int C, int STAGE = 3>
 __global__ void __launch_bounds__(CW_NPIX)
 fused_kernel(const float* __restrict__ vals, const int* __restrict__ rects, int kb, int K,
              float* __restrict__ out, int* __restrict__ counts) {
@@ -128,13 +137,48 @@ fused_kernel(const float* __restrict__ vals, const int* __restrict__ rects, int 
   const int b = bt / FB_TB, t = bt % FB_TB;
   const int tx = t % FB_BLOCK, ty = t / FB_BLOCK;
   const int p = threadIdx.x;
+  float* o = out + ((long long)bt * CW_NPIX + p) * (C + 1);
+  if constexpr (STAGE == 0) {
+#pragma unroll
+    for (int c = 0; c <= C; ++c) o[c] = 1.0f;
+    return;
+  }
   const int cnt = select_tile(rects + (long long)b * kb, kb, tx, ty, K, s_sel, s_warp);
+  if constexpr (STAGE == 1) {
+#pragma unroll
+    for (int c = 0; c <= C; ++c) o[c] = (float)cnt;
+    return;
+  }
+  const float* vb = vals + (long long)b * kb * FB_NCH;
+  if constexpr (STAGE == 2) {
+    __shared__ float s_red[CW_NWARP][C + 1];
+    float part[C + 1];
+#pragma unroll
+    for (int c = 0; c <= C; ++c) part[c] = 0.0f;
+    for (int k = p; k < min(cnt, K); k += CW_NPIX) {
+      const float* r = cand(vb, s_sel[k]);
+#pragma unroll
+      for (int c = 0; c <= C; ++c) part[c] += r[c];
+    }
+#pragma unroll
+    for (int c = 0; c <= C; ++c) {
+      const float v = cw_warp_sum(part[c]);
+      if ((p & 31) == 0) s_red[p >> 5][c] = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int c = 0; c <= C; ++c) {
+      float sum = 0.0f;
+#pragma unroll
+      for (int w = 0; w < CW_NWARP; ++w) sum += s_red[w][c];
+      o[c] = sum + (float)cnt;
+    }
+    return;
+  }
   if (p == 0) counts[bt] = cnt;
-  const CandRows<C> rows{vals + (long long)b * kb * FB_NCH, s_sel, (float)(tx * CW_TILE),
-                         (float)(ty * CW_TILE)};
+  const CandRows<C> rows{vb, s_sel, (float)(tx * CW_TILE), (float)(ty * CW_TILE)};
   float acc[C];
   const float T = coeff_walk_fwd<C>(min(cnt, K), rows, acc);
-  float* o = out + ((long long)bt * CW_NPIX + p) * (C + 1);
 #pragma unroll
   for (int c = 0; c < C; ++c) o[c] = acc[c];
   o[C] = T;
@@ -229,6 +273,32 @@ extern "C" int d3ga_fused(const void* vals, const void* rects, int NB, int kb, i
 #define FWD(CC) fused_kernel<CC><<<NB * FB_TB, CW_NPIX, smem, s>>>(v, r, kb, K, o, c)
   CW_SWITCH_C(C, FWD)
 #undef FWD
+  return (int)cudaGetLastError();
+}
+
+// The forward cut at `stage` (0-3, see the header); counts is written by
+// stage 3 only. Returns the cudaError_t, or -1 for an unsupported C or
+// stage.
+extern "C" int d3ga_fused_stage(const void* vals, const void* rects, int NB, int kb, int K, int C,
+                                int stage, void* out, void* counts, void* cuda_stream) {
+  const float* v = (const float*)vals;
+  const int* r = (const int*)rects;
+  float* o = (float*)out;
+  int* c = (int*)counts;
+  cudaStream_t s = (cudaStream_t)cuda_stream;
+  const size_t smem = (size_t)K * sizeof(int);
+#define STAGED(CC, SS) fused_kernel<CC, SS><<<NB * FB_TB, CW_NPIX, smem, s>>>(v, r, kb, K, o, c)
+#define CUT(CC)                          \
+  switch (stage) {                       \
+    case 0: STAGED(CC, 0); break;        \
+    case 1: STAGED(CC, 1); break;        \
+    case 2: STAGED(CC, 2); break;        \
+    case 3: STAGED(CC, 3); break;        \
+    default: return -1;                  \
+  }
+  CW_SWITCH_C(C, CUT)
+#undef CUT
+#undef STAGED
   return (int)cudaGetLastError();
 }
 

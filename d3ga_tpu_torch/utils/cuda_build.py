@@ -18,7 +18,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNEL_SOURCES = ("extract", "blend_ct", "blend_ct_bwd", "segsum", "blend_rec", "blend_coeffs", "fused")
+KERNEL_SOURCES = ("extract", "blend_ct", "blend_ct_bwd", "segsum", "blend_rec", "blend_coeffs", "fused",
+                  "probes_mxu", "probes_widerow")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
