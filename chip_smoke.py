@@ -15,8 +15,18 @@ forward and backward) at the stage bench's shapes, and the card probes
 P1-P3 (the port of the TPU tools mxu_probe, widerow_probe and fused_bisect:
 matmuls in FP32 SIMT, TF32 and 3xTF32, a roll + select chain, a
 passthrough over narrow and wide rows, K9's forward cut at four stages).
-Then it drives the paths of the full-width synthetic avatar (3 garments x
-45,000 Gaussians, 1024 x 667 pixels, random weights from seed 0):
+K1 and K4 are also held bit-equal to their plain versions and to their
+baseline designs (the designs before, kept as `*_baseline` entry points
+that no path of the port calls) on edge inputs and on the main path's own
+inputs (K1: the selection's lo_s stream, starts and counts, as the
+selection calls it; K4: frame 0's drec through the int64 sort
+permutation into n + 1 rows), and timed against them in turns (old, new,
+new, old), with their callers before and after the epilogues were folded
+in, K1's launch floor (an empty kernel on either design's grid) and the
+id sort before K4; the training step's kernels a call are reported
+against its count before the two epilogues were folded in. Then it
+drives the paths of the full-width synthetic avatar (3 garments x 45,000
+Gaussians, 1024 x 667 pixels, random weights from seed 0):
 
 - serving: eval-mode `avatar_forward` + champion `rasterize_tiled` (6
   channels, dupsort_depth, dup 3, K 256) for 20 frames;
@@ -148,6 +158,13 @@ K3_P999_REL, K3_REL_L2 = 1e-5, 1e-3
 # K4 against its plain version: the same sums in the same order; only a
 # compiler's reassociation could move them (relative to the largest)
 K4_REL = 1e-6
+# the training step's kernels a call before K1's and K4's callers folded
+# their epilogues into the kernels (PERF.md section 5), and the launches
+# they gave up: K1's live mask (arange, clamp, compare) and its where (a
+# fill of the scalar -1, the select); K4's perm conversion, new_zeros and cat
+STEP_KERNELS_BEFORE = 5591
+K1_LAUNCHES_FOLDED, K4_LAUNCHES_FOLDED = 5, 3
+STEP_LAUNCHES_FOLDED = K1_LAUNCHES_FOLDED + K4_LAUNCHES_FOLDED
 # one training step, kernels against plain: loss terms (image means of
 # float32 sums) and each parameter leaf's gradient (relative L2; the
 # threshold flips above reach every upstream leaf)
@@ -251,6 +268,155 @@ def sync(dev):
         torch.cuda.synchronize()
 
 
+def in_turns(fns, iters, dev):
+    """Each of `fns` ({name: fn}) timed twice, in turns: the names in order,
+    then in reverse (old, new, new, old), each turn by `probes.device_ms`
+    (device ms a call, torch.profiler) and `probes.queued_ms` (CUDA events
+    around calls queued behind a spin). Returns {name: {"device_ms": [two
+    turns], "queued_ms": [two turns], "ms": the mean of the device turns
+    recorded, else of the queued ones}}."""
+    out = {k: {"device_ms": [], "queued_ms": []} for k in fns}
+    for k in list(fns) + list(reversed(fns)):
+        out[k]["device_ms"].append(device_ms(fns[k], iters, dev))
+        out[k]["queued_ms"].append(probes.queued_ms(fns[k], iters, dev))
+    for v in out.values():
+        got = [t for t in v["device_ms"] if t is not None] or [
+            t for t in v["queued_ms"] if t is not None]
+        v["ms"] = float(np.mean(got)) if got else None
+    return out
+
+
+def turns_summary(turns):
+    return "; ".join(
+        f"{k} {v['ms']:.5f} ms (device " + "/".join("-" if t is None else f"{t:.5f}"
+                                                     for t in v["device_ms"])
+        + ", queued " + "/".join("-" if t is None else f"{t:.5f}" for t in v["queued_ms"]) + ")"
+        for k, v in turns.items())
+
+
+def folded_launches(callers):
+    """(kernels a call before, after) of a caller's two profiles
+    (`profile_calls`); None where either recorded nothing."""
+    if any(v is None for v in callers.values()):
+        return None
+    return tuple(round(callers[k]["kernels_per_call"]) for k in ("before", "after"))
+
+
+def bits(t):
+    """A 32-bit tensor's bit patterns (float32 viewed as int32)."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def k1_edge_cases(dev):
+    """K1's edge inputs, made from seed 12 on `dev`: (name, stream, starts,
+    kk, counts or None, fill) for int32 and float32 streams, kk in {1, 3,
+    37, 256}, starts not a multiple of 4 and windows that cross m, counts
+    0 and > kk, a stream 4 bytes past a 16-byte boundary, and one shorter
+    than a 16-byte group."""
+    rng = np.random.default_rng(12)
+    m = 1000
+    full = {
+        "int32": torch.from_numpy(rng.integers(-2**31, 2**31, m + 1).astype(np.int32)).to(dev),
+        "float32": torch.from_numpy(rng.normal(size=m + 1).astype(np.float32)).to(dev),
+    }
+    fills = {"int32": -1, "float32": float("inf")}
+    cases = []
+    for dt, stream in full.items():
+        for kk in (1, 3, 37, 256):
+            for off in (0, 1):  # off 1: the view starts 4 bytes past the allocation's start
+                starts = np.sort(np.concatenate([
+                    [0, 1, 2, 3, 5, m - kk // 2 - 1, m - 3, m - 1, m],
+                    rng.integers(0, m + 1, 40)])).astype(np.int32)
+                counts = rng.integers(0, kk + 8, starts.size).astype(np.int32)
+                counts[:4] = (0, kk, kk + 5, 1)
+                counts[-3:] = (kk + 5, 3, 0)
+                st, ct = (torch.from_numpy(a).to(dev) for a in (starts, counts))
+                name = f"{dt} kk={kk} offset={off}"
+                cases.append((name, stream[off : off + m], st, kk, None, 0))
+                cases.append((name + " counts", stream[off : off + m], st, kk, ct, fills[dt]))
+    st = torch.tensor([0, 1, 2, 3], dtype=torch.int32, device=dev)
+    ct = torch.tensor([3, 0, 300, 1], dtype=torch.int32, device=dev)
+    cases.append(("int32 m=3 kk=256", full["int32"][:3], st, 256, None, 0))
+    cases.append(("int32 m=3 kk=256 counts", full["int32"][:3], st, 256, ct, -1))
+    return cases
+
+
+def k4_edge_cases(dev):
+    """K4's edge inputs, made from seed 11 on `dev`: (name, ids_sorted [m]
+    int32, g [CR, m'], n, perm [m] int64 or None, dup2) with n not a
+    multiple of 32; Gaussians with empty runs at the start, the middle and
+    the end; a warp of runs of exactly dup^2 = 9; only sentinels; m < 32;
+    n = 0; runs longer than a 32-id chunk; a deep search (m ~ 190 K); the
+    slot-row layout (rows of CR floats read through perm, 16-byte vectors)
+    and the column layout and CR 9 (scalar reads)."""
+    rng = np.random.default_rng(11)
+
+    def case(name, runs, sentinels, CR=12, layout="rows", dup2=DUP2):
+        n = len(runs)
+        ids = np.concatenate([np.repeat(np.arange(n), runs), np.full(sentinels, n)])
+        m = ids.size
+        vals = rng.normal(size=(m, CR)).astype(np.float32)
+        if layout == "rows":  # combine_from_slots' layout: slot rows, read through perm
+            perm = rng.permutation(m)
+            rows = np.empty_like(vals)
+            rows[perm] = vals
+            g, p = torch.from_numpy(rows).to(dev).T, torch.from_numpy(perm).to(dev)
+        else:  # contiguous [CR, m] columns in sorted order
+            g, p = torch.from_numpy(np.ascontiguousarray(vals.T)).to(dev), None
+        return (name, torch.from_numpy(ids.astype(np.int32)).to(dev), g, n, p, dup2)
+
+    runs = rng.integers(0, DUP2 + 1, 1007)
+    runs[:40], runs[500:540], runs[-45:] = 0, 0, 0
+    runs[96:128] = DUP2
+    long = np.ones(70, np.int64)
+    long[5], long[6] = 70, 33
+    return [
+        case("n=1007, empty runs at start/middle/end, a warp of 9s", runs, 300),
+        case("the same, columns", runs, 300, layout="columns"),
+        case("the same, CR=9", runs, 300, CR=9),
+        case("only sentinels", np.zeros(100, np.int64), 500),
+        case("m < 32", np.array([2, 0, 0, 1, 0, 0, 0, 3] + [0] * 31 + [1]), 2),
+        case("n = 0", np.zeros(0, np.int64), 40),
+        case("runs over 32-id chunks", long, 5, dup2=None),
+        case("deep search", rng.integers(0, DUP2 + 1, 20000), 100000),
+    ]
+
+
+def check_kernel_edges(dev, line):
+    """K1 and K4 on their edge inputs: bit-equal to their plain versions
+    and, on the card, to their baseline designs. Returns the cases held."""
+    n1 = 0
+    for name, stream, starts, kk, counts, fill in k1_edge_cases(dev):
+        out = extract.extract_slices(stream, starts, kk, counts, fill)
+        ref = extract.extract_slices_plain(stream, starts, kk, counts, fill)
+        check(torch.equal(bits(out), bits(ref)), f"K1 edge case {name}: differs from plain")
+        if dev.type == "cuda":
+            base = extract.extract_slices_baseline(stream, starts, kk)
+            if counts is not None:
+                live = torch.arange(kk, device=dev)[None] < torch.clamp(counts, max=kk)[:, None]
+                base = torch.where(live, base, fill)
+            check(torch.equal(bits(out), bits(base)), f"K1 edge case {name}: differs from baseline")
+        n1 += 1
+    n4 = 0
+    for name, ids, g, n, perm, dup2 in k4_edge_cases(dev):
+        for p in ([None] if perm is None else [perm, perm.to(torch.int32)]):
+            for rows in (n, n + 1):
+                out = segsum.combine_sorted(ids, g, n, perm=p, rows=rows)
+                ref = segsum.combine_sorted_plain(ids, g, n, dup2, p, rows=rows)
+                check(out.shape == (rows, g.shape[0]) and torch.equal(out, ref),
+                      f"K4 edge case {name} (perm {p is not None and p.dtype}, rows {rows}): "
+                      "differs from plain")
+                n4 += 1
+            if dev.type == "cuda" and n > 0:
+                base = segsum.combine_sorted_baseline(
+                    ids, g, n, None if p is None else p.to(torch.int32))
+                check(torch.equal(out[:n], base), f"K4 edge case {name}: differs from baseline")
+    sync(dev)
+    line(f"K1 and K4 edge inputs: K1 {n1} cases, K4 {n4} cases bit-equal to plain"
+         + (" and to the baseline designs" if dev.type == "cuda" else ""))
+    return n1, n4
+
+
 def image_err(a, b):
     err = (a.float() - b.float()).abs().flatten()
     k = max(1, int(np.ceil(0.999 * err.numel())))
@@ -304,6 +470,7 @@ def render(params, model, camera, lbs, k, plain=False):
 def reset_launch_counts():
     """Every kernel's launch counter to 0."""
     extract.launches = blend_ct.launches = blend_ct.bwd_launches = segsum.launches = 0
+    extract.baseline_launches = segsum.baseline_launches = 0
     blend_rec.launches = blend_rec.bwd_launches = 0
     blend_rec.img_launches = blend_rec.img_bwd_launches = 0
     blend.launches = blend.bwd_launches = fused.launches = fused.bwd_launches = 0
@@ -358,45 +525,98 @@ def serve(dev, report):
     line(f"scene: {n_gauss} Gaussians, {WIDTH}x{HEIGHT}, K={K}, dup={DUP} "
          f"({time.perf_counter() - t0:.1f} s to build)")
 
+    # -- K1 and K4 on their edge inputs -----------------------------------
+    k1_edges, k4_edges = check_kernel_edges(dev, line)
+
     pkg = avatar_forward(params, model, {"camera": camera, "lbs": pose(0), "camera_idx": 0})
     colors = torch.cat([pkg["rgb"], pkg["silhouette_rgb"]], -1).contiguous()
     C = colors.shape[-1]
     bin_args = (pkg["means3D"], camera, pkg["cov3D_precomp"], pkg["opacities"], colors, K, DUP)
-    binned = bin_gaussians(*bin_args)
+    # the selection's K1 call, as the main path makes it: the sorted lo_s
+    # stream, the tiles' starts and counts, the fill -1
+    k1_calls, k1_wrapper = [], tiles.extract_slices
+    tiles.extract_slices = lambda *a: k1_calls.append(a) or k1_wrapper(*a)
+    try:
+        binned = bin_gaussians(*bin_args)
+    finally:
+        tiles.extract_slices = k1_wrapper
     binned_plain = bin_gaussians(*bin_args, plain=True)
     sync(dev)
     T, ntx, nty = binned.idx.shape[0], binned.ntx, binned.nty
-    m = DUP * DUP * n_gauss
+    check(len(k1_calls) == 1, f"K1: the selection made {len(k1_calls)} calls, not 1")
+    lo_s, starts, kk, counts, fill = k1_calls[0]
+    m = lo_s.numel()
+    check(m == DUP * DUP * n_gauss and kk == K and tuple(starts.shape) == (T,) and fill == -1,
+          f"K1: the selection's call (m={m}, kk={kk}, T={starts.shape[0]}, fill={fill})")
 
     # -- K1: extraction, bit-exact ---------------------------------------
     check(torch.equal(binned.idx, binned_plain.idx), "K1: selection idx differs from the plain version")
     check(torch.equal(binned.counts, binned_plain.counts), "K1: selection counts differ")
-    counts = binned.counts
-    starts = (torch.cumsum(counts, 0) - counts).to(torch.int32).contiguous()
+    check(torch.equal(counts, binned.counts), "K1: the call's counts are not the selection's")
     g = torch.Generator(device=dev).manual_seed(1)
     streams = {
+        "lo_s": lo_s,
         "int32": torch.randint(0, 2**30, (m,), generator=g, device=dev, dtype=torch.int32),
         "float32": torch.randn(m, generator=g, device=dev),
     }
+    live = torch.arange(kk, device=dev)[None] < torch.clamp(counts, max=kk)[:, None]
     k1_err = 0.0
     for name, stream in streams.items():
-        out = extract.extract_slices(stream, starts, K)
-        ref = extract.extract_slices_plain(stream, starts, K)
-        sync(dev)
-        same = torch.equal(out.view(torch.int32), ref.view(torch.int32))
-        check(same, f"K1: {name} output not bit-exact")
-        k1_err = max(k1_err, float((out.double() - ref.double()).abs().max()))
-    line(f"K1 extract_slices: bit-exact on the scene's selection and on int32/float32 "
-         f"streams (m={m}, T={T}, kk={K})")
-    stream = streams["int32"]
-    k1_t = measure(lambda: extract.extract_slices(stream, starts, K), 200, dev)
-    k1_plain_t = measure(lambda: extract.extract_slices_plain(stream, starts, K), 50, dev)
-    padded = torch.nn.functional.pad(stream, (0, K))
-    index = starts.long()[:, None] + torch.arange(K, device=dev)
+        fl = -1 if stream.dtype == torch.int32 else float("inf")
+        for cnt in (None, counts):
+            out = extract.extract_slices(stream, starts, kk, cnt, fl)
+            ref = extract.extract_slices_plain(stream, starts, kk, cnt, fl)
+            sync(dev)
+            check(torch.equal(bits(out), bits(ref)),
+                  f"K1: {name} output (counts {cnt is not None}) not bit-exact with plain")
+            if dev.type == "cuda":
+                base = extract.extract_slices_baseline(stream, starts, kk)
+                if cnt is not None:
+                    base = torch.where(live, base, fl)
+                check(torch.equal(bits(out), bits(base)),
+                      f"K1: {name} output (counts {cnt is not None}) differs from the baseline")
+            diff = torch.where(out == ref, 0.0, (out.double() - ref.double()).abs())
+            k1_err = max(k1_err, float(diff.max()))
+    line(f"K1 extract_slices: bit-exact with plain and the baseline design on the scene's "
+         f"selection (lo_s) and on int32/float32 streams, with and without counts/fill "
+         f"(m={m}, T={T}, kk={kk})")
+
+    def k1_caller_before():  # the baseline design and the epilogue the caller ran
+        seg = extract.extract_slices_baseline(lo_s, starts, kk)
+        lv = torch.arange(kk, device=dev)[None] < torch.clamp(counts, max=kk)[:, None]
+        return torch.where(lv, seg, -1)
+
+    k1_turns = k1_floor = k1_callers = None
+    if dev.type == "cuda":
+        k1_turns = in_turns({
+            "caller_before": k1_caller_before,
+            "baseline": lambda: extract.extract_slices_baseline(lo_s, starts, kk),
+            "kernel_no_counts": lambda: extract.extract_slices(lo_s, starts, kk),
+            "kernel": lambda: extract.extract_slices(lo_s, starts, kk, counts, -1),
+        }, 200, dev)
+        k1_floor = in_turns({
+            "floor_baseline": lambda: extract.launch_floor(T, kk, dev, baseline=True),
+            "floor": lambda: extract.launch_floor(T, kk, dev),
+        }, 200, dev)
+        k1_callers = {k: profile_calls(f, 3, dev) for k, f in (
+            ("before", k1_caller_before),
+            ("after", lambda: extract.extract_slices(lo_s, starts, kk, counts, -1)))}
+        line(f"K1 in turns (T={T}, kk={kk}, the scene's lo_s): {turns_summary(k1_turns)}")
+        line(f"K1 launch floor (an empty kernel on each design's grid): "
+             f"{turns_summary(k1_floor)}")
+        k1_folded = folded_launches(k1_callers)
+        line(f"K1's caller, kernels a call: before and after {k1_folded}")
+        check(k1_folded is None or k1_folded[0] - k1_folded[1] == K1_LAUNCHES_FOLDED,
+              f"K1's caller: {k1_folded} kernels a call, not {K1_LAUNCHES_FOLDED} fewer")
+    k1_t = measure(lambda: extract.extract_slices(lo_s, starts, kk, counts, -1), 200, dev)
+    k1_plain_t = measure(lambda: extract.extract_slices_plain(lo_s, starts, kk, counts, -1), 50,
+                         dev)
+    padded = torch.nn.functional.pad(lo_s, (0, kk))
+    index = starts.long()[:, None] + torch.arange(kk, device=dev)
     k1_lib_t = measure(lambda: padded[index], 200, dev)
-    s_ext = torch.cat([starts.long(), torch.tensor([m], device=dev)])
-    k1_read = int(torch.clamp(s_ext[1:] - s_ext[:-1], max=K).sum())
-    k1_bytes = 4 * (k1_read + T + T * K)
+    # the live words read once, the starts and counts, the output written
+    k1_live = int(torch.clamp(counts, 0, kk).sum())
+    k1_bytes = 4 * (k1_live + 2 * T + T * kk)
     k1_bound_ms = k1_bytes / HBM_BYTES_PER_S * 1e3
 
     # -- K2: gather + blend ----------------------------------------------
@@ -464,6 +684,7 @@ def serve(dev, report):
     check(tuple(img0.shape) == (C, HEIGHT, WIDTH), f"serving path: image shape {tuple(img0.shape)}")
     check(per_frame == [(i + 1, i + 1) for i in range(FRAMES)],
           f"launch counts after each frame {per_frame}: not one per kernel per frame")
+    check(extract.baseline_launches == 0, "serving path: the K1 baseline design was launched")
 
     _, img_p, aux_p = render(params, model, camera, pose(0), K, plain=True)
     fr = image_err(img0, img_p)
@@ -481,8 +702,12 @@ def serve(dev, report):
             "source": "d3ga_tpu_torch/csrc/extract.cu",
             "replaces": "d3ga_tpu/raster/pallas_extract.py:68",
             "launches": launches["extract_slices"], "max_abs_err": k1_err,
-            "ms": k1_t["ms"], "plain_ms": k1_plain_t["ms"], "bound_ms": k1_bound_ms,
+            "ms": k1_turns["kernel"]["ms"] if k1_turns else k1_t["ms"],
+            "plain_ms": k1_plain_t["ms"], "bound_ms": k1_bound_ms,
             "bound_by": "bytes", "library_ms": k1_lib_t["ms"],
+            "baseline_ms": k1_turns and k1_turns["baseline"]["ms"],
+            "floor_ms": k1_floor and k1_floor["floor"]["ms"],
+            "baseline_floor_ms": k1_floor and k1_floor["floor_baseline"]["ms"],
         },
         {
             "name": "blend_gather_ct", "route": "cuda",
@@ -506,6 +731,8 @@ def serve(dev, report):
     report.update(
         frame_ms=frame_ms, fps=1e3 / frame_ms, n_gaussians=n_gauss, k2_full_width=k2,
         k2_pairs=pairs, n_contrib=n_contrib, small=small, frame0=fr, aux_frame0=a_k,
+        k1_turns=k1_turns, k1_floor=k1_floor, k1_callers=k1_callers, k1_bytes=k1_bytes,
+        k1_live=k1_live, edge_cases={"K1": k1_edges, "K4": k4_edges},
         aux_frame0_plain=a_p, kernels=kernels, timings=timings,
     )
     gauss = tuple(t.detach() for t in (
@@ -558,30 +785,71 @@ def train(dev, report, scene):
     # -- K4: per-Gaussian combine of the kernel's cotangents ---------------
     with torch.no_grad():
         # as combine_from_slots calls it: the slot rows read in place
-        # through the sort's permutation
+        # through the sort's int64 permutation, the sentinel row written
         ids_sorted, perm = torch.sort(b.idx.reshape(-1), stable=True)
-        perm = perm.to(torch.int32)
+        perm32 = perm.to(torch.int32)
         g_slots = drec.reshape(-1, CR).T
-        comb = segsum.combine_sorted(ids_sorted, g_slots, n, perm=perm)
-        comb_p = segsum.combine_sorted_plain(ids_sorted, g_slots, n, DUP2, perm)
+        comb = segsum.combine_sorted(ids_sorted, g_slots, n, perm=perm, rows=n + 1)
+        comb_p = segsum.combine_sorted_plain(ids_sorted, g_slots, n, DUP2, perm, rows=n + 1)
+        comb32 = segsum.combine_sorted(ids_sorted, g_slots, n, perm=perm32, rows=n + 1)
+        from_slots = segsum.combine_from_slots(drec, b.idx, n, DUP2)
+        comb_v1 = (segsum.combine_sorted_baseline(ids_sorted, g_slots, n, perm32)
+                   if dev.type == "cuda" else comb_p[:n])
         sync(dev)
         k4 = {"max_abs": float((comb - comb_p).abs().max()),
-              "bit_exact": bool(torch.equal(comb, comb_p)), "scale": float(comb_p.abs().max())}
+              "bit_exact": bool(torch.equal(comb, comb_p)), "scale": float(comb_p.abs().max()),
+              "int32_perm_equal": bool(torch.equal(comb32, comb)),
+              "from_slots_equal": bool(torch.equal(from_slots, comb)),
+              "baseline_equal": bool(torch.equal(comb[:n], comb_v1)),
+              "sentinel_row_zero": bool((comb[n] == 0).all())}
         line(f"K4 combine_sorted vs plain at full width: max_abs={k4['max_abs']:.3e} "
-             f"bit_exact={k4['bit_exact']} (n={n}, m={ids_sorted.numel()})")
+             f"bit_exact={k4['bit_exact']}; int32 perm equal {k4['int32_perm_equal']}, "
+             f"combine_from_slots equal {k4['from_slots_equal']}, baseline design equal "
+             f"{k4['baseline_equal']}, sentinel row zero {k4['sentinel_row_zero']} "
+             f"(n={n}, m={ids_sorted.numel()})")
         check(k4["max_abs"] <= K4_REL * k4["scale"], f"K4: max_abs > {K4_REL} x max|out|")
-        k4_t = measure(lambda: segsum.combine_sorted(ids_sorted, g_slots, n, perm=perm), 50, dev)
+        for k in ("bit_exact", "int32_perm_equal", "from_slots_equal", "baseline_equal",
+                  "sentinel_row_zero"):
+            check(k4[k], f"K4: {k} fails")
+
+        def k4_caller_before():  # the conversion, the baseline design, the appended row
+            dg = segsum.combine_sorted_baseline(ids_sorted, g_slots, n, perm.to(torch.int32))
+            return torch.cat([dg, dg.new_zeros(1, CR)], 0)
+
+        k4_turns = k4_sort = k4_callers = None
+        if dev.type == "cuda":
+            k4_turns = in_turns({
+                "caller_before": k4_caller_before,
+                "baseline": lambda: segsum.combine_sorted_baseline(ids_sorted, g_slots, n, perm32),
+                "kernel": lambda: segsum.combine_sorted(ids_sorted, g_slots, n, perm=perm,
+                                                        rows=n + 1),
+            }, 50, dev)
+            flat = b.idx.reshape(-1)
+            k4_sort = in_turns({"sort": lambda: torch.sort(flat, stable=True)}, 50, dev)
+            k4_callers = {k: profile_calls(f, 3, dev) for k, f in (
+                ("before", k4_caller_before),
+                ("after", lambda: segsum.combine_sorted(ids_sorted, g_slots, n, perm=perm,
+                                                        rows=n + 1)))}
+            line(f"K4 in turns (n={n}, m={ids_sorted.numel()}, frame 0's drec): "
+                 f"{turns_summary(k4_turns)}; the id sort before it: {turns_summary(k4_sort)}")
+            k4_folded = folded_launches(k4_callers)
+            line(f"K4's caller, kernels a call: before and after {k4_folded}")
+            check(k4_folded is None or k4_folded[0] - k4_folded[1] == K4_LAUNCHES_FOLDED,
+                  f"K4's caller: {k4_folded} kernels a call, not {K4_LAUNCHES_FOLDED} fewer")
+        k4_t = measure(lambda: segsum.combine_sorted(ids_sorted, g_slots, n, perm=perm, rows=n + 1),
+                       50, dev)
         k4_plain_t = measure(
-            lambda: segsum.combine_sorted_plain(ids_sorted, g_slots, n, DUP2, perm), 5, dev
-        )
+            lambda: segsum.combine_sorted_plain(ids_sorted, g_slots, n, DUP2, perm, rows=n + 1), 5,
+            dev)
         flat_idx, flat_drec = b.idx.reshape(-1).long(), drec.reshape(-1, CR)
         k4_lib_t = measure(
             lambda: torch.zeros(n + 1, CR, device=dev).index_add_(0, flat_idx, flat_drec), 50, dev
         )
-    # the live slots' ids, permutation entries and rows (the sentinels
-    # sort to the tail, past one binary search), and the output
+    # the live slots' ids, permutation entries (int64, as the sort gives
+    # them) and rows (the sentinels sort to the tail, past the search), and
+    # the n + 1 output rows
     k4_live = int((ids_sorted < n).sum())
-    k4_bytes = 4 * (k4_live * (CR + 2) + n * CR)
+    k4_bytes = 4 * (k4_live * (CR + 1) + (n + 1) * CR) + perm.element_size() * k4_live
     k4_bound_ms = k4_bytes / HBM_BYTES_PER_S * 1e3
 
     # -- one step's gradients: kernels against plain -----------------------
@@ -648,10 +916,16 @@ def train(dev, report, scene):
     check(per_step == [(i + 1,) * 4 for i in range(STEPS)],
           f"launch counts after each step {per_step}: not one per kernel per step")
     check(moved > 0.0, "training path: the parameters did not change")
+    check(extract.baseline_launches == 0 and segsum.baseline_launches == 0,
+          "training path: a baseline design was launched")
     step_prof = profile_calls(lambda: step(params, batch, gen, STEPS + 1), 3, dev)
     if step_prof is not None:
         line(f"training step, profiled ({step_prof['calls']} steps): "
              f"{profile_summary(step_prof, step_ms)}")
+        line(f"training step kernels a call: {step_prof['kernels_per_call']:.0f} against "
+             f"{STEP_KERNELS_BEFORE} before the K1 and K4 epilogues were folded in "
+             f"({step_prof['kernels_per_call'] - STEP_KERNELS_BEFORE:+.0f}; the callers gave up "
+             f"{STEP_LAUNCHES_FOLDED})")
 
     kernels = [
         {
@@ -667,8 +941,11 @@ def train(dev, report, scene):
             "source": "d3ga_tpu_torch/csrc/segsum.cu",
             "replaces": "d3ga_tpu/raster/pallas_segsum.py:101",
             "launches": launches["combine_sorted"], "max_abs_err": k4["max_abs"],
-            "ms": k4_t["ms"], "plain_ms": k4_plain_t["ms"], "bound_ms": k4_bound_ms,
+            "ms": k4_turns["kernel"]["ms"] if k4_turns else k4_t["ms"],
+            "plain_ms": k4_plain_t["ms"], "bound_ms": k4_bound_ms,
             "bound_by": "bytes", "library_ms": k4_lib_t["ms"],
+            "baseline_ms": k4_turns and k4_turns["baseline"]["ms"],
+            "sort_ms": k4_sort and k4_sort["sort"]["ms"],
         },
     ]
     timings = {
@@ -683,6 +960,7 @@ def train(dev, report, scene):
              + ", ".join(f"{nm}={v['call_ms']:.4f}" for nm, v in t.items()))
     report.update(
         k3_full_width=k3, k3_bytes=k3_bytes, k4_full_width=k4, k4_bytes=k4_bytes, k4_live=k4_live,
+        k4_turns=k4_turns, k4_sort=k4_sort, k4_callers=k4_callers,
         step_terms_rel=term_err, step_grad_rel_l2=leaf_err, step_ms=step_ms,
         steps_per_s=1e3 / step_ms, train_launches=launches, step_profiled=step_prof,
         train_timings=timings,
@@ -874,6 +1152,8 @@ def _sharded_phases(dev, report, scene, mesh, line):
     check(bool(torch.isfinite(loss).all()), "sharded path: non-finite loss")
     check(per_call == [(2 * (i + 1), i + 1, i + 1, i + 1, 0) for i in range(SHARD_CALLS)],
           f"launch counts after each call {per_call}: not K1 x2, K5, K5 backward, K4 x1 a call")
+    check(extract.baseline_launches == 0 and segsum.baseline_launches == 0,
+          "sharded path: a baseline design was launched")
     prof = profile_calls(call, 3, dev)
     if prof is not None:
         line(f"sharded objective, profiled ({prof['calls']} calls): "

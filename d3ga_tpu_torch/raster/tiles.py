@@ -461,15 +461,14 @@ def _select_per_tile_depthkey(
     kk = min(K, m)
     extract = extract_slices_plain if plain else extract_slices
     seg_starts = starts[:-1].contiguous()
-    seg = extract(lo_s, seg_starts, kk)
-    live = torch.arange(kk, device=dev)[None] < torch.clamp(counts, max=kk)[:, None]
-    out = torch.where(live, seg, -1)
+    # the live mask (j < counts) and its fill in the extraction's launch
+    out = extract(lo_s, seg_starts, kk, counts, -1)
     if K > kk:
         out = torch.nn.functional.pad(out, (0, K - kk), value=-1)
     if not return_depth:
         return out, counts, clamp_dropped, ties
     payload = torch.where(valid, depth.detach().to(torch.float32), torch.inf)[perm // dup2]
-    dsel = torch.where(live, extract(payload.contiguous(), seg_starts, kk), torch.inf)
+    dsel = extract(payload.contiguous(), seg_starts, kk, counts, torch.inf)
     if K > kk:
         dsel = torch.nn.functional.pad(dsel, (0, K - kk), value=torch.inf)
     return out, counts, clamp_dropped, ties, dsel

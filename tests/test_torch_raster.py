@@ -184,6 +184,65 @@ class TestExtractPlain:
         ref = np.stack([pad[s : s + 37] for s in starts.numpy()])
         assert np.array_equal(out.numpy(), ref)
 
+    @pytest.mark.parametrize("dtype,fill", [(np.int32, -1), (np.float32, np.inf)])
+    @pytest.mark.parametrize("kk", [128, 256])
+    def test_counts_fill_match_pallas_kernel(self, dtype, fill, kk):
+        """The caller's epilogue folded into K1: counts and fill against
+        the Pallas kernel followed by the JAX selection's live mask and
+        where (d3ga_tpu/raster/tiles.py's ids with -1, depths with inf)."""
+        rng = np.random.default_rng(kk + 1)
+        m = 3000
+        stream = rng.integers(-(1 << 31), 1 << 31, m).astype(np.int32)
+        if dtype is np.float32:
+            stream = rng.normal(size=m).astype(np.float32)
+        starts = np.sort(np.concatenate(
+            [rng.integers(0, m + 1, 24), [0, 3, 129, m - kk // 2, m - 1, m]]
+        )).astype(np.int32)
+        counts = rng.integers(0, kk + 30, starts.size).astype(np.int32)
+        counts[:3] = (0, kk, kk + 7)
+        j = j_extract_slices(jnp.asarray(stream), jnp.asarray(starts), kk, interpret=True)
+        live = jnp.arange(kk)[None] < jnp.minimum(jnp.asarray(counts), kk)[:, None]
+        j = jnp.where(live, j, jnp.asarray(fill, dtype))
+        t = extract.extract_slices(torch.from_numpy(stream), torch.from_numpy(starts), kk,
+                                   torch.from_numpy(counts), fill)
+        assert t.dtype == torch.from_numpy(stream).dtype
+        assert np.array_equal(t.numpy().view(np.int32), np.asarray(j).view(np.int32))
+
+    def test_plain_on_edge_inputs(self):
+        """K1's edge inputs (chip_smoke.k1_edge_cases: kk 1, 3, 37, 256,
+        starts not a multiple of 4, windows over m, counts 0 and > kk)
+        against a per-element numpy reference, bit for bit."""
+        from chip_smoke import k1_edge_cases
+
+        before = extract.launches
+        for name, stream, starts, kk, counts, fill in k1_edge_cases(torch.device("cpu")):
+            s, st = stream.numpy(), starts.numpy()
+            lim = np.full(st.size, kk) if counts is None else np.minimum(counts.numpy(), kk)
+            ref = np.zeros((st.size, kk), s.dtype)
+            for t in range(st.size):
+                for j in range(kk):
+                    p = st[t] + j
+                    ref[t, j] = fill if j >= lim[t] else (s[p] if p < s.size else 0)
+            out = extract.extract_slices(stream, starts, kk, counts, fill)
+            assert np.array_equal(out.numpy().view(np.int32), ref.view(np.int32)), name
+        assert extract.launches == before
+
+    @pytest.mark.parametrize("dtype,fill", [(torch.int32, -1), (torch.int32, 7),
+                                            (torch.float32, float("inf")),
+                                            (torch.float32, -0.0), (torch.float32, 0.1)])
+    def test_fill_bits_as_where_converts(self, dtype, fill):
+        """The fill the kernel writes is the 32-bit pattern torch.where
+        gives the plain version."""
+        ref = torch.where(torch.tensor([False]), torch.zeros(1, dtype=dtype), fill)
+        assert extract._fill_bits(fill, dtype) == int(ref.view(torch.int32)) & 0xFFFFFFFF
+
+    def test_baseline_and_floor_need_the_card(self):
+        stream = torch.arange(10, dtype=torch.int32)
+        with pytest.raises(ValueError, match="CUDA"):
+            extract.extract_slices_baseline(stream, stream[:2], 4)
+        with pytest.raises(ValueError, match="CUDA"):
+            extract.launch_floor(4, 256, "cpu")
+
 
 def blend_inputs(seed, ntx, nty, K, n=600, c=6):
     """Packed records [n+1, 6+c] (zero sentinel row last), front-to-back
@@ -316,6 +375,22 @@ class TestKernelsOnCard:
         out = extract.extract_slices(stream.to(cuda_device), starts.to(cuda_device), 200)
         torch.cuda.synchronize()
         assert torch.equal(out.cpu(), ref)
+
+    def test_extract_kernel_edges(self, cuda_device):
+        """K1's edge inputs: the kernel bit-equal to its plain version and
+        to the baseline design (followed by the live mask and where)."""
+        from chip_smoke import k1_edge_cases
+
+        for name, stream, starts, kk, counts, fill in k1_edge_cases(cuda_device):
+            out = extract.extract_slices(stream, starts, kk, counts, fill)
+            ref = extract.extract_slices_plain(stream, starts, kk, counts, fill)
+            base = extract.extract_slices_baseline(stream, starts, kk)
+            if counts is not None:
+                live = torch.arange(kk, device=cuda_device)[None] < counts.clamp(max=kk)[:, None]
+                base = torch.where(live, base, fill)
+            torch.cuda.synchronize()
+            assert torch.equal(out.view(torch.int32), ref.view(torch.int32)), name
+            assert torch.equal(out.view(torch.int32), base.view(torch.int32)), name
 
     def test_blend_kernel_matches_plain(self, cuda_device):
         records_ext, idx, counts = blend_inputs(4, 5, 4, 256, n=2000)

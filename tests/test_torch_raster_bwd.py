@@ -271,6 +271,54 @@ class TestCombineSorted:
         out = segsum.combine_sorted(ids_sorted, g, n, DUP2, perm=perm.to(torch.int32))
         assert torch.equal(out, ref)
 
+    @pytest.mark.parametrize("perm_dtype", [torch.int32, torch.int64])
+    def test_perm_and_rows_match_jax(self, perm_dtype):
+        """The slot rows read through the sort's permutation (int64, as
+        torch.sort returns it, or int32) into n + 1 rows, the last zero,
+        against the Pallas kernel on the gathered columns."""
+        rng = np.random.default_rng(6)
+        n = 400
+        idx = np.minimum(rng.integers(0, n + 80, 1500), n).astype(np.int32)
+        for i in range(n):  # at most dup2 slots a Gaussian
+            idx[np.flatnonzero(idx == i)[DUP2:]] = n
+        rows = rng.normal(size=(idx.size, 12)).astype(np.float32)
+        ids_sorted, perm = torch.sort(torch.from_numpy(idx), stable=True)
+        g = torch.from_numpy(rows).T  # slot order, as combine_from_slots reads it
+        out = segsum.combine_sorted(ids_sorted, g, n, DUP2, perm.to(perm_dtype), rows=n + 1)
+        args = (jnp.asarray(ids_sorted.numpy()), jnp.asarray(rows[perm.numpy()].T))
+        j = jit_o0(lambda i, gs: jseg.combine_sorted(i, gs, n, DUP2, interpret=True), *args)(*args)
+        assert out.shape == (n + 1, 12)
+        assert float(out[n].abs().max()) == 0.0
+        rel_close(out[:n].numpy(), np.asarray(j), rtol=1e-4)
+        # the same sums, bit for bit, whatever the permutation's dtype or the rows
+        assert torch.equal(out[:n], segsum.combine_sorted(ids_sorted, g, n, DUP2, perm.int()))
+
+    def test_plain_on_edge_inputs(self):
+        """K4's edge inputs (chip_smoke.k4_edge_cases: n not a multiple of
+        32, empty runs at the start, middle and end, runs of exactly 9,
+        only sentinels, m < 32, n = 0, runs over 32-id chunks, the row and
+        column layouts, CR 9) against float64 sums; the rows past n zero;
+        int32 and int64 permutations bit-equal."""
+        from chip_smoke import k4_edge_cases
+
+        for name, ids, g, n, perm, dup2 in k4_edge_cases(torch.device("cpu")):
+            out = segsum.combine_sorted(ids, g, n, dup2, perm, rows=n + 1)
+            cols = g if perm is None else g[:, perm]
+            ref = np.zeros((n + 1, g.shape[0]))
+            live = ids.numpy() < n
+            np.add.at(ref, ids.numpy()[live], cols.numpy().T[live].astype(np.float64))
+            assert out.shape == ref.shape, name
+            rel_close(out.numpy(), ref, rel=1e-6, rtol=1e-6)
+            assert float(out[n].abs().max()) == 0.0, name
+            if perm is not None:
+                assert torch.equal(out, segsum.combine_sorted(ids, g, n, dup2, perm.int(), n + 1))
+            assert torch.equal(out[:n], segsum.combine_sorted(ids, g, n, dup2, perm)), name
+
+    def test_baseline_needs_the_card(self):
+        ids = torch.zeros(4, dtype=torch.int32)
+        with pytest.raises(ValueError, match="CUDA"):
+            segsum.combine_sorted_baseline(ids, torch.ones(12, 4), 2)
+
     def test_checks_the_occurrence_bound(self):
         ids = torch.tensor([0, 1, 1, 1, 5], dtype=torch.int32)
         g = torch.ones(12, 5)
@@ -325,3 +373,20 @@ class TestKernelsOnCard:
                                     5000, perm=perm.to(cuda_device))
         torch.cuda.synchronize()
         assert torch.equal(out.cpu(), ref)
+
+    def test_combine_kernel_edges(self, cuda_device):
+        """K4's edge inputs: the kernel bit-equal to its plain version with
+        int32 and int64 permutations into n and n + 1 rows, and to the
+        baseline design on the first n rows."""
+        from chip_smoke import k4_edge_cases
+
+        for name, ids, g, n, perm, dup2 in k4_edge_cases(cuda_device):
+            for p in ([None] if perm is None else [perm, perm.int()]):
+                for rows in (n, n + 1):
+                    out = segsum.combine_sorted(ids, g, n, perm=p, rows=rows)
+                    ref = segsum.combine_sorted_plain(ids, g, n, dup2, p, rows=rows)
+                    torch.cuda.synchronize()
+                    assert torch.equal(out, ref), (name, rows)
+                if n:
+                    base = segsum.combine_sorted_baseline(ids, g, n, None if p is None else p.int())
+                    assert torch.equal(out[:n], base), name
