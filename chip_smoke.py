@@ -24,7 +24,12 @@ permutation into n + 1 rows), and timed against them in turns (old, new,
 new, old), with their callers before and after the epilogues were folded
 in, K1's launch floor (an empty kernel on either design's grid) and the
 id sort before K4; the training step's kernels a call are reported
-against its count before the two epilogues were folded in. Then it
+against its count before the two epilogues were folded in. K3 is held
+within its tolerances of its plain version and of its baseline design
+on edge inputs (`k3_edge_cases`) and at full width, bit-equal across two
+launches and to its own walk with the band cull off, and timed in turns
+against the baseline and its own walk at 1 and 4 pixels a thread, with
+both designs cut at five stages. Then it
 drives the paths of the full-width synthetic avatar (3 garments x 45,000
 Gaussians, 1024 x 667 pixels, random weights from seed 0):
 
@@ -175,6 +180,12 @@ BLEND_FP32_OPS_PER_PAIR = 25  # falloff polynomial, alpha rules, T update, 6 col
 # dalpha (8), and the 12 per-pixel contributions to the per-record sums
 BLEND_BWD_FP32_OPS_PER_PAIR = 60
 BLEND_BWD_SFU_PER_PAIR = 3  # exp in each walk, one division
+# a visited pair that is not used (power > 0 or alpha < 1/255) needs, in
+# each walk, only the polynomial (a multiply and four FMAs, FMAs as two)
+# and its test, and the exp: K3's bound counts used and unused pairs apart
+# (`blend_work`); K5's and K7's backwards still charge every pair as used
+BLEND_BWD_TEST_FP32_OPS_PER_PAIR = 20
+BLEND_BWD_TEST_SFU_PER_PAIR = 2
 
 
 OUT_DIR = "run_out"
@@ -382,6 +393,167 @@ def k4_edge_cases(dev):
     ]
 
 
+K3_EDGE_K = 256  # K3's edge inputs' slots a tile: the champion K
+
+
+def k3_edge_cases(dev):
+    """K3's edge inputs, made from seed 13 on `dev`: (name, records_ext
+    [n+1, CR] (zero sentinel row last; columns past 6 + C hold noise),
+    idx [T, K] int32, counts [T] int32, g [(C+1), nty*16, ntx*16], ntx,
+    nty, C) with K = K3_EDGE_K: counts 0, 1, 63, 64, 65, 255, 256, > K and
+    < 0 (the last with real ids in every slot, the rest with the sentinel
+    n past each count); sentinel ids inside the count; opaque wide records
+    that stop every pixel at the third record; opaque records (raw >=
+    0.99, where dp is 0); opacity 0; records wholly off the tile; C in
+    {1, 3, 6, 8} with CR in {6 + C, 16}; grids of 1x1 and 3x2 tiles; and
+    faint records (`band_edge_records`) whose ellipse reaches each row of
+    the tile from beyond it, just inside the alpha threshold there and, in
+    K3_ON_THRESHOLD, on it."""
+    rng = np.random.default_rng(13)
+    K = K3_EDGE_K
+
+    def records(n, ntx, nty, C, CR, sigma=(1.5, 8.0), opac=(0.3, 0.95)):
+        xy = rng.uniform(-8, 16 * np.array([ntx, nty]) + 8, (n, 2))
+        s = rng.uniform(*sigma, (n, 2))
+        th = rng.uniform(0, np.pi, n)
+        R = np.stack([np.cos(th), -np.sin(th), np.sin(th), np.cos(th)], -1).reshape(n, 2, 2)
+        inv = np.linalg.inv(R @ (np.eye(2) * (s**2)[:, None, :]) @ np.swapaxes(R, -1, -2))
+        conic = np.stack([inv[:, 0, 0], inv[:, 0, 1], inv[:, 1, 1]], -1)
+        rec = np.concatenate([xy, conic, rng.uniform(*opac, (n, 1)), rng.uniform(0, 1, (n, C)),
+                              rng.normal(size=(n, CR - 6 - C))], -1)
+        return np.concatenate([rec, np.zeros((1, CR))]).astype(np.float32)
+
+    def ids(n, counts, junk=False, pick=None):
+        """Distinct ids of [0, pick or n) in each tile's live slots (every
+        slot with junk), the sentinel n past them."""
+        idx = np.full((len(counts), K), n, np.int64)
+        for t, c in enumerate(counts):
+            live = K if junk else min(max(int(c), 0), K)
+            idx[t, :live] = rng.choice(pick or n, live, replace=False)
+        return idx
+
+    def case(name, rec, idx, counts, ntx, nty, C):
+        g = rng.normal(size=(C + 1, nty * 16, ntx * 16)).astype(np.float32)
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+            rec, idx.astype(np.int32), np.asarray(counts, np.int32), g)]
+        return (name, *t, ntx, nty, C)
+
+    cases = []
+    rec = records(600, 3, 2, 6, 12)
+    counts = [0, 1, 63, 64, 65, 255]
+    cases.append(case("counts 0/1/63/64/65/255", rec, ids(600, counts), counts, 3, 2, 6))
+    counts = [256, 256, 128, 200, 256, 64]
+    cases.append(case("counts 256", rec, ids(600, counts), counts, 3, 2, 6))
+    counts = [300, -5, 257, -1, 2**31 - 1, -(2**31)]
+    cases.append(case("counts > K and < 0, real ids in every slot", rec,
+                      ids(600, counts, junk=True), counts, 3, 2, 6))
+    idx = ids(300, [200])
+    idx[0, rng.choice(200, 70, replace=False)] = 300
+    cases.append(case("sentinel ids inside the count", records(300, 1, 1, 6, 12), idx, [200],
+                      1, 1, 6))
+    # three opaque wide records first in every tile (opacity 0.985-0.989,
+    # sigma 100 px, centred within 2 px of the tile's centre): T stays
+    # above 1.2e-4 after two and falls under 2.3e-5 at the third at every
+    # pixel, so each tile's walk stops at its third record
+    rec = records(400, 3, 2, 6, 12)
+    wide = 400 - 3 * 6 + np.arange(18)
+    tiles = np.repeat(np.arange(6), 3)
+    rec[wide, 0] = 16 * (tiles % 3) + 7.5 + rng.uniform(-2, 2, 18)
+    rec[wide, 1] = 16 * (tiles // 3) + 7.5 + rng.uniform(-2, 2, 18)
+    rec[wide, 2:5] = (1e-4, 0.0, 1e-4)
+    rec[wide, 5] = rng.uniform(0.985, 0.989, 18)
+    counts = [100, 256, 3, 40, 200, 64]
+    idx = ids(400, counts, pick=400 - 18)
+    idx[:, :3] = wide.reshape(6, 3)
+    cases.append(case("every pixel stopped at the third record", rec, idx, counts, 3, 2, 6))
+    # a quarter opaque (opacity 1) and wide (sigma 20 px): raw >= 0.99
+    # within ~2.8 px of their centres
+    rec = records(600, 3, 2, 6, 12)
+    rec[:-1:4, 2:5] = (1 / 400, 0.0, 1 / 400)
+    rec[:-1:4, 5] = 1.0
+    counts = [256, 180, 256, 90, 256, 30]
+    cases.append(case("raw >= 0.99", rec, ids(600, counts), counts, 3, 2, 6))
+    rec = records(300, 1, 1, 6, 12)
+    rec[:-1:3, 5] = 0.0
+    cases.append(case("opacity 0", rec, ids(300, [150]), [150], 1, 1, 6))
+    # half the records 40-200 px from the tile in x and in y (at least 32
+    # px from its pixels in each), sigma <= 8 px: their falloff at every
+    # pixel of the tile is below exp(-16)
+    rec = records(300, 1, 1, 6, 12)
+    off = rng.uniform(40, 200, (150, 2)) * rng.choice([-1, 1], (150, 2))
+    rec[:300:2, :2] = 8 + off
+    cases.append(case("records wholly off the tile", rec, ids(300, [120]), [120], 1, 1, 6))
+    for C in (1, 3, 6, 8):
+        for CR in (6 + C, 16):
+            ntx, nty = (1, 1) if CR == 16 else (3, 2)
+            counts = rng.integers(0, K + 1, ntx * nty)
+            rec = records(500, ntx, nty, C, CR)
+            cases.append(case(f"C={C} CR={CR} {ntx}x{nty}", rec, ids(500, counts), counts,
+                              ntx, nty, C))
+    # each tile: 32 faint records reaching its 16 rows (two each) among 96
+    # faint-opacity background records, shuffled; so that no pixel stops
+    for name, q in ((K3_INSIDE_THRESHOLD, 0.9), (K3_ON_THRESHOLD, 1.0)):
+        back = records(6 * 96, 3, 2, 6, 12, opac=(0.02, 0.1))[:-1]
+        faint = band_edge_records(rng, 3, 2, 2, q, CR=12, C=6)
+        rec = np.concatenate([back, faint, np.zeros((1, 12), np.float32)])
+        n = len(rec) - 1
+        idx = np.full((6, K), n, np.int64)
+        for t in range(6):
+            idx[t, :128] = rng.permutation(np.concatenate(
+                [np.arange(96 * t, 96 * t + 96), 6 * 96 + np.arange(32 * t, 32 * t + 32)]))
+        cases.append(case(name, rec, idx, [128] * 6, 3, 2, 6))
+    return cases
+
+
+# the faint records' cases: the pixel where each record's ellipse reaches
+# a row lies just inside the alpha >= 1/255 threshold (at 0.9 of the
+# ellipse's Q), or on it (the alpha test there decides by rounding: the
+# kernel and the plain version may take it apart, so that case is held
+# bit for bit against the kernel with the band cull off, not against the
+# plain version's sums)
+K3_INSIDE_THRESHOLD = "faint records inside the band edges"
+K3_ON_THRESHOLD = "faint records on the band edges"
+
+
+def band_edge_records(rng, ntx, nty, per_row, q, CR, C):
+    """Faint records for each tile of an ntx x nty grid, tile-major, 16
+    x per_row a tile: opacity in (1, 1.02) / 255 (on the threshold, down
+    to a few float32 ulps above 1/255; (1.01, 1.02) / 255 inside it, where
+    the power's margin is 1e-3), so that
+    alpha >= 1/255 holds only in the ellipse Q <= q r2, r2 = 2 log(255
+    op), which shrinks to the centre; sigma 0.5-200 px (log-uniform, the
+    two axes within 2x, any angle). Record j of row r is placed so that
+    its ellipse's extreme in y lies on pixel (col, r) of its tile, col
+    random: for even r the ellipse reaches down into row r (the first of
+    its 2-row band) from a centre above it, for odd r up into row r (the
+    band's last) from below, so every band boundary and both tile edges
+    are crossed, as K3's band cull must allow for."""
+    out = []
+    for t in range(ntx * nty):
+        ox, oy = 16.0 * (t % ntx), 16.0 * (t // ntx)
+        for r in range(16):
+            for _ in range(per_row):
+                sx = np.exp(rng.uniform(np.log(0.5), np.log(200.0)))
+                sy = sx * np.exp(rng.uniform(-np.log(2.0), np.log(2.0)))
+                th = rng.uniform(0, np.pi)
+                R = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+                A, B, Cc = (lambda m: (m[0, 0], m[0, 1], m[1, 1]))(
+                    np.linalg.inv(R @ np.diag([sx * sx, sy * sy]) @ R.T))
+                if q == 1.0:  # excess from 3e-7 (a few float32 ulps) to 0.02, log-uniform
+                    op = max(np.float32((1.0 + 10.0 ** rng.uniform(-6.5, np.log10(0.02))) / 255.0),
+                             np.nextafter(np.float32(1.0 / 255.0), np.float32(1.0)))
+                else:
+                    op = np.float32(rng.uniform(1.01, 1.02) / 255.0)
+                r2 = 2.0 * np.log(255.0 * np.float64(op))
+                dy = np.sqrt(q * r2 * A / (A * Cc - B * B)) * (1.0 if r % 2 == 0 else -1.0)
+                col = rng.integers(0, 16)
+                # the extreme in y of Q = q r2 is at dx = -B dy / A
+                xy = (ox + col + B / A * dy, oy + r - dy)
+                out.append([*xy, A, B, Cc, op, *rng.uniform(0, 1, C),
+                            *rng.normal(size=CR - 6 - C)])
+    return np.asarray(out, np.float32)
+
+
 def check_kernel_edges(dev, line):
     """K1 and K4 on their edge inputs: bit-equal to their plain versions
     and, on the card, to their baseline designs. Returns the cases held."""
@@ -415,6 +587,60 @@ def check_kernel_edges(dev, line):
     line(f"K1 and K4 edge inputs: K1 {n1} cases, K4 {n4} cases bit-equal to plain"
          + (" and to the baseline designs" if dev.type == "cuda" else ""))
     return n1, n4
+
+
+def check_k3_edges(dev, line):
+    """K3 on its edge inputs (`k3_edge_cases`): finite, zero in the slots
+    past min(max(counts, 0), K), within K3's tolerances of its plain
+    version and, on the card, of its baseline design (but K3_ON_THRESHOLD,
+    whose alpha tests decide by rounding), bit-equal across two launches
+    and to K3 with its band cull off. Returns the cases held."""
+    n = 0
+    for name, rec, idx, counts, g, ntx, nty, C in k3_edge_cases(dev):
+        args = (rec, idx, counts, g, ntx, nty, C)
+        out = blend_ct.blend_gather_ct_bwd(*args)
+        live = (torch.arange(idx.shape[1], device=dev)[None]
+                < torch.clamp(counts, 0, idx.shape[1])[:, None])
+        check(bool(torch.isfinite(out).all()), f"K3 edge case {name}: non-finite cotangents")
+        check(bool((out[~live] == 0).all()), f"K3 edge case {name}: a dead slot has a cotangent")
+        if name != K3_ON_THRESHOLD:
+            ref = blend_ct.blend_gather_ct_bwd_plain(*args)
+            check(slot_ok(slot_err(out, ref)), f"K3 edge case {name}: differs from plain")
+        if dev.type == "cuda":
+            check(torch.equal(bits(out), bits(blend_ct.blend_gather_ct_bwd(*args))),
+                  f"K3 edge case {name}: two launches differ")
+            no_cull = blend_ct.blend_gather_ct_bwd_stage(*args, 4, design="kernel_no_cull")
+            check(torch.equal(bits(out), bits(no_cull)),
+                  f"K3 edge case {name}: the band cull changes the bits")
+            if name != K3_ON_THRESHOLD:
+                base = blend_ct.blend_gather_ct_bwd_baseline(*args)
+                check(slot_ok(slot_err(out, base)),
+                      f"K3 edge case {name}: differs from the baseline")
+        n += 1
+    sync(dev)
+    line(f"K3 edge inputs: {n} cases within p999 <= {K3_P999_REL} x max|drec| / rel_l2 <= "
+         f"{K3_REL_L2} of plain (but {K3_ON_THRESHOLD!r})"
+         + (", of the baseline design, and bit-equal across two launches and to the walk "
+            "without the band cull" if dev.type == "cuda" else ""))
+    return n
+
+
+def ptxas_usage(log, marker):
+    """Registers, shared memory and spills that `-Xptxas -v` reports for
+    the entry functions whose mangled names contain `marker`, by name."""
+    out, name = {}, None
+    for ln in (log or "").splitlines():
+        if "Function properties for" in ln:
+            name = ln.split("for", 1)[1].strip()
+        elif name and marker in name and "spill stores" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
+            out[name] = {"stack": nums[0], "spill_stores": nums[1], "spill_loads": nums[2]}
+        elif name and marker in name and "registers" in ln:
+            words = ln.replace(",", " ").split()
+            out.setdefault(name, {}).update(
+                registers=int(words[words.index("registers") - 1]),
+                smem=int(words[words.index("smem") - 2]) if "smem" in words else 0)
+    return out
 
 
 def image_err(a, b):
@@ -470,11 +696,21 @@ def render(params, model, camera, lbs, k, plain=False):
 def reset_launch_counts():
     """Every kernel's launch counter to 0."""
     extract.launches = blend_ct.launches = blend_ct.bwd_launches = segsum.launches = 0
-    extract.baseline_launches = segsum.baseline_launches = 0
+    extract.baseline_launches = segsum.baseline_launches = blend_ct.baseline_launches = 0
+    for k in blend_ct.stage_launches:
+        blend_ct.stage_launches[k] = 0
     blend_rec.launches = blend_rec.bwd_launches = 0
     blend_rec.img_launches = blend_rec.img_bwd_launches = 0
     blend.launches = blend.bwd_launches = fused.launches = fused.bwd_launches = 0
     probes.reset_launches()
+
+
+def off_path_launches():
+    """Launches, since the counts were reset, of what no path of the port
+    calls: the baseline designs of K1, K3 and K4 and K3's stage cuts. Each
+    main-path window must see 0."""
+    return (extract.baseline_launches + segsum.baseline_launches + blend_ct.baseline_launches
+            + sum(blend_ct.stage_launches.values()))
 
 
 def rel_l2(a, b):
@@ -684,7 +920,8 @@ def serve(dev, report):
     check(tuple(img0.shape) == (C, HEIGHT, WIDTH), f"serving path: image shape {tuple(img0.shape)}")
     check(per_frame == [(i + 1, i + 1) for i in range(FRAMES)],
           f"launch counts after each frame {per_frame}: not one per kernel per frame")
-    check(extract.baseline_launches == 0, "serving path: the K1 baseline design was launched")
+    check(off_path_launches() == 0,
+          "serving path: a baseline design or a K3 stage cut was launched")
 
     _, img_p, aux_p = render(params, model, camera, pose(0), K, plain=True)
     fr = image_err(img0, img_p)
@@ -742,19 +979,45 @@ def serve(dev, report):
     return kernels, scene
 
 
-def train(dev, report, scene):
-    """K3 and K4 at full width against their plain versions, one training
-    step's gradients with the kernels against the plain versions, then the
-    training path: 10 steps of bench_train.py's configuration, each
-    launching every kernel once. Returns the K3/K4 entries."""
+def blend_work(b, cnt, tile_chunk=128):
+    """What the blend walks face at a selection: tiles by live count, the
+    (pixel, record) pairs visited (before each pixel's stop) and used
+    there (power <= 0 and alpha >= 1/255), and the (record, 2-row band)
+    pairs of live slots and those with a used pixel (what K3's band cull
+    can skip)."""
+    T, K = b.idx.shape
+    dev = b.idx.device
+    origin = blend_ct._tile_origins(T, b.ntx, dev)
+    basis = blend_ct._pixel_basis(dev)
+    slot = torch.arange(K, device=dev)
+    w = dict(visited=0, used=0, bands=0, bands_used=0)
+    for c0 in range(0, T, tile_chunk):
+        rec = b.records_ext[b.idx[c0 : c0 + tile_chunk].long()]
+        live = slot[None] < cnt[c0 : c0 + tile_chunk, None]
+        f = blend_ct._blend_chunk(rec, origin[c0 : c0 + tile_chunk], live, basis)
+        visited = live[:, None, :] & (f["t_before"] >= blend_ct.T_EPS)
+        used = f["use"] & visited
+        w["visited"] += int(visited.sum())
+        w["used"] += int(used.sum())
+        w["bands"] += int(live.sum()) * (blend_ct.NPIX // 32)
+        w["bands_used"] += int(used.reshape(rec.shape[0], -1, 32, K).any(2).sum())
+    hist = torch.bincount(torch.clamp(cnt, 0, K), minlength=K + 1)
+    w["tiles"] = {"empty": int(hist[0]), "full": int(hist[K]), "between": int(hist[1:K].sum())}
+    return w
+
+
+def k3_phase(dev, report, scene):
+    """K3 on its edge inputs, then on the scene's selection with a seeded
+    cotangent: against its plain version, and on the card bit-equal across
+    two launches, against its baseline design, each design's stage 4
+    bit-equal to its kernel; the two designs and their stage cuts timed in
+    turns. Returns the results, drec (the kernel's) among them."""
     line = logger(report)
     b, cnt, C = scene["binned"], scene["cnt"], scene["C"]
-    T = b.idx.shape[0]
-    CR = b.records_ext.shape[1]
-    n = b.records_ext.shape[0] - 1
+    T, CR = b.idx.shape[0], b.records_ext.shape[1]
     n_contrib = int(cnt.sum())
-
-    # -- K3: blend backward, on the scene's selection ----------------------
+    with torch.no_grad():
+        k3_edges = check_k3_edges(dev, line)
     gen = torch.Generator(device=dev).manual_seed(4)
     g = torch.randn((C + 1, b.nty * 16, b.ntx * 16), generator=gen, device=dev)
     bwd_args = (b.records_ext, b.idx, cnt, g, b.ntx, b.nty, C)
@@ -768,19 +1031,104 @@ def train(dev, report, scene):
              f"p999_abs={k3['p999_abs']:.3e} rel_l2={k3['rel_l2']:.3e} "
              f"(max |drec| {k3['scale']:.3e})")
         check(slot_ok(k3), f"K3: outside p999 <= {K3_P999_REL} x max|drec| / rel_l2 <= {K3_REL_L2}")
+        work = blend_work(b, cnt)
+        line(f"K3 work: tiles {work['tiles']}; (pixel, record) pairs visited {work['visited']}, "
+             f"used {work['used']}; (record, 2-row band) pairs {work['bands']}, with a used pixel "
+             f"{work['bands_used']}")
+        k3_turns = k3_stages = k3_base = k3_ptxas = None
+        if dev.type == "cuda":
+            check(torch.equal(bits(drec), bits(blend_ct.blend_gather_ct_bwd(*bwd_args))),
+                  "K3: two launches differ")
+            drec_b = blend_ct.blend_gather_ct_bwd_baseline(*bwd_args)
+            k3_base = slot_err(drec, drec_b)
+            line(f"K3 vs its baseline design at full width: max_abs={k3_base['max_abs']:.3e} "
+                 f"p999_abs={k3_base['p999_abs']:.3e} rel_l2={k3_base['rel_l2']:.3e}; two "
+                 "launches bit-equal, and equal to the walk without the band cull")
+            check(slot_ok(k3_base), f"K3 vs the baseline: outside p999 <= {K3_P999_REL} x "
+                                    f"max|drec| / rel_l2 <= {K3_REL_L2}")
+            check(torch.equal(bits(drec), bits(blend_ct.blend_gather_ct_bwd_stage(
+                *bwd_args, 4, design="kernel_no_cull"))), "K3: the band cull changes the bits")
+            # the stage cuts: stage 4 is each design's kernel to the bit
+            for d, ref in (("kernel", drec), ("baseline", drec_b)):
+                for st in range(len(blend_ct.STAGES)):
+                    out = blend_ct.blend_gather_ct_bwd_stage(*bwd_args, st, design=d)
+                    check(bool(torch.isfinite(out).all()), f"K3 {d} stage {st}: non-finite output")
+                check(torch.equal(bits(out), bits(ref)), f"K3 {d} stage 4: not the kernel's output")
+            # K3's walk at 1 and 4 pixels a thread: the same sums in another order
+            k3_px = {}
+            for d in ("kernel_p1", "kernel_p4"):
+                k3_px[d] = slot_err(blend_ct.blend_gather_ct_bwd_stage(*bwd_args, 4, design=d),
+                                    drec_p)
+                check(slot_ok(k3_px[d]), f"K3 {d} vs plain: outside p999 <= {K3_P999_REL} x "
+                                         f"max|drec| / rel_l2 <= {K3_REL_L2}")
+            del drec_b, out
+            k3_turns = in_turns({
+                "baseline": lambda: blend_ct.blend_gather_ct_bwd_baseline(*bwd_args),
+                "kernel": lambda: blend_ct.blend_gather_ct_bwd(*bwd_args),
+                **{d: (lambda d=d: blend_ct.blend_gather_ct_bwd_stage(*bwd_args, 4, design=d))
+                   for d in ("kernel_p1", "kernel_p4")},
+            }, 20, dev)
+            k3_stages = in_turns({
+                f"{d}_stage{st}": (lambda st=st, d=d: blend_ct.blend_gather_ct_bwd_stage(
+                    *bwd_args, st, design=d))
+                for st in range(len(blend_ct.STAGES)) for d in ("baseline", "kernel")}, 20, dev)
+            line(f"K3 in turns (T={T}, K={b.idx.shape[1]}, C={C}, the scene's selection; "
+                 f"kernel_p1/p4: K3's walk at 1/4 pixels a thread): {turns_summary(k3_turns)}; "
+                 "p1/p4 vs plain rel_l2 " + ", ".join(f"{e['rel_l2']:.3e}" for e in k3_px.values()))
+            for d in ("baseline", "kernel"):
+                ms = [k3_stages[f"{d}_stage{st}"]["ms"] for st in range(len(blend_ct.STAGES))]
+                line(f"K3 {d} stages (ms a call; delta): " + ", ".join(
+                    f"{st} {nm} {m:.5f} ({m - (ms[st - 1] if st else 0.0):+.5f})"
+                    for st, (nm, m) in enumerate(zip(blend_ct.STAGES, ms))))
+            logs = report.get("build_logs", {}).get("blend_ct_bwd")
+            # mangled template arguments: <C, P, STAGE> and, baseline, <C, STAGE>
+            k3_ptxas = {d: ptxas_usage(logs, m) for d, m in (
+                ("kernel", f"blend_gather_ct_bwd_kernelILi{C}ELi2ELi4E"),
+                ("kernel_p1", f"blend_gather_ct_bwd_kernelILi{C}ELi1ELi4E"),
+                ("kernel_p4", f"blend_gather_ct_bwd_kernelILi{C}ELi4ELi4E"),
+                ("baseline", f"blend_gather_ct_bwd_v1_kernelILi{C}ELi4E"))}
+            line(f"K3 ptxas at C={C}, whole kernel (registers, static smem bytes, spill stores): "
+                 + "; ".join(f"{d} {u.get('registers')}, {u.get('smem')}, {u.get('spill_stores')}"
+                             for d, us in k3_ptxas.items() for u in us.values()))
         k3_t = measure(lambda: blend_ct.blend_gather_ct_bwd(*bwd_args), 20, dev)
         k3_plain_t = measure(
             lambda: blend_ct.blend_gather_ct_bwd_plain(*bwd_args), 3, dev, warmup=1
         )
-    pairs = scene["pairs"]
+    used, unused = work["used"], work["visited"] - work["used"]
     k3_bytes = 4 * (scene["uniq"] * CR + n_contrib + T) + 4 * g.numel() + 4 * drec.numel()
     k3_times = {
         "bytes": k3_bytes / HBM_BYTES_PER_S,
-        "operations": max(pairs * BLEND_BWD_FP32_OPS_PER_PAIR / FP32_OPS_PER_S,
-                          pairs * BLEND_BWD_SFU_PER_PAIR / SFU_OPS_PER_S),
+        "operations": max((used * BLEND_BWD_FP32_OPS_PER_PAIR
+                           + unused * BLEND_BWD_TEST_FP32_OPS_PER_PAIR) / FP32_OPS_PER_S,
+                          (used * BLEND_BWD_SFU_PER_PAIR
+                           + unused * BLEND_BWD_TEST_SFU_PER_PAIR) / SFU_OPS_PER_S),
     }
+    line(f"K3 bound: bytes {k3_times['bytes'] * 1e3:.5f} ms, operations "
+         f"{k3_times['operations'] * 1e3:.5f} ms ({used} used and {unused} unused pairs)")
     k3_bound_by = max(k3_times, key=k3_times.get)
     k3_bound_ms = k3_times[k3_bound_by] * 1e3
+    report["k3_work"] = work
+    return dict(drec=drec, k3=k3, k3_edges=k3_edges, k3_base=k3_base, k3_turns=k3_turns,
+                k3_stages=k3_stages, k3_ptxas=k3_ptxas, k3_t=k3_t, k3_plain_t=k3_plain_t,
+                k3_bytes=k3_bytes, k3_bound_ms=k3_bound_ms, k3_bound_by=k3_bound_by)
+
+
+def train(dev, report, scene):
+    """K3 (`k3_phase`) and K4 at full width against their plain versions,
+    one training step's gradients with the kernels against the plain
+    versions, then the training path: 10 steps of bench_train.py's
+    configuration, each launching every kernel once. Returns the K3/K4
+    entries."""
+    line = logger(report)
+    b, cnt, C = scene["binned"], scene["cnt"], scene["C"]
+    T = b.idx.shape[0]
+    CR = b.records_ext.shape[1]
+    n = b.records_ext.shape[0] - 1
+    n_contrib = int(cnt.sum())
+
+    # -- K3: blend backward, on its edge inputs and the scene's selection ----
+    k3r = k3_phase(dev, report, scene)
+    drec = k3r["drec"]
 
     # -- K4: per-Gaussian combine of the kernel's cotangents ---------------
     with torch.no_grad():
@@ -916,8 +1264,8 @@ def train(dev, report, scene):
     check(per_step == [(i + 1,) * 4 for i in range(STEPS)],
           f"launch counts after each step {per_step}: not one per kernel per step")
     check(moved > 0.0, "training path: the parameters did not change")
-    check(extract.baseline_launches == 0 and segsum.baseline_launches == 0,
-          "training path: a baseline design was launched")
+    check(off_path_launches() == 0,
+          "training path: a baseline design or a K3 stage cut was launched")
     step_prof = profile_calls(lambda: step(params, batch, gen, STEPS + 1), 3, dev)
     if step_prof is not None:
         line(f"training step, profiled ({step_prof['calls']} steps): "
@@ -927,14 +1275,22 @@ def train(dev, report, scene):
              f"({step_prof['kernels_per_call'] - STEP_KERNELS_BEFORE:+.0f}; the callers gave up "
              f"{STEP_LAUNCHES_FOLDED})")
 
+    def stage_ms(design):  # K3's stage cuts, ms a call in turns
+        return k3r["k3_stages"] and [k3r["k3_stages"][f"{design}_stage{st}"]["ms"]
+                                     for st in range(len(blend_ct.STAGES))]
+
     kernels = [
         {
             "name": "blend_gather_ct_bwd", "route": "cuda",
             "source": "d3ga_tpu_torch/csrc/blend_ct_bwd.cu",
             "replaces": "d3ga_tpu/raster/pallas_blend_ct.py:357",
-            "launches": launches["blend_gather_ct_bwd"], "max_abs_err": k3["max_abs"],
-            "ms": k3_t["ms"], "plain_ms": k3_plain_t["ms"], "bound_ms": k3_bound_ms,
-            "bound_by": k3_bound_by, "library_ms": None,
+            "launches": launches["blend_gather_ct_bwd"], "max_abs_err": k3r["k3"]["max_abs"],
+            "ms": k3r["k3_turns"]["kernel"]["ms"] if k3r["k3_turns"] else k3r["k3_t"]["ms"],
+            "plain_ms": k3r["k3_plain_t"]["ms"], "bound_ms": k3r["k3_bound_ms"],
+            "bound_by": k3r["k3_bound_by"], "library_ms": None,
+            "baseline_ms": k3r["k3_turns"] and k3r["k3_turns"]["baseline"]["ms"],
+            "designs_ms": k3r["k3_turns"] and {d: v["ms"] for d, v in k3r["k3_turns"].items()},
+            "stages_ms": stage_ms("kernel"), "baseline_stages_ms": stage_ms("baseline"),
         },
         {
             "name": "combine_sorted", "route": "cuda",
@@ -949,7 +1305,7 @@ def train(dev, report, scene):
         },
     ]
     timings = {
-        "blend_gather_ct_bwd": {"kernel": k3_t, "plain": k3_plain_t},
+        "blend_gather_ct_bwd": {"kernel": k3r["k3_t"], "plain": k3r["k3_plain_t"]},
         "combine_sorted": {"kernel": k4_t, "plain": k4_plain_t, "library": k4_lib_t},
     }
     for k in kernels:
@@ -959,7 +1315,9 @@ def train(dev, report, scene):
              f"launches_per_step={k['launches'] / STEPS:g}; wall per call "
              + ", ".join(f"{nm}={v['call_ms']:.4f}" for nm, v in t.items()))
     report.update(
-        k3_full_width=k3, k3_bytes=k3_bytes, k4_full_width=k4, k4_bytes=k4_bytes, k4_live=k4_live,
+        k3_full_width=k3r["k3"], k3_bytes=k3r["k3_bytes"], k3_edge_cases=k3r["k3_edges"],
+        k3_vs_baseline=k3r["k3_base"], k3_turns=k3r["k3_turns"], k3_stages=k3r["k3_stages"],
+        k3_ptxas=k3r["k3_ptxas"], k4_full_width=k4, k4_bytes=k4_bytes, k4_live=k4_live,
         k4_turns=k4_turns, k4_sort=k4_sort, k4_callers=k4_callers,
         step_terms_rel=term_err, step_grad_rel_l2=leaf_err, step_ms=step_ms,
         steps_per_s=1e3 / step_ms, train_launches=launches, step_profiled=step_prof,
@@ -1152,8 +1510,8 @@ def _sharded_phases(dev, report, scene, mesh, line):
     check(bool(torch.isfinite(loss).all()), "sharded path: non-finite loss")
     check(per_call == [(2 * (i + 1), i + 1, i + 1, i + 1, 0) for i in range(SHARD_CALLS)],
           f"launch counts after each call {per_call}: not K1 x2, K5, K5 backward, K4 x1 a call")
-    check(extract.baseline_launches == 0 and segsum.baseline_launches == 0,
-          "sharded path: a baseline design was launched")
+    check(off_path_launches() == 0,
+          "sharded path: a baseline design or a K3 stage cut was launched")
     prof = profile_calls(call, 3, dev)
     if prof is not None:
         line(f"sharded objective, profiled ({prof['calls']} calls): "
@@ -1333,6 +1691,8 @@ def variants(dev, report, scene):
             check(bool(finite), f"ActorsHQ {layout}: a non-finite loss term")
             check(per_step == [expect[layout](i + 1) for i in range(VARIANT_STEPS)],
                   f"ActorsHQ {layout}: launch counts after each step {per_step}")
+            check(off_path_launches() == 0,
+                  f"ActorsHQ {layout}: a baseline design or a K3 stage cut was launched")
             prof = profile_calls(lambda: step(params, batch, gen, VARIANT_STEPS + 1), 3, dev)
             if prof is not None:
                 line(f"ActorsHQ raster settings ({layout} layout), profiled ({prof['calls']} "
@@ -1594,6 +1954,8 @@ def fused_phase(dev, report, scene):
     expect = [(0,) * 10 + (i + 1, i + 1) for i in range(FUSED_STEPS)]
     check(per_step == expect, f"fused backend: launch counts after each step {per_step}: not K9 "
                               "and its backward once a step, and no other kernel")
+    check(off_path_launches() == 0,
+          "fused backend: a baseline design or a K3 stage cut was launched")
     fused_prof = profile_calls(lambda: step(params, batch, gen, FUSED_STEPS + 1), 3, dev)
     if fused_prof is not None:
         line(f"fused backend, profiled ({fused_prof['calls']} steps): "

@@ -140,7 +140,11 @@ __device__ __forceinline__ float blend_walk_fwd(const float* __restrict__ rec, i
 // Backward of one tile by the calling block: pixel p's image cotangent
 // gc (colours) and g_tbg (T_bg) in, the tile's K slot rows of record
 // cotangents out (tdrec [K, CR]; zeros past the walk and in dead slots).
-template <int C>
+// STAGE < 4 cuts the walk for K3's stage split (blend_ct_bwd.cu), as
+// blend_walk_bwd.cuh's walk is cut: 0 staging and stores, 1 + walk 1,
+// 2 + walk 2's per-pixel arithmetic, 3 + the per-record sums; each cut
+// writes what it computed (folded into the rows) so that none is dead.
+template <int C, int STAGE = 4>
 __device__ __forceinline__ void blend_walk_bwd(const float* __restrict__ rec, int n_ext, int CR,
                                                const int* __restrict__ tidx, int K, int cnt,
                                                float sx, float sy, const float (&gc)[C],
@@ -154,6 +158,7 @@ __device__ __forceinline__ void blend_walk_bwd(const float* __restrict__ rec, in
   const int warp = p >> 5;
   const float fx = (float)(p % TILE), fy = (float)(p / TILE);
   const float fxx = fx * fx, fyy = fy * fy, fxy = fx * fy;
+  float fold = 0.0f;  // the stage cuts' sink for what they compute
 
   // -- walk 1: T_bg and the total of ds = dw * w over accepted records --
   float T = 1.0f, S = 0.0f;
@@ -163,7 +168,9 @@ __device__ __forceinline__ void blend_walk_bwd(const float* __restrict__ rec, in
     __syncthreads();
     if (p < n) stage<C, BWD_CHUNK>(rec, n_ext, CR, tidx[base + p], sx, sy, p, s_c, s_col);
     __syncthreads();
-    if (!done) {
+    if constexpr (STAGE == 0) {
+      if (p < n) fold += s_c[1][p];
+    } else if (!done) {
       for (int k = 0; k < n; ++k) {
         const float q = s_c[2][k] * fx + s_c[3][k] * fy + s_c[4][k] * fxx +
                         s_c[5][k] * fyy + s_c[6][k] * fxy;
@@ -185,6 +192,7 @@ __device__ __forceinline__ void blend_walk_bwd(const float* __restrict__ rec, in
     }
     if (__syncthreads_and(done)) break;
   }
+  if constexpr (STAGE == 1) fold += T + S;
   const float gt_bg = g_tbg * T;  // dlg of every accepted record includes it
 
   // -- walk 2: the cotangents; R = the ds of the accepted records behind --
@@ -198,6 +206,7 @@ __device__ __forceinline__ void blend_walk_bwd(const float* __restrict__ rec, in
     if (p < n) stage<C, BWD_CHUNK>(rec, n_ext, CR, tidx[base + p], sx, sy, p, s_c, s_col);
     __syncthreads();
     for (int k = 0; k < n; ++k) {
+      if constexpr (STAGE < 2) continue;
       float v[6 + C];
 #pragma unroll
       for (int i = 0; i < 6 + C; ++i) v[i] = 0.0f;
@@ -221,6 +230,7 @@ __device__ __forceinline__ void blend_walk_bwd(const float* __restrict__ rec, in
               const float dlg = R + gt_bg;
               const float dalpha = dw * T - dlg / (1.0f - alpha);
               const float dp = (e < ALPHA_MAX) ? dalpha * e : 0.0f;
+              if constexpr (STAGE == 2) fold += dp + w;
               v[0] = dp;
               v[1] = dp * fx;
               v[2] = dp * fy;
@@ -235,6 +245,7 @@ __device__ __forceinline__ void blend_walk_bwd(const float* __restrict__ rec, in
           }
         }
       }
+      if constexpr (STAGE < 3) continue;
       if (__any_sync(FULL_MASK, hit)) {
 #pragma unroll
         for (int i = 0; i < 6 + C; ++i) v[i] = warp_sum(v[i]);
@@ -250,8 +261,10 @@ __device__ __forceinline__ void blend_walk_bwd(const float* __restrict__ rec, in
 #pragma unroll
       for (int i = 0; i < 6 + C; ++i) {
         float a = 0.0f;
+        if constexpr (STAGE >= 3) {
 #pragma unroll
-        for (int w = 0; w < NWARP; ++w) a += s_part[w][i][p];
+          for (int w = 0; w < NWARP; ++w) a += s_part[w][i][p];
+        }
         d[i] = a;
       }
       const int gidx = min(max(tidx[base + p], 0), n_ext - 1);
@@ -260,14 +273,22 @@ __device__ __forceinline__ void blend_walk_bwd(const float* __restrict__ rec, in
       const float y = r[1] - sy;
       const float A = r[2], B = r[3], Cc = r[4], op = r[5];
       float* o = tdrec + (long long)(base + p) * CR;
-      o[0] = -d[0] * (A * x + B * y) + d[1] * A + d[2] * B;
-      o[1] = -d[0] * (Cc * y + B * x) + d[1] * B + d[2] * Cc;
-      o[2] = -0.5f * d[0] * x * x + d[1] * x - 0.5f * d[3];
-      o[3] = -d[0] * x * y + d[1] * y + d[2] * x - d[5];
-      o[4] = -0.5f * d[0] * y * y + d[2] * y - 0.5f * d[4];
-      o[5] = op > 0.0f ? d[0] / fmaxf(op, OP_EPS) : 0.0f;
+      if constexpr (STAGE == 4) {
+        o[0] = -d[0] * (A * x + B * y) + d[1] * A + d[2] * B;
+        o[1] = -d[0] * (Cc * y + B * x) + d[1] * B + d[2] * Cc;
+        o[2] = -0.5f * d[0] * x * x + d[1] * x - 0.5f * d[3];
+        o[3] = -d[0] * x * y + d[1] * y + d[2] * x - d[5];
+        o[4] = -0.5f * d[0] * y * y + d[2] * y - 0.5f * d[4];
+        o[5] = op > 0.0f ? d[0] / fmaxf(op, OP_EPS) : 0.0f;
 #pragma unroll
-      for (int c = 0; c < C; ++c) o[6 + c] = d[6 + c];
+        for (int c = 0; c < C; ++c) o[6 + c] = d[6 + c];
+      } else {
+        const float geo[6] = {x, y, A, B, Cc, op};
+#pragma unroll
+        for (int i = 0; i < 6; ++i) o[i] = geo[i] + fold + d[i];
+#pragma unroll
+        for (int c = 0; c < C; ++c) o[6 + c] = (STAGE == 3 ? d[6 + c] : s_col[c][p]) + fold;
+      }
       for (int c = 6 + C; c < CR; ++c) o[c] = 0.0f;
     }
     written = base + n;

@@ -15,6 +15,19 @@ the per-slot cotangents go to the per-Gaussian combine (K4, `segsum.py`).
 CUDA tensors K2 forward and K3 + K4 backward, on CPU tensors (or with
 plain=True) the plain PyTorch versions of all three. There is no fallback
 between the two.
+
+K3 walks a tile with 128 threads of two pixels each, skips the records
+a warp's rows cannot take (the band cull), and sums each record's
+cotangents by a warp reduce-scatter (`csrc/blend_walk_bwd.cuh`). The
+design before (one thread a pixel, `blend_walk.cuh::blend_walk_bwd`,
+which K5's and K7's backwards still use) stays in the source as
+`d3ga_blend_gather_ct_bwd_v1`, reached only by
+`blend_gather_ct_bwd_baseline`; `blend_gather_ct_bwd_stage` launches one
+of the `DESIGNS` whole (K3 with the band cull off among them, the
+reference for the cull's bits) or, at C = STAGE_C only, cut at one of
+the `STAGES` (the walks' STAGE parameter), with its own counters.
+chip_smoke.py uses both to check the cull and to time the designs and
+split them in turns; neither is on any path of the port.
 """
 
 import ctypes
@@ -36,6 +49,19 @@ MAX_C = 8  # colour channels the kernels are instantiated for
 # one per launch of the CUDA kernel (never for the plain version)
 launches = 0
 bwd_launches = 0
+# K3's stage cuts (csrc/blend_ct_bwd.cu): each writes what it computed, so
+# the differences of their device times split the kernel; stage 4 is K3
+STAGES = ("staging + stores", "walk 1", "walk 2 per pixel", "per-record sums", "epilogue")
+# the designs the stage entry point launches: the baseline (the design
+# before), K3, K3 with the band cull off, and K3's walk at 1 or 4 pixels a
+# thread (it takes 2); the cuts before stage 4 and the pixel variants are
+# built for C = STAGE_C (the champion's) only
+DESIGNS = {"baseline": 0, "kernel": 1, "kernel_no_cull": 2, "kernel_p1": 3, "kernel_p4": 4}
+STAGE_C = 6
+# one per launch of K3's baseline design and of each (design, stage) cut
+# (chip_smoke.py's comparisons only)
+baseline_launches = 0
+stage_launches = {(d, s): 0 for d in DESIGNS for s in range(len(STAGES))}
 
 
 def _pixel_basis(device):
@@ -193,13 +219,16 @@ def _kernel():
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_kernel():
-    fn = cuda_build.load("blend_ct_bwd").d3ga_blend_gather_ct_bwd
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _bwd_lib():
+    lib = cuda_build.load("blend_ct_bwd")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    args = [p, i, i, p, i, p, i, i, i, p, p]
+    for name, extra in (("d3ga_blend_gather_ct_bwd", [p]), ("d3ga_blend_gather_ct_bwd_v1", [p]),
+                        ("d3ga_blend_gather_ct_bwd_stage", [i, i, p])):
+        fn = getattr(lib, name)
+        fn.argtypes = args + extra
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def _check(name, records_ext, idx, counts, ntx, nty, C):
@@ -237,23 +266,32 @@ def _launch(records_ext, idx, counts, ntx, nty, C):
     return out
 
 
-def _launch_bwd(records_ext, idx, counts, g, ntx, nty, C):
-    global bwd_launches
-    _check("blend_gather_ct_bwd", records_ext, idx, counts, ntx, nty, C)
+def _launch_bwd(records_ext, idx, counts, g, ntx, nty, C, name="blend_gather_ct_bwd",
+                entry="d3ga_blend_gather_ct_bwd", extra=()):
+    """Checks, allocates drec [T, K, CR] and launches the K3 entry point
+    `entry` of csrc/blend_ct_bwd.cu (with `extra` int arguments); the
+    caller counts the launch."""
+    _check(name, records_ext, idx, counts, ntx, nty, C)
     if g.dtype != torch.float32 or tuple(g.shape) != (C + 1, nty * TILE, ntx * TILE):
-        raise ValueError(f"blend_gather_ct_bwd: cotangent {g.dtype} {tuple(g.shape)}")
+        raise ValueError(f"{name}: cotangent {g.dtype} {tuple(g.shape)}")
     if g.device != records_ext.device or not g.is_contiguous():
-        raise ValueError("blend_gather_ct_bwd: cotangent on another device or not contiguous")
+        raise ValueError(f"{name}: cotangent on another device or not contiguous")
     n_ext, CR = records_ext.shape
     T, K = idx.shape
     drec = torch.empty((T, K, CR), dtype=torch.float32, device=records_ext.device)
     if T == 0:
         return drec
-    err = _bwd_kernel()(records_ext.data_ptr(), n_ext, CR, idx.data_ptr(), K, counts.data_ptr(),
-                        ntx, nty, C, g.data_ptr(), drec.data_ptr(),
-                        cuda_build.stream_handle(records_ext.device))
+    err = getattr(_bwd_lib(), entry)(
+        records_ext.data_ptr(), n_ext, CR, idx.data_ptr(), K, counts.data_ptr(), ntx, nty, C,
+        g.data_ptr(), drec.data_ptr(), *extra, cuda_build.stream_handle(records_ext.device))
     if err != 0:
-        raise RuntimeError(f"blend_gather_ct_bwd: kernel launch failed (error {err})")
+        raise RuntimeError(f"{name}: kernel launch failed (error {err})")
+    return drec
+
+
+def _launch_k3(records_ext, idx, counts, g, ntx, nty, C):
+    global bwd_launches
+    drec = _launch_bwd(records_ext, idx, counts, g, ntx, nty, C)
     bwd_launches += 1
     return drec
 
@@ -266,7 +304,47 @@ def blend_gather_ct_bwd(records_ext, idx, counts, g, ntx, nty, C):
         return blend_gather_ct_bwd_plain(records_ext, idx, counts, g, ntx, nty, C)
     if records_ext.device.type != "cuda":
         raise ValueError(f"blend_gather_ct_bwd: unsupported device {records_ext.device}")
-    return _launch_bwd(records_ext, idx, counts, g.contiguous(), ntx, nty, C)
+    return _launch_k3(records_ext, idx, counts, g.contiguous(), ntx, nty, C)
+
+
+def _card_only(name, records_ext):
+    if records_ext.device.type != "cuda":
+        raise ValueError(f"{name}: CUDA tensors only, got {records_ext.device}")
+
+
+def blend_gather_ct_bwd_baseline(records_ext, idx, counts, g, ntx, nty, C):
+    """K3's design before (`d3ga_blend_gather_ct_bwd_v1`: one thread a
+    pixel, blend_walk.cuh's walk) on CUDA tensors, for timing against
+    `blend_gather_ct_bwd`."""
+    global baseline_launches
+    _card_only("blend_gather_ct_bwd_baseline", records_ext)
+    drec = _launch_bwd(records_ext, idx, counts, g.contiguous(), ntx, nty, C,
+                       "blend_gather_ct_bwd_baseline", "d3ga_blend_gather_ct_bwd_v1")
+    baseline_launches += 1
+    return drec
+
+
+def blend_gather_ct_bwd_stage(records_ext, idx, counts, g, ntx, nty, C, stage, design="kernel"):
+    """One of DESIGNS ("kernel": K3; "baseline": its design before;
+    "kernel_no_cull": K3 with the band cull off, the same bits; "kernel_p1"
+    / "kernel_p4": K3's walk at 1 or 4 pixels a thread) cut after `stage`
+    of STAGES, on CUDA tensors: drec-shaped rows of what the cut computed
+    (stage 4 is the whole kernel). Only the baseline and K3 are cut before
+    stage 4; those cuts and the pixel variants take C = STAGE_C only."""
+    whole = len(STAGES) - 1
+    if stage not in range(len(STAGES)) or design not in DESIGNS:
+        raise ValueError(f"blend_gather_ct_bwd_stage: stage {stage} of design {design!r}")
+    if design not in ("baseline", "kernel") and stage != whole:
+        raise ValueError(f"blend_gather_ct_bwd_stage: {design} runs whole (stage 4) only")
+    if (stage != whole or design.startswith("kernel_p")) and C != STAGE_C:
+        raise ValueError(f"blend_gather_ct_bwd_stage: stage {stage} of {design} is built for "
+                         f"C = {STAGE_C} only, not {C}")
+    _card_only("blend_gather_ct_bwd_stage", records_ext)
+    drec = _launch_bwd(records_ext, idx, counts, g.contiguous(), ntx, nty, C,
+                       "blend_gather_ct_bwd_stage", "d3ga_blend_gather_ct_bwd_stage",
+                       (DESIGNS[design], stage))
+    stage_launches[design, stage] += 1
+    return drec
 
 
 class _BlendGatherCT(torch.autograd.Function):
@@ -291,7 +369,7 @@ class _BlendGatherCT(torch.autograd.Function):
         if plain:
             drec = blend_gather_ct_bwd_plain(records_ext, idx, counts, g, ntx, nty, C)
         else:
-            drec = _launch_bwd(records_ext, idx, counts, g, ntx, nty, C)
+            drec = _launch_k3(records_ext, idx, counts, g, ntx, nty, C)
         dre = segsum.combine_from_slots(drec, idx, n, dup2, plain=plain)
         return dre, None, None, None, None, None, None, None
 
