@@ -29,7 +29,13 @@ within its tolerances of its plain version and of its baseline design
 on edge inputs (`k3_edge_cases`) and at full width, bit-equal across two
 launches and to its own walk with the band cull off, and timed in turns
 against the baseline and its own walk at 1 and 4 pixels a thread, with
-both designs cut at five stages. Then it
+both designs cut at five stages. K2 is held within the image tolerances
+of its plain version on the same edge inputs (`check_k2_edges`) and, to
+the bit, to its baseline design (the design before) there and at full
+width, across two launches, and to its own walk at 1, 2 and 4 records a
+batch; it is timed in turns against them and cut at three stages, and
+diagnostic builds of both designs record each block's SM and clocks
+(full tiles and busy cycles an SM). Then it
 drives the paths of the full-width synthetic avatar (3 garments x 45,000
 Gaussians, 1024 x 667 pixels, random weights from seed 0):
 
@@ -175,15 +181,25 @@ STEP_LAUNCHES_FOLDED = K1_LAUNCHES_FOLDED + K4_LAUNCHES_FOLDED
 # threshold flips above reach every upstream leaf)
 TERM_RTOL, GRAD_REL_L2 = 1e-5, 1e-3
 
-BLEND_FP32_OPS_PER_PAIR = 25  # falloff polynomial, alpha rules, T update, 6 colour FMAs
-# backward: the forward recompute (25), then dw (12), the suffix and
-# dalpha (8), and the 12 per-pixel contributions to the per-record sums
+# The blends' operations bounds count the (pixel, record) pairs a walk
+# visits (`blend_work`: before each pixel's stop) in two kinds. A used
+# pair (power <= 0 and alpha >= 1/255) costs the forward the falloff
+# polynomial, the alpha rules, the T update and C = 6 colour FMAs, and
+# one exp:
+BLEND_FP32_OPS_PER_PAIR = 25
+BLEND_SFU_PER_PAIR = 1
+# a pair that is not used only the polynomial (a multiply and four FMAs,
+# FMAs as two), the power's add and its test, and the exp that decides
+# alpha >= 1/255 (needed wherever power <= 0; charged to every unused
+# pair, so the bound stays a little above the least work)
+BLEND_TEST_FP32_OPS_PER_PAIR = 10
+BLEND_TEST_SFU_PER_PAIR = 1
+# backward: a used pair costs the forward recompute (25), then dw (12),
+# the suffix and dalpha (8), and the 12 per-pixel contributions to the
+# per-record sums, with an exp in each walk and one division; an unused
+# one the polynomial, its test and the exp in each walk
 BLEND_BWD_FP32_OPS_PER_PAIR = 60
-BLEND_BWD_SFU_PER_PAIR = 3  # exp in each walk, one division
-# a visited pair that is not used (power > 0 or alpha < 1/255) needs, in
-# each walk, only the polynomial (a multiply and four FMAs, FMAs as two)
-# and its test, and the exp: K3's bound counts used and unused pairs apart
-# (`blend_work`); K5's and K7's backwards still charge every pair as used
+BLEND_BWD_SFU_PER_PAIR = 3
 BLEND_BWD_TEST_FP32_OPS_PER_PAIR = 20
 BLEND_BWD_TEST_SFU_PER_PAIR = 2
 
@@ -697,8 +713,10 @@ def reset_launch_counts():
     """Every kernel's launch counter to 0."""
     extract.launches = blend_ct.launches = blend_ct.bwd_launches = segsum.launches = 0
     extract.baseline_launches = segsum.baseline_launches = blend_ct.baseline_launches = 0
-    for k in blend_ct.stage_launches:
-        blend_ct.stage_launches[k] = 0
+    blend_ct.fwd_baseline_launches = 0
+    for counts in (blend_ct.stage_launches, blend_ct.fwd_stage_launches):
+        for k in counts:
+            counts[k] = 0
     blend_rec.launches = blend_rec.bwd_launches = 0
     blend_rec.img_launches = blend_rec.img_bwd_launches = 0
     blend.launches = blend.bwd_launches = fused.launches = fused.bwd_launches = 0
@@ -707,10 +725,29 @@ def reset_launch_counts():
 
 def off_path_launches():
     """Launches, since the counts were reset, of what no path of the port
-    calls: the baseline designs of K1, K3 and K4 and K3's stage cuts. Each
-    main-path window must see 0."""
+    calls: the baseline designs of K1, K2, K3 and K4 and K2's and K3's
+    stage entry points (their cuts, other designs and diagnostic builds).
+    Each main-path window must see 0."""
     return (extract.baseline_launches + segsum.baseline_launches + blend_ct.baseline_launches
-            + sum(blend_ct.stage_launches.values()))
+            + blend_ct.fwd_baseline_launches + sum(blend_ct.stage_launches.values())
+            + sum(blend_ct.fwd_stage_launches.values()))
+
+
+def blend_bound(work, nbytes, backward=False):
+    """(bound ms, "bytes" or "operations", both times in s) of a blend
+    walk over `blend_work`'s pairs that moves `nbytes`: used and unused
+    pairs counted apart."""
+    used, unused = work["used"], work["visited"] - work["used"]
+    if backward:
+        fp32 = used * BLEND_BWD_FP32_OPS_PER_PAIR + unused * BLEND_BWD_TEST_FP32_OPS_PER_PAIR
+        sfu = used * BLEND_BWD_SFU_PER_PAIR + unused * BLEND_BWD_TEST_SFU_PER_PAIR
+    else:
+        fp32 = used * BLEND_FP32_OPS_PER_PAIR + unused * BLEND_TEST_FP32_OPS_PER_PAIR
+        sfu = used * BLEND_SFU_PER_PAIR + unused * BLEND_TEST_SFU_PER_PAIR
+    times = {"bytes": nbytes / HBM_BYTES_PER_S,
+             "operations": max(fp32 / FP32_OPS_PER_S, sfu / SFU_OPS_PER_S)}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by, times
 
 
 def rel_l2(a, b):
@@ -741,8 +778,9 @@ def logger(report):
 
 
 def serve(dev, report):
-    """Build, K1 and K2 at full width, the small cross-device check and
-    the 20-frame serving path. Returns the K1/K2 entries and the scene."""
+    """Build, K1 and K2 at full width (K2 with `k2_phase`), the small
+    cross-device check and the 20-frame serving path. Returns the K1/K2
+    entries and the scene."""
     line = logger(report)
 
     # -- build ---------------------------------------------------------
@@ -866,21 +904,24 @@ def serve(dev, report):
          f"p999_abs={k2['p999_abs']:.3e} frac(|err|>{FLIP_AT})={k2['flip_frac']:.3e}")
     check(bool(torch.isfinite(out_k).all()), "K2: non-finite output")
     check(image_ok(k2), f"K2: outside p999 <= {P999_MAX} / flips <= {FLIP_MAX}")
+    k2r = k2_phase(dev, report, dict(binned=binned, cnt=cnt, C=C))
     k2_t = measure(lambda: blend_ct.blend_gather_ct(*blend_args), 20, dev)
     k2_plain_t = measure(lambda: blend_ct.blend_gather_ct_plain(*blend_args), 3, dev, warmup=1)
     n_contrib = int(cnt.sum())
     live = torch.arange(K, device=dev)[None] < cnt[:, None]
     uniq = int(torch.unique(binned.idx[live]).numel())
     CR = binned.records_ext.shape[1]
+    work = blend_work(binned, cnt)
     k2_bytes = 4 * (uniq * CR + n_contrib + T) + 4 * out_k.numel()
-    k2_times = {
-        "bytes": k2_bytes / HBM_BYTES_PER_S,
-        "operations": max(pairs * BLEND_FP32_OPS_PER_PAIR / FP32_OPS_PER_S, pairs / SFU_OPS_PER_S),
-    }
-    k2_bound_by = max(k2_times, key=k2_times.get)
-    k2_bound_ms = k2_times[k2_bound_by] * 1e3
-    line(f"K2 work: n_contrib={n_contrib}, pixel-record pairs visited={pairs} "
-         f"(of {256 * n_contrib}), unique records={uniq}, bytes={k2_bytes}")
+    k2_bound_ms, k2_bound_by, k2_times = blend_bound(work, k2_bytes)
+    line(f"K2 work: n_contrib={n_contrib}, unique records={uniq}, bytes={k2_bytes}; tiles "
+         f"{work['tiles']}; (pixel, record) pairs visited {work['visited']} (of "
+         f"{256 * n_contrib}), used {work['used']}; (record, 2-row band) pairs {work['bands']}, "
+         f"with a used pixel {work['bands_used']}; (record, warp) pairs {work['warp_records']}, "
+         f"taken by the band cull {work['warp_records_taken']}")
+    line(f"K2 bound: bytes {k2_times['bytes'] * 1e3:.5f} ms, operations "
+         f"{k2_times['operations'] * 1e3:.5f} ms ({work['used']} used and "
+         f"{work['visited'] - work['used']} unused pairs)")
 
     # -- small input: the card's kernels against the CPU port ------------
     # (the CPU port is held against the JAX package by tests/test_torch_slice.py)
@@ -921,7 +962,7 @@ def serve(dev, report):
     check(per_frame == [(i + 1, i + 1) for i in range(FRAMES)],
           f"launch counts after each frame {per_frame}: not one per kernel per frame")
     check(off_path_launches() == 0,
-          "serving path: a baseline design or a K3 stage cut was launched")
+          "serving path: a baseline design or a K2/K3 stage cut was launched")
 
     _, img_p, aux_p = render(params, model, camera, pose(0), K, plain=True)
     fr = image_err(img0, img_p)
@@ -951,8 +992,14 @@ def serve(dev, report):
             "source": "d3ga_tpu_torch/csrc/blend_ct.cu",
             "replaces": "d3ga_tpu/raster/pallas_blend_ct.py:312",
             "launches": launches["blend_gather_ct"], "max_abs_err": k2["max_abs"],
-            "ms": k2_t["ms"], "plain_ms": k2_plain_t["ms"], "bound_ms": k2_bound_ms,
+            "ms": k2r["k2_turns"]["kernel"]["ms"] if k2r["k2_turns"] else k2_t["ms"],
+            "plain_ms": k2_plain_t["ms"], "bound_ms": k2_bound_ms,
             "bound_by": k2_bound_by, "library_ms": None,
+            "baseline_ms": k2r["k2_turns"] and k2r["k2_turns"]["baseline"]["ms"],
+            "designs_ms": k2r["k2_turns"] and {d: v["ms"] for d, v in k2r["k2_turns"].items()},
+            "stages_ms": k2r["k2_stages"] and [k2r["k2_stages"][f"stage{st}"]["ms"]
+                                               for st in range(len(blend_ct.FWD_STAGES))],
+            "sm_load": k2r["k2_sm_load"],
         },
     ]
     timings = {
@@ -969,41 +1016,200 @@ def serve(dev, report):
         frame_ms=frame_ms, fps=1e3 / frame_ms, n_gaussians=n_gauss, k2_full_width=k2,
         k2_pairs=pairs, n_contrib=n_contrib, small=small, frame0=fr, aux_frame0=a_k,
         k1_turns=k1_turns, k1_floor=k1_floor, k1_callers=k1_callers, k1_bytes=k1_bytes,
-        k1_live=k1_live, edge_cases={"K1": k1_edges, "K4": k4_edges},
+        k1_live=k1_live, edge_cases={"K1": k1_edges, "K4": k4_edges, "K2": k2r["k2_edges"]},
+        k2_turns=k2r["k2_turns"], k2_stages=k2r["k2_stages"], k2_ptxas=k2r["k2_ptxas"],
+        k2_sm_load=k2r["k2_sm_load"], k2_bytes=k2_bytes, blend_work=work,
         aux_frame0_plain=a_p, kernels=kernels, timings=timings,
     )
     gauss = tuple(t.detach() for t in (
         pkg["means3D"], pkg["cov3D_precomp"], pkg["opacities"], colors))
     scene = dict(model=model, camera=camera, binned=binned, cnt=cnt, C=C, pairs=pairs, uniq=uniq,
-                 gauss=gauss, aux_frame0=a_k)
+                 gauss=gauss, aux_frame0=a_k, work=work)
     return kernels, scene
+
+
+# the band cull's bound (csrc/blend_walk_bwd.cuh::bw_stage): log(255), the
+# margin in r2 past its 1%, the quarter pixel
+CULL_LOG255, CULL_R2_SLACK, CULL_PAD = 5.54126354, 1e-3, 0.25
+
+
+def cull_bands(rec, org):
+    """[..., 8] the 2-row bands of a tile that the band cull lets each
+    gathered record rec [..., CR] reach, from tile origins org (bw_stage's
+    bound in float32; nvcc's contractions may move an edge by a rounding)."""
+    y = rec[..., 1] - org[..., 1]
+    A, B, Cc = rec[..., 2], rec[..., 3], rec[..., 4]
+    r2 = 2.0 * (torch.log(torch.clamp(rec[..., 5], min=blend_ct.OP_EPS)) + CULL_LOG255)
+    det = A * Cc - B * B
+    ext = torch.sqrt((torch.clamp(r2, min=0.0) * 1.01 + CULL_R2_SLACK) * A / det) + CULL_PAD
+    bound = ((A > 0) & (Cc > 0) & (det > 1e-3 * A * Cc) & (ext < 1e30) & (y - ext < 1e30)
+             & (y + ext > -1e30))
+    b = torch.arange(8, device=rec.device, dtype=rec.dtype)
+    reach = (2 * b + 1 >= (y - ext)[..., None]) & (2 * b <= (y + ext)[..., None])
+    return torch.where(bound[..., None], reach, True)
 
 
 def blend_work(b, cnt, tile_chunk=128):
     """What the blend walks face at a selection: tiles by live count, the
     (pixel, record) pairs visited (before each pixel's stop) and used
-    there (power <= 0 and alpha >= 1/255), and the (record, 2-row band)
-    pairs of live slots and those with a used pixel (what K3's band cull
-    can skip)."""
+    there (power <= 0 and alpha >= 1/255), the (record, 2-row band) pairs
+    of live slots and those with a used pixel (what K3's band cull can
+    skip), and the (record, warp of 4 rows) pairs of live slots and those
+    the cull lets K2's warps take (`cull_bands`)."""
     T, K = b.idx.shape
     dev = b.idx.device
     origin = blend_ct._tile_origins(T, b.ntx, dev)
     basis = blend_ct._pixel_basis(dev)
     slot = torch.arange(K, device=dev)
-    w = dict(visited=0, used=0, bands=0, bands_used=0)
+    w = dict(visited=0, used=0, bands=0, bands_used=0, warp_records=0, warp_records_taken=0)
     for c0 in range(0, T, tile_chunk):
         rec = b.records_ext[b.idx[c0 : c0 + tile_chunk].long()]
+        org = origin[c0 : c0 + tile_chunk]
         live = slot[None] < cnt[c0 : c0 + tile_chunk, None]
-        f = blend_ct._blend_chunk(rec, origin[c0 : c0 + tile_chunk], live, basis)
+        f = blend_ct._blend_chunk(rec, org, live, basis)
         visited = live[:, None, :] & (f["t_before"] >= blend_ct.T_EPS)
         used = f["use"] & visited
         w["visited"] += int(visited.sum())
         w["used"] += int(used.sum())
         w["bands"] += int(live.sum()) * (blend_ct.NPIX // 32)
         w["bands_used"] += int(used.reshape(rec.shape[0], -1, 32, K).any(2).sum())
+        warps = cull_bands(rec, org[:, None, :]).reshape(*live.shape, 4, 2).any(-1)
+        w["warp_records"] += int(live.sum()) * 4
+        w["warp_records_taken"] += int((warps & live[..., None]).sum())
     hist = torch.bincount(torch.clamp(cnt, 0, K), minlength=K + 1)
     w["tiles"] = {"empty": int(hist[0]), "full": int(hist[K]), "between": int(hist[1:K].sum())}
     return w
+
+
+def check_k2_edges(dev, line):
+    """K2 on the edge inputs (`k3_edge_cases`): finite, within image_ok of
+    its plain version (but K3_ON_THRESHOLD, whose alpha tests decide by
+    rounding) and, on the card, bit-equal to its baseline design and
+    across two launches, and at STAGE_C its other batch sizes, its
+    diagnostic build and its stage 2 bit-equal to it. Returns the cases
+    held."""
+    n = 0
+    for name, rec, idx, counts, _, ntx, nty, C in k3_edge_cases(dev):
+        args = (rec, idx, counts, ntx, nty, C)
+        out = blend_ct.blend_gather_ct(*args)
+        check(bool(torch.isfinite(out).all()), f"K2 edge case {name}: non-finite image")
+        if name != K3_ON_THRESHOLD:
+            e = image_err(out, blend_ct.blend_gather_ct_plain(*args))
+            check(image_ok(e), f"K2 edge case {name}: differs from plain ({e})")
+        if dev.type == "cuda":
+            check(torch.equal(bits(out), bits(blend_ct.blend_gather_ct_baseline(*args))),
+                  f"K2 edge case {name}: differs from the baseline design")
+            check(torch.equal(bits(out), bits(blend_ct.blend_gather_ct(*args))),
+                  f"K2 edge case {name}: two launches differ")
+            if C == blend_ct.STAGE_C:
+                for d, img in k2_designs(args).items():
+                    check(torch.equal(bits(out), bits(img)),
+                          f"K2 edge case {name}: {d} differs from the kernel")
+        n += 1
+    sync(dev)
+    line(f"K2 edge inputs: {n} cases within p999 <= {P999_MAX} / flips <= {FLIP_MAX} of plain "
+         f"(but {K3_ON_THRESHOLD!r})"
+         + (", bit-equal to the baseline design and across two launches; at C="
+            f"{blend_ct.STAGE_C} the batch sizes, the diagnostic build and stage 2 bit-equal to "
+            "the kernel" if dev.type == "cuda" else ""))
+    return n
+
+
+def k2_designs(args):
+    """K2's other whole designs at STAGE_C (the batch sizes, the
+    diagnostic build) and its stage 2, by name: each should be the
+    kernel's image to the bit."""
+    whole = len(blend_ct.FWD_STAGES) - 1
+    out = {d: blend_ct.blend_gather_ct_stage(*args, whole, design=d)
+           for d in ("kernel_r1", "kernel_r2", "kernel_r4", "kernel_diag")}
+    out["kernel_diag"] = out["kernel_diag"][0]
+    out["stage 2"] = blend_ct.blend_gather_ct_stage(*args, whole)
+    return out
+
+
+def sm_load(diag, cnt, K):
+    """Each SM's share of a launch from a diagnostic build's diag [T, 3]
+    (SM, clock64 at a block's start and end): full tiles (K records) per
+    SM, and the cycles from an SM's first block start to its last block
+    end (its busy span) and a full tile's cycles, max and mean."""
+    d = diag.cpu().numpy()
+    full = cnt.cpu().numpy() >= K
+    sm = d[:, 0]
+    n = int(sm.max()) + 1
+    fulls = np.bincount(sm[full], minlength=n)
+    span = np.array([d[sm == i, 2].max() - d[sm == i, 1].min() for i in range(n) if (sm == i).any()])
+    tile = d[full, 2] - d[full, 1]
+    return {"sms": n, "full_tiles_max": int(fulls.max()), "full_tiles_mean": float(fulls.mean()),
+            "busy_cycles_max": int(span.max()), "busy_cycles_mean": float(span.mean()),
+            "full_tile_cycles_max": int(tile.max()) if full.any() else 0,
+            "full_tile_cycles_mean": float(tile.mean()) if full.any() else 0.0}
+
+
+def k2_phase(dev, report, scene):
+    """K2 on its edge inputs (`check_k2_edges`), then on the card at the
+    scene's selection: bit-equal to its baseline design and across two
+    launches, its other designs and stage 2 bit-equal to it; the baseline,
+    K2 and its batch sizes timed in turns, its stage cuts in turns, ptxas'
+    registers per design, and each SM's load from the diagnostic builds.
+    Returns the results."""
+    line = logger(report)
+    b, cnt, C = scene["binned"], scene["cnt"], scene["C"]
+    T, K = b.idx.shape
+    args = (b.records_ext, b.idx, cnt, b.ntx, b.nty, C)
+    k2_edges = check_k2_edges(dev, line)
+    res = dict(k2_edges=k2_edges, k2_turns=None, k2_stages=None, k2_ptxas=None, k2_sm_load=None)
+    if dev.type != "cuda":
+        return res
+    out = blend_ct.blend_gather_ct(*args)
+    check(torch.equal(bits(out), bits(blend_ct.blend_gather_ct_baseline(*args))),
+          "K2: differs from the baseline design at full width")
+    check(torch.equal(bits(out), bits(blend_ct.blend_gather_ct(*args))), "K2: two launches differ")
+    for d, img in k2_designs(args).items():
+        check(torch.equal(bits(out), bits(img)), f"K2: {d} differs from the kernel at full width")
+    for st in range(len(blend_ct.FWD_STAGES)):
+        check(bool(torch.isfinite(blend_ct.blend_gather_ct_stage(*args, st)).all()),
+              f"K2 stage {st}: non-finite output")
+    line(f"K2 at full width (T={T}, K={K}, C={C}, the scene's selection): bit-equal to the "
+         "baseline design and across two launches; R = 1, 2, 4, the diagnostic build and stage 2 "
+         "bit-equal to the kernel")
+    whole = len(blend_ct.FWD_STAGES) - 1
+    res["k2_turns"] = in_turns({
+        "baseline": lambda: blend_ct.blend_gather_ct_baseline(*args),
+        "kernel": lambda: blend_ct.blend_gather_ct(*args),
+        **{d: (lambda d=d: blend_ct.blend_gather_ct_stage(*args, whole, design=d))
+           for d in ("kernel_r1", "kernel_r2", "kernel_r4")},
+    }, 20, dev)
+    res["k2_stages"] = in_turns({
+        f"stage{st}": (lambda st=st: blend_ct.blend_gather_ct_stage(*args, st))
+        for st in range(len(blend_ct.FWD_STAGES))}, 20, dev)
+    line(f"K2 in turns (kernel: R = {blend_ct.FWD_BATCH} records a batch; kernel_rN: R = N): "
+         f"{turns_summary(res['k2_turns'])}")
+    ms = [res["k2_stages"][f"stage{st}"]["ms"] for st in range(len(blend_ct.FWD_STAGES))]
+    line("K2 stages (ms a call; delta): " + ", ".join(
+        f"{st} {nm} {m:.5f} ({m - (ms[st - 1] if st else 0.0):+.5f})"
+        for st, (nm, m) in enumerate(zip(blend_ct.FWD_STAGES, ms))))
+    logs = report.get("build_logs", {}).get("blend_ct")
+    # mangled template arguments: <C, R, STAGE, DIAG> and, baseline, <C, DIAG>
+    res["k2_ptxas"] = {d: ptxas_usage(logs, m) for d, m in (
+        ("kernel", f"blend_gather_ct_kernelILi{C}ELi{blend_ct.FWD_BATCH}ELi2ELb0E"),
+        ("kernel_r1", f"blend_gather_ct_kernelILi{C}ELi1ELi2ELb0E"),
+        ("kernel_r2", f"blend_gather_ct_kernelILi{C}ELi2ELi2ELb0E"),
+        ("kernel_r4", f"blend_gather_ct_kernelILi{C}ELi4ELi2ELb0E"),
+        ("baseline", f"blend_gather_ct_v1_kernelILi{C}ELb0E"))}
+    line(f"K2 ptxas at C={C}, whole kernel (registers, static smem bytes, spill stores): "
+         + "; ".join(f"{d} {u.get('registers')}, {u.get('smem')}, {u.get('spill_stores')}"
+                     for d, us in res["k2_ptxas"].items() for u in us.values()))
+    res["k2_sm_load"] = {}
+    for d in blend_ct.FWD_DIAG:
+        _, diag = blend_ct.blend_gather_ct_stage(*args, whole, design=d)
+        res["k2_sm_load"][d] = sm_load(diag, cnt, K)
+    line("K2 SM load (full tiles an SM max/mean; busy cycles an SM, first block start to last "
+         "block end, max/mean; a full tile's cycles max/mean): " + "; ".join(
+             f"{d} {v['full_tiles_max']}/{v['full_tiles_mean']:.2f}, {v['busy_cycles_max']}/"
+             f"{v['busy_cycles_mean']:.0f}, {v['full_tile_cycles_max']}/"
+             f"{v['full_tile_cycles_mean']:.0f}" for d, v in res["k2_sm_load"].items())
+         + f" over {next(iter(res['k2_sm_load'].values()))['sms']} SMs")
+    return res
 
 
 def k3_phase(dev, report, scene):
@@ -1031,10 +1237,7 @@ def k3_phase(dev, report, scene):
              f"p999_abs={k3['p999_abs']:.3e} rel_l2={k3['rel_l2']:.3e} "
              f"(max |drec| {k3['scale']:.3e})")
         check(slot_ok(k3), f"K3: outside p999 <= {K3_P999_REL} x max|drec| / rel_l2 <= {K3_REL_L2}")
-        work = blend_work(b, cnt)
-        line(f"K3 work: tiles {work['tiles']}; (pixel, record) pairs visited {work['visited']}, "
-             f"used {work['used']}; (record, 2-row band) pairs {work['bands']}, with a used pixel "
-             f"{work['bands_used']}")
+        work = scene["work"]  # blend_work's, in serve
         k3_turns = k3_stages = k3_base = k3_ptxas = None
         if dev.type == "cuda":
             check(torch.equal(bits(drec), bits(blend_ct.blend_gather_ct_bwd(*bwd_args))),
@@ -1094,20 +1297,11 @@ def k3_phase(dev, report, scene):
         k3_plain_t = measure(
             lambda: blend_ct.blend_gather_ct_bwd_plain(*bwd_args), 3, dev, warmup=1
         )
-    used, unused = work["used"], work["visited"] - work["used"]
     k3_bytes = 4 * (scene["uniq"] * CR + n_contrib + T) + 4 * g.numel() + 4 * drec.numel()
-    k3_times = {
-        "bytes": k3_bytes / HBM_BYTES_PER_S,
-        "operations": max((used * BLEND_BWD_FP32_OPS_PER_PAIR
-                           + unused * BLEND_BWD_TEST_FP32_OPS_PER_PAIR) / FP32_OPS_PER_S,
-                          (used * BLEND_BWD_SFU_PER_PAIR
-                           + unused * BLEND_BWD_TEST_SFU_PER_PAIR) / SFU_OPS_PER_S),
-    }
+    k3_bound_ms, k3_bound_by, k3_times = blend_bound(work, k3_bytes, backward=True)
     line(f"K3 bound: bytes {k3_times['bytes'] * 1e3:.5f} ms, operations "
-         f"{k3_times['operations'] * 1e3:.5f} ms ({used} used and {unused} unused pairs)")
-    k3_bound_by = max(k3_times, key=k3_times.get)
-    k3_bound_ms = k3_times[k3_bound_by] * 1e3
-    report["k3_work"] = work
+         f"{k3_times['operations'] * 1e3:.5f} ms ({work['used']} used and "
+         f"{work['visited'] - work['used']} unused pairs)")
     return dict(drec=drec, k3=k3, k3_edges=k3_edges, k3_base=k3_base, k3_turns=k3_turns,
                 k3_stages=k3_stages, k3_ptxas=k3_ptxas, k3_t=k3_t, k3_plain_t=k3_plain_t,
                 k3_bytes=k3_bytes, k3_bound_ms=k3_bound_ms, k3_bound_by=k3_bound_by)
@@ -1265,7 +1459,7 @@ def train(dev, report, scene):
           f"launch counts after each step {per_step}: not one per kernel per step")
     check(moved > 0.0, "training path: the parameters did not change")
     check(off_path_launches() == 0,
-          "training path: a baseline design or a K3 stage cut was launched")
+          "training path: a baseline design or a K2/K3 stage cut was launched")
     step_prof = profile_calls(lambda: step(params, batch, gen, STEPS + 1), 3, dev)
     if step_prof is not None:
         line(f"training step, profiled ({step_prof['calls']} steps): "
@@ -1412,15 +1606,13 @@ def _sharded_phases(dev, report, scene, mesh, line):
     in_bytes = 4 * (scene["uniq"] * CR + n_contrib + T)
     k5_bytes = in_bytes + 4 * T * 256 * (C + 1)
     k5b_bytes = in_bytes + 4 * g_full.numel() + 4 * T * b.idx.shape[1] * CR
-    k5_times = {"bytes": k5_bytes / HBM_BYTES_PER_S,
-                "operations": max(pairs * BLEND_FP32_OPS_PER_PAIR / FP32_OPS_PER_S,
-                                  pairs / SFU_OPS_PER_S)}
-    k5b_times = {"bytes": k5b_bytes / HBM_BYTES_PER_S,
-                 "operations": max(pairs * BLEND_BWD_FP32_OPS_PER_PAIR / FP32_OPS_PER_S,
-                                   pairs * BLEND_BWD_SFU_PER_PAIR / SFU_OPS_PER_S)}
-    k5_by, k5b_by = max(k5_times, key=k5_times.get), max(k5b_times, key=k5b_times.get)
+    # the whole grid at offset 0 blends the champion selection: the scene's
+    # used and unused pairs (blend_work) are K5's
+    k5_bound_ms, k5_by, _ = blend_bound(scene["work"], k5_bytes)
+    k5b_bound_ms, k5b_by, _ = blend_bound(scene["work"], k5b_bytes, backward=True)
     line(f"K5 work: pixel-record pairs visited={pairs}, bytes forward={k5_bytes} "
-         f"backward={k5b_bytes}")
+         f"backward={k5b_bytes}; bound forward {k5_bound_ms:.5f} ms ({k5_by}), backward "
+         f"{k5b_bound_ms:.5f} ms ({k5b_by})")
 
     # -- rasterize_sharded vs the single-device rasterize_tiled ---------------
     means, cov3d, opac, colors = scene["gauss"]
@@ -1511,7 +1703,7 @@ def _sharded_phases(dev, report, scene, mesh, line):
     check(per_call == [(2 * (i + 1), i + 1, i + 1, i + 1, 0) for i in range(SHARD_CALLS)],
           f"launch counts after each call {per_call}: not K1 x2, K5, K5 backward, K4 x1 a call")
     check(off_path_launches() == 0,
-          "sharded path: a baseline design or a K3 stage cut was launched")
+          "sharded path: a baseline design or a K2/K3 stage cut was launched")
     prof = profile_calls(call, 3, dev)
     if prof is not None:
         line(f"sharded objective, profiled ({prof['calls']} calls): "
@@ -1524,7 +1716,7 @@ def _sharded_phases(dev, report, scene, mesh, line):
             "replaces": "d3ga_tpu/raster/pallas_blend_rec.py:283",
             "launches": launches["blend_gather_rec"],
             "max_abs_err": max(e["max_abs"] for e in k5["fwd"]),
-            "ms": k5_t["ms"], "plain_ms": k5_plain_t["ms"], "bound_ms": k5_times[k5_by] * 1e3,
+            "ms": k5_t["ms"], "plain_ms": k5_plain_t["ms"], "bound_ms": k5_bound_ms,
             "bound_by": k5_by, "library_ms": None,
         },
         {
@@ -1533,7 +1725,7 @@ def _sharded_phases(dev, report, scene, mesh, line):
             "replaces": "d3ga_tpu/raster/pallas_blend_rec.py:306",
             "launches": launches["blend_gather_rec_bwd"],
             "max_abs_err": max(e["max_abs"] for e in k5["bwd"]),
-            "ms": k5b_t["ms"], "plain_ms": k5b_plain_t["ms"], "bound_ms": k5b_times[k5b_by] * 1e3,
+            "ms": k5b_t["ms"], "plain_ms": k5b_plain_t["ms"], "bound_ms": k5b_bound_ms,
             "bound_by": k5b_by, "library_ms": None,
         },
     ]
@@ -1622,15 +1814,12 @@ def variants(dev, report, scene):
     in_bytes = 4 * (scene["uniq"] * CR + n_contrib + T)
     k7_bytes = in_bytes + 4 * out_k.numel()
     k7b_bytes = in_bytes + 4 * g.numel() + 4 * T * b.idx.shape[1] * CR
-    k7_times = {"bytes": k7_bytes / HBM_BYTES_PER_S,
-                "operations": max(pairs * BLEND_FP32_OPS_PER_PAIR / FP32_OPS_PER_S,
-                                  pairs / SFU_OPS_PER_S)}
-    k7b_times = {"bytes": k7b_bytes / HBM_BYTES_PER_S,
-                 "operations": max(pairs * BLEND_BWD_FP32_OPS_PER_PAIR / FP32_OPS_PER_S,
-                                   pairs * BLEND_BWD_SFU_PER_PAIR / SFU_OPS_PER_S)}
-    k7_by, k7b_by = max(k7_times, key=k7_times.get), max(k7b_times, key=k7b_times.get)
+    # K7 blends the champion selection: the scene's used and unused pairs
+    k7_bound_ms, k7_by, _ = blend_bound(scene["work"], k7_bytes)
+    k7b_bound_ms, k7b_by, _ = blend_bound(scene["work"], k7b_bytes, backward=True)
     line(f"K7 work: pixel-record pairs visited={pairs}, bytes forward={k7_bytes} "
-         f"backward={k7b_bytes}")
+         f"backward={k7b_bytes}; bound forward {k7_bound_ms:.5f} ms ({k7_by}), backward "
+         f"{k7b_bound_ms:.5f} ms ({k7b_by})")
 
     # -- the ActorsHQ raster settings, rec and ct layouts -------------------------
     model = scene["model"]._replace(config=dict(scene["model"].config, **ACTORSHQ_CONFIG))
@@ -1692,7 +1881,7 @@ def variants(dev, report, scene):
             check(per_step == [expect[layout](i + 1) for i in range(VARIANT_STEPS)],
                   f"ActorsHQ {layout}: launch counts after each step {per_step}")
             check(off_path_launches() == 0,
-                  f"ActorsHQ {layout}: a baseline design or a K3 stage cut was launched")
+                  f"ActorsHQ {layout}: a baseline design or a K2/K3 stage cut was launched")
             prof = profile_calls(lambda: step(params, batch, gen, VARIANT_STEPS + 1), 3, dev)
             if prof is not None:
                 line(f"ActorsHQ raster settings ({layout} layout), profiled ({prof['calls']} "
@@ -1780,7 +1969,7 @@ def variants(dev, report, scene):
             "source": "d3ga_tpu_torch/csrc/blend_rec.cu",
             "replaces": "d3ga_tpu/raster/pallas_blend_rec.py:457",
             "launches": rec_launches["blend_gather_img"], "max_abs_err": k7["max_abs"],
-            "ms": k7_t["ms"], "plain_ms": k7_plain_t["ms"], "bound_ms": k7_times[k7_by] * 1e3,
+            "ms": k7_t["ms"], "plain_ms": k7_plain_t["ms"], "bound_ms": k7_bound_ms,
             "bound_by": k7_by, "library_ms": None,
         },
         {
@@ -1789,7 +1978,7 @@ def variants(dev, report, scene):
             "replaces": "d3ga_tpu/raster/pallas_blend_rec.py:481",
             "launches": rec_launches["blend_gather_img_bwd"], "max_abs_err": k7b["max_abs"],
             "ms": k7b_t["ms"], "plain_ms": k7b_plain_t["ms"],
-            "bound_ms": k7b_times[k7b_by] * 1e3, "bound_by": k7b_by, "library_ms": None,
+            "bound_ms": k7b_bound_ms, "bound_by": k7b_by, "library_ms": None,
         },
     ]
     timings = {"blend_gather_img": {"kernel": k7_t, "plain": k7_plain_t},
@@ -1955,7 +2144,7 @@ def fused_phase(dev, report, scene):
     check(per_step == expect, f"fused backend: launch counts after each step {per_step}: not K9 "
                               "and its backward once a step, and no other kernel")
     check(off_path_launches() == 0,
-          "fused backend: a baseline design or a K3 stage cut was launched")
+          "fused backend: a baseline design or a K2/K3 stage cut was launched")
     fused_prof = profile_calls(lambda: step(params, batch, gen, FUSED_STEPS + 1), 3, dev)
     if fused_prof is not None:
         line(f"fused backend, profiled ({fused_prof['calls']} steps): "

@@ -173,11 +173,13 @@ struct BwShared {
 
 // Stage the chunk's record t (thread t < n): the row of tidx[base + t],
 // as 7 coefficients and C colours (blend_walk.cuh::stage's arithmetic),
-// and with GEO its geometry; without cull, every band is marked.
-template <int C, int P, bool GEO>
+// into s.rec[t] and, with GEO, its geometry into s.geo; without cull,
+// every band is marked. S is BwShared<C, P> here, K2's FwShared in
+// blend_walk_fwd.cuh (rows only).
+template <int C, int P, bool GEO, class S>
 __device__ __forceinline__ void bw_stage(const float* __restrict__ rec, int n_ext, int CR, bool vec,
                                          bool cull, const int* __restrict__ tidx, int base, int n,
-                                         float sx, float sy, BwShared<C, P>& s, int t) {
+                                         float sx, float sy, S& s, int t) {
   if (t >= n) return;
   const int gid = min(max(tidx[base + t], 0), n_ext - 1);
   const float* r = rec + (long long)gid * CR;
@@ -249,19 +251,21 @@ __device__ __forceinline__ void bw_stage(const float* __restrict__ rec, int n_ex
   }
 }
 
-// Staged record k for warp `warp`: returns whether some band of the warp
-// (bit j: pixel j's band, P warp + j) can take it, and where one can, its
-// coefficients rc[0..6] (c0, c0 + log op, c2..c6) and colours
-// col[0..C-1], in broadcast 16-byte loads.
-template <int C, int P>
-__device__ __forceinline__ unsigned bw_record(const BwShared<C, P>& s, int k, int warp,
-                                              float (&rc)[7], float (&col)[C]) {
-  const unsigned jm = (__float_as_uint(s.rec[k][15]) >> (warp * P)) & ((1u << P) - 1u);
-  if (!jm) return 0;  // the rest is not read
+// The bands of warp `warp` that can take the staged row (bit j: pixel
+// j's band, P warp + j).
+template <int P>
+__device__ __forceinline__ unsigned bw_bands(const float* row, int warp) {
+  return (__float_as_uint(row[15]) >> (warp * P)) & ((1u << P) - 1u);
+}
+
+// A staged row's coefficients rc[0..6] (c0, c0 + log op, c2..c6) and
+// colours col[0..C-1], in broadcast 16-byte loads.
+template <int C>
+__device__ __forceinline__ void bw_row(const float* row, float (&rc)[7], float (&col)[C]) {
   float v[16];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float4 q = reinterpret_cast<const float4*>(s.rec[k])[i];
+    const float4 q = reinterpret_cast<const float4*>(row)[i];
     v[4 * i] = q.x;
     v[4 * i + 1] = q.y;
     v[4 * i + 2] = q.z;
@@ -271,6 +275,16 @@ __device__ __forceinline__ unsigned bw_record(const BwShared<C, P>& s, int k, in
   for (int i = 0; i < 7; ++i) rc[i] = v[i];
 #pragma unroll
   for (int c = 0; c < C; ++c) col[c] = v[7 + c];
+}
+
+// Staged record k for warp `warp`: returns whether some band of the warp
+// can take it (bw_bands), and where one can, its row (bw_row).
+template <int C, int P>
+__device__ __forceinline__ unsigned bw_record(const BwShared<C, P>& s, int k, int warp,
+                                              float (&rc)[7], float (&col)[C]) {
+  const unsigned jm = bw_bands<P>(s.rec[k], warp);
+  if (!jm) return 0;  // the rest is not read
+  bw_row<C>(s.rec[k], rc, col);
   return jm;
 }
 

@@ -16,6 +16,18 @@ CUDA tensors K2 forward and K3 + K4 backward, on CPU tensors (or with
 plain=True) the plain PyTorch versions of all three. There is no fallback
 between the two.
 
+K2 walks a tile with 128 threads of two pixels each, skips the records a
+warp's rows cannot take (K3's band cull), and takes the rest in batches
+whose polynomials and exps run ahead of the transmittance chain
+(`csrc/blend_walk_fwd.cuh`); its image equals the design before's to the
+bit. That design (one thread a pixel, `blend_walk.cuh::blend_walk_fwd`,
+which K5's and K7's forwards still use) stays in the source as
+`d3ga_blend_gather_ct_v1`, reached only by `blend_gather_ct_baseline`;
+`blend_gather_ct_stage` launches, at C = STAGE_C only, one of the
+`FWD_DESIGNS` (K2 at other batch sizes, and diagnostic builds that
+record each block's SM and clocks) or K2 cut at one of the
+`FWD_STAGES`.
+
 K3 walks a tile with 128 threads of two pixels each, skips the records
 a warp's rows cannot take (the band cull), and sums each record's
 cotangents by a warp reduce-scatter (`csrc/blend_walk_bwd.cuh`). The
@@ -26,8 +38,9 @@ which K5's and K7's backwards still use) stays in the source as
 of the `DESIGNS` whole (K3 with the band cull off among them, the
 reference for the cull's bits) or, at C = STAGE_C only, cut at one of
 the `STAGES` (the walks' STAGE parameter), with its own counters.
-chip_smoke.py uses both to check the cull and to time the designs and
-split them in turns; neither is on any path of the port.
+chip_smoke.py uses the baselines and the stage entry points to check the
+designs' bits and to time the designs and split them in turns; none is
+on any path of the port.
 """
 
 import ctypes
@@ -62,6 +75,20 @@ STAGE_C = 6
 # (chip_smoke.py's comparisons only)
 baseline_launches = 0
 stage_launches = {(d, s): 0 for d in DESIGNS for s in range(len(STAGES))}
+# K2's stage cuts (csrc/blend_ct.cu, csrc/blend_walk_fwd.cuh): stage 2 is K2
+FWD_STAGES = ("staging + stores", "batch polynomials + exps", "transmittance chain")
+# the designs K2's stage entry point launches, all at C = STAGE_C only: the
+# baseline (the design before), K2, K2's walk at 1, 2 or 4 records a batch
+# (it takes FWD_BATCH), and the baseline and K2 writing each block's SM
+# and clock64 at start and end (FWD_DIAG); only "kernel" is cut before
+# stage 2
+FWD_DESIGNS = {"baseline": 0, "kernel": 1, "kernel_r1": 2, "kernel_r2": 3, "kernel_r4": 4,
+               "baseline_diag": 5, "kernel_diag": 6}
+FWD_DIAG = ("baseline_diag", "kernel_diag")
+FWD_BATCH = 8
+# one per launch of K2's baseline design and of each (design, stage) cut
+fwd_baseline_launches = 0
+fwd_stage_launches = {(d, s): 0 for d in FWD_DESIGNS for s in range(len(FWD_STAGES))}
 
 
 def _pixel_basis(device):
@@ -209,13 +236,16 @@ def blend_gather_ct_bwd_plain(records_ext, idx, counts, g, ntx, nty, C, tile_chu
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = cuda_build.load("blend_ct").d3ga_blend_gather_ct
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _lib():
+    lib = cuda_build.load("blend_ct")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    args = [p, i, i, p, i, p, i, i, i, p]
+    for name, extra in (("d3ga_blend_gather_ct", [p]), ("d3ga_blend_gather_ct_v1", [p]),
+                        ("d3ga_blend_gather_ct_stage", [i, i, p, p])):
+        fn = getattr(lib, name)
+        fn.argtypes = args + extra
+        fn.restype = ctypes.c_int
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
@@ -249,19 +279,29 @@ def _check(name, records_ext, idx, counts, ntx, nty, C):
         raise ValueError(f"{name}: inputs must be contiguous")
 
 
-def _launch(records_ext, idx, counts, ntx, nty, C):
-    global launches
-    _check("blend_gather_ct", records_ext, idx, counts, ntx, nty, C)
+def _launch_fwd(records_ext, idx, counts, ntx, nty, C, name="blend_gather_ct",
+                entry="d3ga_blend_gather_ct", extra=()):
+    """Checks, allocates the planar image and launches the K2 entry point
+    `entry` of csrc/blend_ct.cu (with `extra` arguments); the caller
+    counts the launch."""
+    _check(name, records_ext, idx, counts, ntx, nty, C)
     n_ext, CR = records_ext.shape
     T, K = idx.shape
     out = torch.empty((C + 1, nty * TILE, ntx * TILE), dtype=torch.float32,
                       device=records_ext.device)
     if T == 0:
         return out
-    err = _kernel()(records_ext.data_ptr(), n_ext, CR, idx.data_ptr(), K, counts.data_ptr(),
-                    ntx, nty, C, out.data_ptr(), cuda_build.stream_handle(records_ext.device))
+    err = getattr(_lib(), entry)(
+        records_ext.data_ptr(), n_ext, CR, idx.data_ptr(), K, counts.data_ptr(), ntx, nty, C,
+        out.data_ptr(), *extra, cuda_build.stream_handle(records_ext.device))
     if err != 0:
-        raise RuntimeError(f"blend_gather_ct: kernel launch failed (error {err})")
+        raise RuntimeError(f"{name}: kernel launch failed (error {err})")
+    return out
+
+
+def _launch(records_ext, idx, counts, ntx, nty, C):
+    global launches
+    out = _launch_fwd(records_ext, idx, counts, ntx, nty, C)
     launches += 1
     return out
 
@@ -310,6 +350,46 @@ def blend_gather_ct_bwd(records_ext, idx, counts, g, ntx, nty, C):
 def _card_only(name, records_ext):
     if records_ext.device.type != "cuda":
         raise ValueError(f"{name}: CUDA tensors only, got {records_ext.device}")
+
+
+def blend_gather_ct_baseline(records_ext, idx, counts, ntx, nty, C):
+    """K2's design before (`d3ga_blend_gather_ct_v1`: one thread a pixel,
+    blend_walk.cuh's walk) on CUDA tensors: the bit reference and the
+    timing baseline of `blend_gather_ct`'s kernel."""
+    global fwd_baseline_launches
+    _card_only("blend_gather_ct_baseline", records_ext)
+    out = _launch_fwd(records_ext, idx, counts, ntx, nty, C, "blend_gather_ct_baseline",
+                      "d3ga_blend_gather_ct_v1")
+    fwd_baseline_launches += 1
+    return out
+
+
+def blend_gather_ct_stage(records_ext, idx, counts, ntx, nty, C, stage, design="kernel"):
+    """One of FWD_DESIGNS ("kernel": K2; "baseline": its design before;
+    "kernel_r1" / "kernel_r2" / "kernel_r4": K2's walk at 1, 2 or 4
+    records a batch; FWD_DIAG: the baseline or K2 recording each block's
+    SM) cut after `stage` of FWD_STAGES, on CUDA tensors at C = STAGE_C:
+    the planar image of what the cut computed (stage 2 is the whole
+    kernel). Only "kernel" is cut before stage 2. A FWD_DIAG design
+    returns (image, diag): diag [T, 3] int64, each block's SM id and its
+    clock64 at start and at end (the SM's own clock)."""
+    whole = len(FWD_STAGES) - 1
+    if stage not in range(len(FWD_STAGES)) or design not in FWD_DESIGNS:
+        raise ValueError(f"blend_gather_ct_stage: stage {stage} of design {design!r}")
+    if design != "kernel" and stage != whole:
+        raise ValueError(f"blend_gather_ct_stage: {design} runs whole (stage {whole}) only")
+    if C != STAGE_C:
+        raise ValueError(f"blend_gather_ct_stage: built for C = {STAGE_C} only, not {C}")
+    _card_only("blend_gather_ct_stage", records_ext)
+    # allocated for the diagnostic builds only: a fill would add a launch
+    # to the timed calls of the others
+    diag = (torch.zeros((idx.shape[0], 3), dtype=torch.int64, device=records_ext.device)
+            if design in FWD_DIAG else None)
+    out = _launch_fwd(records_ext, idx, counts, ntx, nty, C, "blend_gather_ct_stage",
+                      "d3ga_blend_gather_ct_stage",
+                      (FWD_DESIGNS[design], stage, None if diag is None else diag.data_ptr()))
+    fwd_stage_launches[design, stage] += 1
+    return out if diag is None else (out, diag)
 
 
 def blend_gather_ct_bwd_baseline(records_ext, idx, counts, g, ntx, nty, C):

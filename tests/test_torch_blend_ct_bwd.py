@@ -9,9 +9,10 @@ it).
 On the CPU the plain version is held against the JAX package's
 `pallas_blend_ct._run_backward_ct` in interpret mode, on the cases whose
 counts lie in [0, K] at C 3 and 6 (the JAX kernel takes the sentinel
-column past each count as its padding and needs no clamp), but the faint
-records on the threshold, whose alpha tests decide by rounding; the counts
-> K and < 0 against the plain version's own clamp. `pallas_blend_ct.G_CT` is
+column past each count as its padding and needs no clamp), the faint
+records on the threshold, whose alpha tests decide by rounding, in a test
+of their own; the counts > K and < 0 against the plain version's own
+clamp. `pallas_blend_ct.G_CT` is
 patched to 16, the in-kernel tile loop, as in test_torch_raster_bwd.py,
 and each JAX computation compiled at XLA's level 0. Tolerances as there:
 the p999 error within 1e-5 of the largest |value| and at most a 1e-3
@@ -73,8 +74,9 @@ def test_jax_cases_cover_the_edges():
 _COMPILED = {}  # the JAX kernel compiled once per (grid, C, CR): cases share it
 
 
-@pytest.mark.parametrize("name", JAX_CASES)
-def test_plain_matches_pallas_kernel(name):
+def plain_and_pallas(name):
+    """Case `name`'s cotangents [T, K, CR] from the plain version and
+    from `_run_backward_ct` (interpret), as numpy."""
     _, rec, idx, counts, g, ntx, nty, C = CASES[name]
     rec_ct = jnp.swapaxes(jnp.asarray(rec.numpy())[jnp.asarray(idx.numpy())], 1, 2)
     args = (rec_ct, jnp.asarray(counts.numpy()), jnp.asarray(g.numpy()))
@@ -85,7 +87,20 @@ def test_plain_matches_pallas_kernel(name):
     j = _COMPILED[key](*args)
     t = blend_ct.blend_gather_ct_bwd_plain(rec, idx, counts, g, ntx, nty, C, tile_chunk=4)
     assert t.shape == (ntx * nty, idx.shape[1], rec.shape[1])
-    flip_close(t.numpy(), np.swapaxes(np.asarray(j), 1, 2))
+    return t.numpy(), np.swapaxes(np.asarray(j), 1, 2)
+
+
+@pytest.mark.parametrize("name", JAX_CASES)
+def test_plain_matches_pallas_kernel(name):
+    flip_close(*plain_and_pallas(name))
+
+
+def test_plain_on_threshold_matches_pallas_kernel():
+    """The faint records on the alpha threshold, left out of the cases
+    above: the two roundings may take a record at a pixel apart, which
+    moves that record's cotangent by the pixel's share; held by the same
+    p999 error and share of flipped values (`flip_close`'s defaults)."""
+    flip_close(*plain_and_pallas(chip_smoke.K3_ON_THRESHOLD))
 
 
 @pytest.mark.parametrize("name", list(CASES))
