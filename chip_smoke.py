@@ -35,7 +35,12 @@ the bit, to its baseline design (the design before) there and at full
 width, across two launches, and to its own walk at 1, 2 and 4 records a
 batch; it is timed in turns against them and cut at three stages, and
 diagnostic builds of both designs record each block's SM and clocks
-(full tiles and busy cycles an SM). Then it
+(full tiles and busy cycles an SM). K9's backward is held on its own
+edge inputs (`k9_edge_cases`, both layouts) within its tolerances of its
+plain version and its baseline design (the design before), bit-equal
+across launches and to its own build with the band cull off, and timed
+in turns against the baseline and at 1 and 4 pixels a thread, cut at
+five stages. Then it
 drives the paths of the full-width synthetic avatar (3 garments x 45,000
 Gaussians, 1024 x 667 pixels, random weights from seed 0):
 
@@ -95,12 +100,13 @@ from d3ga_tpu_torch.dist.raster_shard import rasterize_collective, rasterize_sha
 from d3ga_tpu_torch.model.avatar import avatar_forward, init_avatar
 from d3ga_tpu_torch import bench_stages, probes
 from d3ga_tpu_torch.probes import (COEFF_BWD_SFU_PER_PAIR, FP32_OPS_PER_S, HBM_BYTES_PER_S,
-                                    SFU_OPS_PER_S, bound, coeff_bwd_ops, coeff_fwd_ops,
+                                    SFU_OPS_PER_S, coeff_bound, coeff_bwd_ops, coeff_fwd_ops,
                                     device_events, fused_bisect, mxu, widerow)
 from d3ga_tpu_torch.raster import api, blend, blend_ct, blend_rec, extract, fused, segsum, tiles
 from d3ga_tpu_torch.raster.camera import focal2fov, make_camera
 from d3ga_tpu_torch.raster.project import project_gaussians
 from d3ga_tpu_torch.raster.tiles import bin_gaussians, rasterize_tiled
+from d3ga_tpu_torch.train.losses import full_float32
 from d3ga_tpu_torch.train.optim import lr_tree_from_config, make_optimizer
 from d3ga_tpu_torch.train.step import LossWeights, make_train_step, random_bg
 from d3ga_tpu_torch.utils import cuda_build
@@ -295,16 +301,21 @@ def sync(dev):
         torch.cuda.synchronize()
 
 
-def in_turns(fns, iters, dev):
+def in_turns(fns, iters, dev, kernel=None):
     """Each of `fns` ({name: fn}) timed twice, in turns: the names in order,
     then in reverse (old, new, new, old), each turn by `probes.device_ms`
-    (device ms a call, torch.profiler) and `probes.queued_ms` (CUDA events
-    around calls queued behind a spin). Returns {name: {"device_ms": [two
-    turns], "queued_ms": [two turns], "ms": the mean of the device turns
-    recorded, else of the queued ones}}."""
+    (device ms a call, torch.profiler; with `kernel`, only the launches of
+    the kernels whose name holds it) and `probes.queued_ms` (CUDA events
+    around calls queued behind a spin: every launch of the call). Returns
+    {name: {"device_ms": [two turns], "queued_ms": [two turns], "ms": the
+    mean of the device turns recorded, else of the queued ones}}."""
     out = {k: {"device_ms": [], "queued_ms": []} for k in fns}
     for k in list(fns) + list(reversed(fns)):
-        out[k]["device_ms"].append(device_ms(fns[k], iters, dev))
+        if kernel is None:
+            out[k]["device_ms"].append(device_ms(fns[k], iters, dev))
+        else:
+            d = probes.device_ms(fns[k], iters, dev, (kernel,))
+            out[k]["device_ms"].append(None if d is None else d[kernel]["ms"])
         out[k]["queued_ms"].append(probes.queued_ms(fns[k], iters, dev))
     for v in out.values():
         got = [t for t in v["device_ms"] if t is not None] or [
@@ -570,6 +581,145 @@ def band_edge_records(rng, ntx, nty, per_row, q, CR, C):
     return np.asarray(out, np.float32)
 
 
+K9_EDGE_K, K9_EDGE_KB = 256, 384  # K9's edge inputs: the champion K, three 128-lane chunks a block
+# the faint candidates' cases of K9 (band_edge_records' placement, one
+# tile each, in the 8 tiles of a block's first row): the one on the
+# threshold is held bit for bit against the kernel with the band cull off,
+# not against the plain version's sums (its alpha tests decide by rounding)
+K9_INSIDE_THRESHOLD = "faint candidates inside the band edges"
+K9_ON_THRESHOLD = "faint candidates on the band edges"
+
+
+def k9_edge_cases(dev):
+    """K9's edge inputs, made from seed 17 on `dev`: (name, vals [NB, kb,
+    16] records-major float32 (block-local pixels; the padding channels
+    hold noise), rects [NB, kb] int32, g [NB, 64, 256, C+1], C) with K =
+    K9_EDGE_K, kb = K9_EDGE_KB, lanes in random order: tiles whose
+    uncapped count is 0, 1, 255, 256 and 300 (> K) among candidates whose
+    rect misses them, and candidates whose rect holds a tile their
+    Gaussian lies 40-100 px from; three opaque wide candidates first in
+    each tile of a row, which stop every pixel there at the third slot;
+    opaque wide candidates (raw >= 0.99); opacity 0; invalid candidates
+    (rect 0, opacity 0, noise elsewhere); faint candidates whose ellipse
+    reaches each row of their tile from beyond it, just inside the alpha
+    threshold op * exp(power) >= 1/255 there and, in K9_ON_THRESHOLD, on
+    it; C in {1, 3, 6, 8}, two blocks at C 3."""
+    rng = np.random.default_rng(17)
+    kb = K9_EDGE_KB
+
+    def cands(n, C, lo, hi, sigma=(1.5, 8.0), opac=(0.3, 0.95)):
+        """(n candidates [n, 16] centred in the block-local box lo-hi, their
+        3-sigma radii)."""
+        xy = rng.uniform(lo, hi, (n, 2))
+        s = rng.uniform(*sigma, (n, 2))
+        th = rng.uniform(0, np.pi, n)
+        R = np.stack([np.cos(th), -np.sin(th), np.sin(th), np.cos(th)], -1).reshape(n, 2, 2)
+        inv = np.linalg.inv(R @ (np.eye(2) * (s**2)[:, None, :]) @ np.swapaxes(R, -1, -2))
+        conic = np.stack([inv[:, 0, 0], inv[:, 0, 1], inv[:, 1, 1]], -1)
+        v = np.concatenate([xy, conic, rng.uniform(*opac, (n, 1)), rng.uniform(0, 1, (n, C)),
+                            rng.normal(size=(n, 16 - 6 - C))], -1)
+        return v, np.ceil(3 * s.max(-1))
+
+    def rect(x0, x1, y0, y1):
+        return np.asarray(x0 | (x1 << 8) | (y0 << 16) | (y1 << 24), np.int64)
+
+    def cover(v, radius, min_ty=0):
+        """Each candidate's rect of the tiles its 3-sigma box touches (rows
+        from min_ty)."""
+        lo = np.clip(np.floor((v[:, :2] - radius[:, None]) / 16), 0, 8).astype(np.int64)
+        hi = np.clip(np.floor((v[:, :2] + radius[:, None] + 15) / 16), 0, 8).astype(np.int64)
+        lo[:, 1] = np.maximum(lo[:, 1], min_ty)
+        r = rect(lo[:, 0], hi[:, 0], lo[:, 1], hi[:, 1])
+        return np.where((hi[:, 0] > lo[:, 0]) & (hi[:, 1] > lo[:, 1]), r, 0)
+
+    def invalid(v, r, n):
+        """The last n candidates invalid: rect 0, opacity 0, noise elsewhere."""
+        r[-n:] = 0
+        v[-n:, 5] = 0.0
+        v[-n:, 6:] = rng.normal(size=(n, 10))
+
+    def block(v, r, first=0):
+        """One block, lanes first.. in random order."""
+        order = np.concatenate([np.arange(first), first + rng.permutation(len(v) - first)])
+        return v[order].astype(np.float32), r[order]
+
+    def random_block(C):
+        v, rad = cands(kb, C, -24, 152)
+        wide = rng.uniform(size=kb) < 0.08
+        v[wide, 2:6] = (1 / 400, 0.0, 1 / 400, 1.0)
+        rad[wide] = 60
+        r = cover(v, rad)
+        invalid(v, r, 40)
+        return block(v, r)
+
+    def case(name, blocks, C):
+        vals = np.stack([b[0] for b in blocks])
+        rects = np.stack([b[1] for b in blocks]).astype(np.int32)
+        g = rng.normal(size=(len(blocks), 64, 256, C + 1)).astype(np.float32)
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (vals, rects, g)]
+        return (name, *t, C)
+
+    cases = []
+    # row 0's tiles 0-4 hold 0, 1, 255, 256 and 300 candidates (tiles 2-4
+    # share 255, 3-4 one more, 4 another 44); the other 83 cover rows 1-7
+    parts = []
+    for n, (x0, x1), box in ((255, (2, 5), (32, 80)), (1, (3, 5), (48, 80)),
+                             (44, (4, 5), (64, 80)), (1, (1, 2), (16, 32))):
+        v, _ = cands(n, 6, 0, 16)
+        v[:, 0] = rng.uniform(*box, n)
+        parts.append((v, np.full(n, int(rect(x0, x1, 0, 1)))))
+    far = rng.choice(255, 30, replace=False)  # rect on row 0, Gaussian 40-100 px below it
+    parts[0][0][far, 1] = rng.uniform(56, 116, 30)
+    v, rad = cands(83, 6, -8, 136)
+    v[:, 1] = rng.uniform(24, 136, 83)
+    r = cover(v, rad, min_ty=1)
+    invalid(v, r, 20)
+    parts.append((v, r))
+    cases.append(case("counts 0/1/255/256/300, rects that miss the tile",
+                      [block(np.concatenate([p[0] for p in parts]),
+                             np.concatenate([p[1] for p in parts]))], 6))
+    # three opaque wide candidates (opacity 0.985-0.989, sigma 100 px,
+    # centred within 2 px of the tile's centre) first in each tile of row
+    # 0: T stays above 1e-4 after two and falls under it at the third
+    v, rad = cands(kb, 6, -8, 136)
+    r = cover(v, rad)
+    t = np.repeat(np.arange(8), 3)
+    v[:24, 0] = 16 * t + 7.5 + rng.uniform(-2, 2, 24)
+    v[:24, 1] = 7.5 + rng.uniform(-2, 2, 24)
+    v[:24, 2:5] = (1e-4, 0.0, 1e-4)
+    v[:24, 5] = rng.uniform(0.985, 0.989, 24)
+    r[:24] = rect(t, t + 1, 0, 1)
+    cases.append(case("every pixel of row 0 stopped at the third slot", [block(v, r, first=24)],
+                      6))
+    # a quarter opaque (opacity 1) and wide (sigma 20 px): raw >= 0.99
+    # within ~2.8 px of their centres
+    v, rad = cands(kb, 6, -8, 136)
+    v[::4, 2:6] = (1 / 400, 0.0, 1 / 400, 1.0)
+    rad[::4] = 60
+    cases.append(case("raw >= 0.99", [block(v, cover(v, rad))], 6))
+    v, rad = cands(kb, 6, -8, 136)
+    v[::3, 5] = 0.0
+    r = cover(v, rad)
+    invalid(v, r, 30)
+    cases.append(case("opacity 0 and invalid candidates", [block(v, r)], 6))
+    # each tile of row 0: 32 faint candidates reaching its 16 rows (two
+    # each, rect on that tile) among 128 faint-opacity ones over the row,
+    # so that no pixel stops
+    for name, q in ((K9_INSIDE_THRESHOLD, 0.9), (K9_ON_THRESHOLD, 1.0)):
+        faint = band_edge_records(rng, 8, 1, 2, q, CR=16, C=6)
+        tiles = np.repeat(np.arange(8), 32)
+        back, rad = cands(kb - len(faint), 6, 0, 128, opac=(0.02, 0.1))
+        back[:, 1] = rng.uniform(0, 16, len(back))
+        v = np.concatenate([faint, back])
+        r = np.concatenate([rect(tiles, tiles + 1, 0, 1), cover(back, rad)])
+        r[len(faint):] = np.where(r[len(faint):] != 0, (r[len(faint):] & 0xFFFF) | (1 << 24), 0)
+        cases.append(case(name, [block(v, r)], 6))
+    for C, nb in ((1, 1), (3, 2), (6, 1), (8, 1)):
+        cases.append(case(f"C={C}, {nb} block{'s' * (nb > 1)}",
+                          [random_block(C) for _ in range(nb)], C))
+    return cases
+
+
 def check_kernel_edges(dev, line):
     """K1 and K4 on their edge inputs: bit-equal to their plain versions
     and, on the card, to their baseline designs. Returns the cases held."""
@@ -638,6 +788,68 @@ def check_k3_edges(dev, line):
          f"{K3_REL_L2} of plain (but {K3_ON_THRESHOLD!r})"
          + (", of the baseline design, and bit-equal across two launches and to the walk "
             "without the band cull" if dev.type == "cuda" else ""))
+    return n
+
+
+def check_k9_edges(dev, line):
+    """K9's backward on its edge inputs (`k9_edge_cases`), through both
+    input layouts (the forward and its autograd backward): finite, zero in
+    the padding channels and for the candidates no tile selects, and but
+    on K9_ON_THRESHOLD (whose alpha tests decide by rounding) within K3's
+    tolerances of the plain version and, on the card, of the baseline
+    design; on the card bit-equal across two launches and to the kernel
+    with its band cull off. Returns the cases held."""
+    n = 0
+    for name, vals, rects, g, C in k9_edge_cases(dev):
+        NB, kb = rects.shape
+        ref = fused.select_blend_bwd_plain(vals, rects, g, K9_EDGE_K, C)
+        lanes, _ = fused._select(rects, K9_EDGE_K)
+        picked = torch.zeros(NB, kb + 1, dtype=torch.bool, device=dev).scatter_(
+            1, lanes.reshape(NB, -1), True)[:, :kb]
+        outs = []
+        for variant in (1, 2):
+            if variant == 1:
+                v = vals.reshape(NB, kb // fused.CHUNK, fused.CHUNK, fused.NCH).permute(0, 1, 3, 2)
+                r = rects.reshape(NB, kb // fused.CHUNK, fused.CHUNK)
+                fn = fused.fused_select_blend
+            else:
+                v, r, fn = vals.permute(0, 2, 1), rects[:, None, :], fused.fused_select_blend2
+            v = v.contiguous().requires_grad_(True)
+            with torch.enable_grad():
+                tiles_v, _ = fn(v, r.contiguous(), K9_EDGE_K, C)
+                tiles_v.backward(g)
+            out = fused._records(v.grad)
+            where = f"K9 edge case {name} (v{variant} layout)"
+            check(bool(torch.isfinite(out).all()), f"{where}: non-finite d(vals)")
+            check(bool((out[..., 6 + C :] == 0).all()) and bool((out[~picked] == 0).all()),
+                  f"{where}: a cotangent in the padding or for an unselected candidate")
+            if name != K9_ON_THRESHOLD:
+                check(slot_ok(slot_err(out, ref)), f"{where}: differs from plain")
+            elif variant == 1:
+                on_threshold = {"plain": slot_err(out, ref)["rel_l2"]}
+            outs.append(out)
+        check(torch.equal(bits(outs[0]), bits(outs[1])), f"K9 edge case {name}: layouts differ")
+        if dev.type == "cuda":
+            args = (vals, rects, g, K9_EDGE_K, C)
+            out = fused.select_blend_bwd(*args)
+            check(torch.equal(bits(out), bits(outs[0])) and torch.equal(
+                bits(out), bits(fused.select_blend_bwd(*args))),
+                f"K9 edge case {name}: launches differ")
+            check(torch.equal(bits(out), bits(fused.select_blend_bwd_stage(
+                *args, 4, design="kernel_no_cull"))),
+                f"K9 edge case {name}: the band cull changes the bits")
+            base = slot_err(out, fused.select_blend_bwd_baseline(*args))
+            if name != K9_ON_THRESHOLD:
+                check(slot_ok(base), f"K9 edge case {name}: differs from the baseline")
+            else:
+                on_threshold["baseline"] = base["rel_l2"]
+        n += 1
+    sync(dev)
+    line(f"K9 backward edge inputs: {n} cases in both layouts within p999 <= {K3_P999_REL} x "
+         f"max|dvals| / rel_l2 <= {K3_REL_L2} of plain (but {K9_ON_THRESHOLD!r}, where the "
+         f"alpha tests decide by rounding: rel_l2 {on_threshold})"
+         + (", of the baseline design, and bit-equal across layouts and launches and to the "
+            "kernel without the band cull" if dev.type == "cuda" else ""))
     return n
 
 
@@ -720,17 +932,21 @@ def reset_launch_counts():
     blend_rec.launches = blend_rec.bwd_launches = 0
     blend_rec.img_launches = blend_rec.img_bwd_launches = 0
     blend.launches = blend.bwd_launches = fused.launches = fused.bwd_launches = 0
+    fused.baseline_launches = 0
+    for k in fused.stage_launches:
+        fused.stage_launches[k] = 0
     probes.reset_launches()
 
 
 def off_path_launches():
     """Launches, since the counts were reset, of what no path of the port
-    calls: the baseline designs of K1, K2, K3 and K4 and K2's and K3's
-    stage entry points (their cuts, other designs and diagnostic builds).
-    Each main-path window must see 0."""
+    calls: the baseline designs of K1, K2, K3, K4 and K9's backward and
+    the stage entry points of K2, K3 and K9's backward (their cuts, other
+    designs and diagnostic builds). Each main-path window must see 0."""
     return (extract.baseline_launches + segsum.baseline_launches + blend_ct.baseline_launches
             + blend_ct.fwd_baseline_launches + sum(blend_ct.stage_launches.values())
-            + sum(blend_ct.fwd_stage_launches.values()))
+            + sum(blend_ct.fwd_stage_launches.values()) + fused.baseline_launches
+            + sum(fused.stage_launches.values()))
 
 
 def blend_bound(work, nbytes, backward=False):
@@ -1078,6 +1294,45 @@ def blend_work(b, cnt, tile_chunk=128):
         w["warp_records_taken"] += int((warps & live[..., None]).sum())
     hist = torch.bincount(torch.clamp(cnt, 0, K), minlength=K + 1)
     w["tiles"] = {"empty": int(hist[0]), "full": int(hist[K]), "between": int(hist[1:K].sum())}
+    return w
+
+
+def coeff_work(coeffs, opacs, tile_chunk=128):
+    """What K8's and K9's polynomial walks face: the (pixel, slot) pairs
+    visited (before each pixel's stop; a slot of opacity 0 is inert) and
+    used there (power <= 0 and raw >= 1/255), for coeffs [T, K, 8] and
+    opacs [T, 1, K]."""
+    T, K, _ = coeffs.shape
+    dev = coeffs.device
+    basis = blend._pixel_basis(dev)
+    U = torch.triu(torch.ones((K, K), device=dev))
+    w = dict(visited=0, used=0)
+    with full_float32():
+        for c0 in range(0, T, tile_chunk):
+            sl = slice(c0, c0 + tile_chunk)
+            f = blend._forward_chunk(coeffs[sl], opacs[sl], basis, U)
+            visited = (opacs[sl] > 0) & (f["t_before"] >= blend.T_EPS)
+            w["visited"] += int(visited.sum())
+            w["used"] += int((f["use"] & visited).sum())
+    return w
+
+
+def fused_work(vals, rects, K, C, block_chunk=8):
+    """K9's `coeff_work` at a selection of records-major vals [NB, kb, 16]
+    and rects [NB, kb], and the (slot, warp of 4 rows) pairs of live slots
+    and those the backward's band cull lets its warps take (`cull_bands`
+    on tile-local coordinates: coeff_walk_bwd.cuh's bound is K3's)."""
+    w = dict(visited=0, used=0, warp_slots=0, warp_slots_taken=0)
+    sx, sy = fused._tile_origins(vals.device)
+    org = torch.stack([sx, sy], -1)[None, :, None, :]
+    for b0 in range(0, vals.shape[0], block_chunk):
+        sl = slice(b0, b0 + block_chunk)
+        coeffs, _, opacs, slot, _, hit, _ = fused._tile_inputs(vals[sl], rects[sl], K, C)
+        for k, v in coeff_work(coeffs, opacs).items():
+            w[k] += v
+        warps = cull_bands(slot, org).reshape(*hit.shape, 4, 2).any(-1)
+        w["warp_slots"] += int(hit.sum()) * 4
+        w["warp_slots_taken"] += int((warps & hit[..., None]).sum())
     return w
 
 
@@ -2033,6 +2288,7 @@ def fused_phase(dev, report, scene):
         lanes, _ = fused._select(rects, K)
         n_sel = int(torch.zeros(NB, kb + 1, dtype=torch.bool, device=dev)
                     .scatter_(1, lanes.reshape(NB, -1), True)[:, :kb].sum())
+    k9_edges = check_k9_edges(dev, line)
     k9, k9b = {}, {}
     for variant, (v, r) in layouts.items():
         fn = fused.fused_select_blend if variant == 1 else fused.fused_select_blend2
@@ -2058,26 +2314,94 @@ def fused_phase(dev, report, scene):
         check(k9b[variant]["rel_l2"] <= K3_REL_L2,
               f"K9 v{variant} backward: d(vals) rel L2 > {K3_REL_L2}")
         del v, out, dv
+    bwd_args = (vals, rects, g, K, C)
+    k9b_base = k9b_px = k9b_turns = k9b_split = k9b_stages = k9b_ptxas = None
     with torch.no_grad():
+        work9 = fused_work(vals, rects, K, C)
+        if dev.type == "cuda":
+            dk = fused.select_blend_bwd(*bwd_args)
+            check(torch.equal(bits(dk), bits(fused.select_blend_bwd(*bwd_args))),
+                  "K9 backward: two launches differ")
+            no_cull = fused.select_blend_bwd_stage(*bwd_args, 4, design="kernel_no_cull")
+            check(torch.equal(bits(dk), bits(no_cull)), "K9 backward: the band cull changes the bits")
+            k9b_base = slot_err(dk, fused.select_blend_bwd_baseline(*bwd_args))
+            line(f"K9 backward vs its baseline design at full width: max_abs="
+                 f"{k9b_base['max_abs']:.3e} p999_abs={k9b_base['p999_abs']:.3e} "
+                 f"rel_l2={k9b_base['rel_l2']:.3e}; two launches bit-equal, and equal to the "
+                 "kernel without the band cull")
+            check(slot_ok(k9b_base), f"K9 backward vs the baseline: outside p999 <= "
+                                     f"{K3_P999_REL} x max|dvals| / rel_l2 <= {K3_REL_L2}")
+        if dev.type == "cuda" and C == fused.STAGE_C:
+            for st in range(len(fused.BWD_STAGES)):
+                out = fused.select_blend_bwd_stage(*bwd_args, st)
+                check(bool(torch.isfinite(out).all()), f"K9 backward stage {st}: non-finite")
+            check(torch.equal(bits(out), bits(dk)), "K9 backward stage 4: not the kernel's output")
+            # the walk at 1 and 4 pixels a thread: the same sums in another order
+            k9b_px = {d: slot_err(fused.select_blend_bwd_stage(*bwd_args, 4, design=d), dref)
+                      for d in ("kernel_p1", "kernel_p4")}
+            for d, e in k9b_px.items():
+                check(slot_ok(e), f"K9 backward {d} vs plain: outside p999 <= {K3_P999_REL} x "
+                                  f"max|dvals| / rel_l2 <= {K3_REL_L2}")
+            del dk, out, no_cull
+            designs = {
+                "baseline": lambda: fused.select_blend_bwd_baseline(*bwd_args),
+                "kernel": lambda: fused.select_blend_bwd(*bwd_args),
+                **{d: (lambda d=d: fused.select_blend_bwd_stage(*bwd_args, 4, design=d))
+                   for d in ("kernel_p1", "kernel_p4")},
+            }
+            k9b_turns = in_turns(designs, 20, dev)
+            k9b_split = {d: probes.device_ms(designs[d], 20, dev, fused_bisect.BWD_KERNELS)
+                         for d in ("baseline", "kernel")}
+            k9b_stages = in_turns({
+                f"stage{st}": (lambda st=st: fused.select_blend_bwd_stage(*bwd_args, st))
+                for st in range(len(fused.BWD_STAGES))}, 20, dev, kernel="fused_bwd_kernel")
+            line(f"K9 backward in turns (NB={NB}, kb={kb}, K={K}, C={C}, frame 0; both kernels "
+                 f"a call; kernel_p1/p4: the walk at 1/4 pixels a thread): "
+                 f"{turns_summary(k9b_turns)}; p1/p4 vs plain rel_l2 "
+                 + ", ".join(f"{e['rel_l2']:.3e}" for e in k9b_px.values()))
+            line("K9 backward by kernel (device ms a launch): " + "; ".join(
+                f"{d} " + ", ".join(f"{k} {v[k]['ms']}" for k in fused_bisect.BWD_KERNELS)
+                for d, v in k9b_split.items() if v is not None))
+            ms = [k9b_stages[f"stage{st}"]["ms"] for st in range(len(fused.BWD_STAGES))]
+            line("K9 backward per-tile kernel stages (device ms a call of fused_bwd_kernel; "
+                 "delta): " + ", ".join(
+                     f"{st} {nm} {m:.5f} ({m - (ms[st - 1] if st else 0.0):+.5f})"
+                     for st, (nm, m) in enumerate(zip(fused.BWD_STAGES, ms))))
+            logs = report.get("build_logs", {}).get("fused")
+            # mangled template arguments: <C, P, STAGE> and, baseline, <C>
+            k9b_ptxas = {d: ptxas_usage(logs, m) for d, m in (
+                ("kernel", f"fused_bwd_kernelILi{C}ELi2ELi4E"),
+                ("kernel_p1", f"fused_bwd_kernelILi{C}ELi1ELi4E"),
+                ("kernel_p4", f"fused_bwd_kernelILi{C}ELi4ELi4E"),
+                ("baseline", f"fused_bwd_kernel_v1ILi{C}E"))}
+            line(f"K9 backward ptxas at C={C} (registers, static smem bytes, spill stores): "
+                 + "; ".join(f"{d} {u.get('registers')}, {u.get('smem')}, {u.get('spill_stores')}"
+                             for d, us in k9b_ptxas.items() for u in us.values()))
         k9_t = measure(lambda: fused.select_blend(vals, rects, K, C), 20, dev)
         k9_plain_t = measure(lambda: fused.select_blend_plain(vals, rects, K, C), 3, dev,
                              warmup=1)
-        k9b_t = measure(lambda: fused.select_blend_bwd(vals, rects, g, K, C), 20, dev)
-        k9b_plain_t = measure(lambda: fused.select_blend_bwd_plain(vals, rects, g, K, C), 3, dev,
-                              warmup=1)
+        k9b_t = measure(lambda: fused.select_blend_bwd(*bwd_args), 20, dev)
+        k9b_plain_t = measure(lambda: fused.select_blend_bwd_plain(*bwd_args), 3, dev, warmup=1)
     # bytes: the used channels (6 + C) of the selected candidates, every
     # rect; the tiles and counts out. Backward: the cotangent of the tiles
-    # that hold a slot in, all of d(vals) out
+    # that hold a slot in, all of d(vals) out. Operations: the walk's used
+    # and unused pairs apart (`fused_work`)
     in_bytes = 4 * (n_sel * (6 + C) + rects.numel())
     live_tiles = int((ref_counts > 0).sum())
-    k9_bound = bound(in_bytes + 4 * (ref.numel() + ref_counts.numel()), pairs,
-                     coeff_fwd_ops(C), 1)
-    k9b_bound = bound(in_bytes + 4 * (live_tiles * fused.NPIX * (C + 1) + vals.numel()), pairs,
-                      coeff_bwd_ops(C), COEFF_BWD_SFU_PER_PAIR)
+    used9, unused9 = work9["used"], work9["visited"] - work9["used"]
+    k9_bound = coeff_bound(in_bytes + 4 * (ref.numel() + ref_counts.numel()), used9, unused9,
+                           coeff_fwd_ops(C), 1)
+    k9b_bound = coeff_bound(in_bytes + 4 * (live_tiles * fused.NPIX * (C + 1) + vals.numel()),
+                            used9, unused9, coeff_bwd_ops(C), COEFF_BWD_SFU_PER_PAIR)
     line(f"K9 work: NB={NB} blocks, kb={kb}, {n_sel} candidates selected, {live_tiles} tiles "
-         f"with a slot, pixel-slot pairs visited={pairs}, in-image tiles with counts over "
-         f"K={int((ref_counts > K).sum())}")
-    del ref, dref, g, layouts, lanes
+         f"with a slot, pixel-slot pairs visited={work9['visited']} (count_pairs {pairs}), "
+         f"used={used9}; (slot, warp) pairs the backward's cull takes "
+         f"{work9['warp_slots_taken']} of {work9['warp_slots']}; in-image tiles with counts "
+         f"over K={int((ref_counts > K).sum())}; bounds (ms): forward bytes "
+         f"{k9_bound[2]['bytes'] * 1e3:.5f} operations {k9_bound[2]['operations'] * 1e3:.5f}, "
+         f"backward bytes {k9b_bound[2]['bytes'] * 1e3:.5f} operations "
+         f"{k9b_bound[2]['operations'] * 1e3:.5f}")
+    del ref, dref, g, layouts, lanes, bwd_args
 
     # -- rasterize_tiled_fused against rasterize_tiled's topk funnel --------
     bg = torch.tensor(BG6, device=dev)
@@ -2181,10 +2505,17 @@ def fused_phase(dev, report, scene):
                               warmup=1)
     C8 = col.shape[-1]
     k8_in = 4 * T8 * K8K * (6 + 1 + C8)  # the six used coefficients, opacity, colours
-    k8_bound = bound(k8_in + 4 * out8.numel(), pairs8, coeff_fwd_ops(C8), 1)
-    k8b_bound = bound(k8_in + 4 * g8.numel() + 4 * T8 * K8K * (8 + C8 + 1), pairs8,
-                      coeff_bwd_ops(C8), COEFF_BWD_SFU_PER_PAIR)
-    line(f"K8 work: pixel-slot pairs visited={pairs8} on {inp['n_contrib']} live slots")
+    with torch.no_grad():
+        work8 = coeff_work(co, op)
+    used8, unused8 = work8["used"], work8["visited"] - work8["used"]
+    k8_bound = coeff_bound(k8_in + 4 * out8.numel(), used8, unused8, coeff_fwd_ops(C8), 1)
+    k8b_bound = coeff_bound(k8_in + 4 * g8.numel() + 4 * T8 * K8K * (8 + C8 + 1), used8, unused8,
+                            coeff_bwd_ops(C8), COEFF_BWD_SFU_PER_PAIR)
+    line(f"K8 work: pixel-slot pairs visited={work8['visited']} (count_pairs {pairs8}), "
+         f"used={used8}, on {inp['n_contrib']} live slots; bounds (ms): forward bytes "
+         f"{k8_bound[2]['bytes'] * 1e3:.5f} operations {k8_bound[2]['operations'] * 1e3:.5f}, "
+         f"backward bytes {k8b_bound[2]['bytes'] * 1e3:.5f} operations "
+         f"{k8b_bound[2]['operations'] * 1e3:.5f}")
     del out8, ref8, g8, d8, d8_ref
 
     # -- the stage bench: K8's main path -------------------------------------
@@ -2242,8 +2573,13 @@ def fused_phase(dev, report, scene):
             "replaces": "d3ga_tpu/raster/attic/pallas_fused2.py:407",
             "launches": k9_launches["fused_select_blend_bwd"],
             "max_abs_err": max(e["max_abs"] for e in k9b.values()),
-            "ms": k9b_t["ms"], "plain_ms": k9b_plain_t["ms"], "bound_ms": k9b_bound[0],
+            "ms": k9b_turns["kernel"]["ms"] if k9b_turns else k9b_t["ms"],
+            "plain_ms": k9b_plain_t["ms"], "bound_ms": k9b_bound[0],
             "bound_by": k9b_bound[1], "library_ms": None,
+            "baseline_ms": k9b_turns and k9b_turns["baseline"]["ms"],
+            "designs_ms": k9b_turns and {d: v["ms"] for d, v in k9b_turns.items()},
+            "stages_ms": k9b_stages and [k9b_stages[f"stage{st}"]["ms"]
+                                         for st in range(len(fused.BWD_STAGES))],
         },
     ]
     timings = {"blend_tiles_coeffs": {"kernel": k8_t, "plain": k8_plain_t},
@@ -2257,7 +2593,9 @@ def fused_phase(dev, report, scene):
              f"launches={k['launches']}; wall per call "
              + ", ".join(f"{nm}={v['call_ms']:.4f}" for nm, v in t.items()))
     report.update(
-        k9=k9, k9b=k9b, k9_pairs=pairs, k9_blocks=NB, k9_kb=kb, fused_vs_topk=fe, aux_fused=a_f,
+        k9=k9, k9b=k9b, k9_pairs=pairs, k9_work=work9, k9_edges=k9_edges, k9b_base=k9b_base,
+        k9b_px=k9b_px, k9b_turns=k9b_turns, k9b_split=k9b_split, k9b_stages=k9b_stages,
+        k9b_ptxas=k9b_ptxas, k8_work=work8, k9_blocks=NB, k9_kb=kb, fused_vs_topk=fe, aux_fused=a_f,
         aux_topk=a_t, fused_terms_rel=term_err, fused_grad_rel_l2=leaf_err, fused_step_ms=step_ms,
         fused_launches=k9_launches, fused_profiled=fused_prof, k8=k8, k8b=k8b, k8_pairs=pairs8,
         stage_bench=bench, fused_timings=timings,

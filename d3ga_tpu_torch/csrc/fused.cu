@@ -22,13 +22,19 @@
 // returns d(vals) [NB, kb, 16]; the padding channels and the candidates no
 // tile selected get 0.
 //
-// Bound on Hopper: operations where tiles are full (the walk's pairs: one
-// exp and 15 + 2C FP32 operations forward, 35 + 4C backward, as
-// chip_smoke.py counts them); the selection reads each block's kb rects
-// once per tile (64 x 16 KB at kb 4096, from L2). Bytes at the full-width
-// scene (48 blocks, kb 4096, C 6): the 6 + C used channels of the selected
-// candidates (at most 9.4 MB) and 0.8 MB rects in, 22 MB tiles out; the
-// backward adds up to 22 MB of cotangent in and 12.6 MB of d(vals) out.
+// Bound on Hopper. Operations: a (pixel, slot) pair the walk uses (power
+// <= 0 and raw >= 1/255) costs one exp and 15 + 2C FP32 operations
+// forward, 35 + 4C and an exp and a division backward; a visited pair it
+// does not use only the polynomial, its test and an exp (chip_smoke.py
+// counts both kinds from its run's data). The selection reads each
+// block's kb rects once per tile (64 x 16 KB at kb 4096, from L2). Bytes
+// at the full-width scene (48 blocks, kb 4096, C 6): the 6 + C used
+// channels of the selected candidates (at most 9.4 MB) and 0.8 MB rects
+// in, 22 MB tiles out; the backward adds the cotangent of the tiles that
+// hold a slot (up to 22 MB) in and 12.6 MB of d(vals) out. At frame 0 of
+// chip_smoke.py's scene (19.33 M pairs visited, 3.21 M used, 447 tiles
+// holding a slot) the backward's bound is 0.0055 ms (operations; bytes
+// 0.0054), the forward's 0.0073 (bytes).
 //
 // Design. The TPU grid is one program per block (48 at full width); here
 // one CUDA block of 256 threads per tile (3,072), one thread per pixel.
@@ -38,16 +44,32 @@
 //   (K ints). The walk stages its chunks through those ids straight from
 //   vals: the [K, 16] compacted record block of the TPU kernels is never
 //   written.
-//   Backward, kernel 1 (per tile): the same selection, the two walks, and
-//   per slot the cotangents of (x, y, A, B, C, opacity, colours), the
-//   coefficients' transpose applied in the tile's own coordinates; it
-//   writes them [NB * 64, K, 6 + C] with the slot's lane id and the
-//   tile's live-slot count (scratch the wrapper allocates).
+//   Backward, kernel 1 (per tile, fused_bwd_kernel): the same selection,
+//   then coeff_walk_bwd.cuh's walk (two pixels a thread, 128 threads a
+//   tile; a warp skips the slots its 2-row bands cannot take; per-slot
+//   sums by a warp reduce-scatter; that header says why): per slot the
+//   cotangents of (x, y, A, B, C, opacity, colours), the coefficients'
+//   transpose applied in the tile's own coordinates, built in shared
+//   memory and written [NB * 64, K, 6 + C] as one contiguous run of
+//   16-byte stores a chunk, with the slots' lane ids and the tile's
+//   live-slot count (scratch the wrapper allocates).
 //   Backward, kernel 2 (per block and lane): the 64 tiles of a block share
 //   its candidate lanes. One thread per (block, lane) visits the tiles its
 //   rect covers in tile order, finds its slot by binary search in each
 //   tile's ascending lane list, and sums the slot rows: deterministic, no
 //   atomics, the TPU kernels' order (tile 0 to 63).
+//
+// The backward's design before (one thread a pixel, coeff_walk.cuh's
+// coeff_walk_bwd: 8 warps a tile, every slot evaluated at every pixel, 7 +
+// C butterflies a slot a warp, each slot's row stored by one thread) stays
+// as fused_bwd_kernel_v1, launched by d3ga_fused_bwd_v1 only.
+// d3ga_fused_bwd_stage launches the new kernel with its band cull off (the
+// reference for the cull's bits) at every C, and, at C = FB_STAGE_C (the
+// champion's 6) only, the kernel cut at a stage (the walk's STAGE
+// parameter: 0 selection + staging, 1 + walk 1, 2 + walk 2's per-pixel
+// arithmetic, 3 + the per-slot sums; 4 is the kernel) or its walk at 1 or
+// 4 pixels a thread. No path of the port calls them: chip_smoke.py checks
+// the cull and times the designs and the stages in turns.
 //
 // Stage cuts (probe P3, the counterpart of the TPU bisect
 // tools/fused_bisect.py): fused_kernel's STAGE parameter stops the forward
@@ -58,11 +80,15 @@
 // shuffles and the 8 warps' partials in order) and writes that sum plus
 // the count; 3 is K9. Only STAGE 3 writes counts.
 
+#include <cstdint>
+
 #include "coeff_walk.cuh"
+#include "coeff_walk_bwd.cuh"
 
 #define FB_BLOCK 8
 #define FB_TB (FB_BLOCK * FB_BLOCK)
 #define FB_NCH 16
+#define FB_STAGE_C 6  // the C the backward's stage cuts and pixel variants are built for
 
 // Candidate j of a block's records.
 __device__ __forceinline__ const float* cand(const float* vb, int j) {
@@ -70,14 +96,16 @@ __device__ __forceinline__ const float* cand(const float* vb, int j) {
 }
 
 // The first K candidates (lane order) whose rect holds tile (tx, ty) into
-// s_sel; returns how many hold it (uncapped). Ends synchronized.
+// s_sel, by a block of THREADS threads (s_warp: THREADS / 32 ints);
+// returns how many hold it (uncapped). Ends synchronized.
+template <int THREADS = CW_NPIX>
 __device__ __forceinline__ int select_tile(const int* __restrict__ rects_b, int kb, int tx, int ty,
                                            int K, int* s_sel, int* s_warp) {
   const int p = threadIdx.x;
   const int lane = p & 31;
   const int warp = p >> 5;
   int running = 0;
-  for (int base = 0; base < kb; base += CW_NPIX) {
+  for (int base = 0; base < kb; base += THREADS) {
     const int j = base + p;
     bool m = false;
     if (j < kb) {
@@ -90,7 +118,7 @@ __device__ __forceinline__ int select_tile(const int* __restrict__ rects_b, int 
     __syncthreads();
     int before = 0, total = 0;
 #pragma unroll
-    for (int w = 0; w < CW_NWARP; ++w) {
+    for (int w = 0; w < THREADS / 32; ++w) {
       const int c = s_warp[w];
       before += w < warp ? c : 0;
       total += c;
@@ -184,10 +212,12 @@ fused_kernel(const float* __restrict__ vals, const int* __restrict__ rects, int 
   o[C] = T;
 }
 
+// The backward's design before: one thread a pixel, coeff_walk_bwd.
 template <int C>
 __global__ void __launch_bounds__(CW_NPIX)
-fused_bwd_kernel(const float* __restrict__ vals, const int* __restrict__ rects,
-                 const float* __restrict__ g, int kb, int K, float* __restrict__ drec, int* __restrict__ sel, int* __restrict__ live) {
+fused_bwd_kernel_v1(const float* __restrict__ vals, const int* __restrict__ rects,
+                    const float* __restrict__ g, int kb, int K, float* __restrict__ drec,
+                    int* __restrict__ sel, int* __restrict__ live) {
   extern __shared__ int s_sel[];
   __shared__ int s_warp[CW_NWARP];
   const int bt = blockIdx.x;
@@ -222,6 +252,40 @@ fused_bwd_kernel(const float* __restrict__ vals, const int* __restrict__ rects,
 #pragma unroll
     for (int c = 0; c < C; ++c) o[6 + c] = d[7 + c];
   });
+}
+
+// The backward, kernel 1: the selection, then coeff_walk_bwd_px at P
+// pixels a thread (the header's design). vec: vals and drec 16-byte
+// aligned and K (6 + C) % 4 == 0; cull: the band cull on. Dynamic shared
+// memory: CB_CHUNK * (6 + C) floats of rows, then K lane ids.
+template <int C, int P = CB_P, int STAGE = 4>
+__global__ void __launch_bounds__(cb_threads<P>)
+fused_bwd_kernel(const float* __restrict__ vals, const int* __restrict__ rects,
+                 const float* __restrict__ g, int kb, int K, int vec, int cull,
+                 float* __restrict__ drec, int* __restrict__ sel, int* __restrict__ live) {
+  extern __shared__ __align__(16) float fb_dyn[];
+  float* out = fb_dyn;
+  int* s_sel = reinterpret_cast<int*>(fb_dyn + CB_CHUNK * (6 + C));
+  __shared__ int s_warp[cb_warps<P>];
+  const int bt = blockIdx.x;
+  const int b = bt / FB_TB, t = bt % FB_TB;
+  const int tx = t % FB_BLOCK, ty = t / FB_BLOCK;
+  const int p = threadIdx.x;
+  const int n = min(select_tile<cb_threads<P>>(rects + (long long)b * kb, kb, tx, ty, K, s_sel,
+                                               s_warp), K);
+  if (p == 0) live[bt] = n;
+  for (int k = p; k < n; k += cb_threads<P>) sel[(long long)bt * K + k] = s_sel[k];
+  float gc[P][C], g_tbg[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const float* gp = g + ((long long)bt * CW_NPIX + cb_pixel<P>(p, j)) * (C + 1);
+#pragma unroll
+    for (int c = 0; c < C; ++c) gc[j][c] = gp[c];
+    g_tbg[j] = gp[C];
+  }
+  coeff_walk_bwd_px<C, P, STAGE>(vals + (long long)b * kb * FB_NCH, vec != 0, cull != 0, s_sel, n,
+                                 (float)(tx * CW_TILE), (float)(ty * CW_TILE), gc, g_tbg,
+                                 drec + (long long)bt * K * (6 + C), out);
 }
 
 template <int C>
@@ -302,27 +366,108 @@ extern "C" int d3ga_fused_stage(const void* vals, const void* rects, int NB, int
   return (int)cudaGetLastError();
 }
 
+// The backward's scratch and the route kernel after kernel 1.
+struct BwdArgs {
+  const float* v;
+  const int* r;
+  const float* g;
+  int NB, kb, K;
+  float* dr;
+  int* se;
+  int* li;
+  float* dv;
+  cudaStream_t s;
+};
+
+template <int C>
+static int route(const BwdArgs& a) {
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((a.kb + CW_NPIX - 1) / CW_NPIX, a.NB);
+  fused_route_kernel<C><<<grid, CW_NPIX, 0, a.s>>>(a.r, a.kb, a.K, a.dr, a.se, a.li, a.dv);
+  return (int)cudaGetLastError();
+}
+
+template <int C, int P, int STAGE>
+static int launch_bwd(const BwdArgs& a, int cull) {
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.dr);
+  const int vec = (a.K * (6 + C)) % 4 == 0 && (ptrs & 15) == 0;
+  const size_t smem = sizeof(float) * CB_CHUNK * (6 + C) + sizeof(int) * a.K;
+  if (sizeof(CbShared<C, P>) + sizeof(int) * cb_warps<P> + smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(fused_bwd_kernel<C, P, STAGE>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  fused_bwd_kernel<C, P, STAGE><<<a.NB * FB_TB, cb_threads<P>, smem, a.s>>>(
+      a.v, a.r, a.g, a.kb, a.K, vec, cull, a.dr, a.se, a.li);
+  return route<C>(a);
+}
+
+template <int C>
+static int launch_bwd_v1(const BwdArgs& a) {
+  fused_bwd_kernel_v1<C><<<a.NB * FB_TB, CW_NPIX, (size_t)a.K * sizeof(int), a.s>>>(
+      a.v, a.r, a.g, a.kb, a.K, a.dr, a.se, a.li);
+  return route<C>(a);
+}
+
+// design 1: the kernel; 2: the kernel with the band cull off (stage 4, at
+// every C); at FB_STAGE_C only, design 1 cut at stages 0-3 and designs 3
+// and 4, the walk at 1 and 4 pixels a thread (stage 4).
+template <int C>
+static int launch_bwd_stage(const BwdArgs& a, int design, int stage) {
+  if (stage == 4 && (design == 1 || design == 2)) return launch_bwd<C, CB_P, 4>(a, design == 1);
+  if constexpr (C == FB_STAGE_C) {
+    if (stage == 4 && design == 3) return launch_bwd<C, 1, 4>(a, 1);
+    if (stage == 4 && design == 4) return launch_bwd<C, 4, 4>(a, 1);
+    if (design == 1) {
+      switch (stage) {
+        case 0: return launch_bwd<C, CB_P, 0>(a, 1);
+        case 1: return launch_bwd<C, CB_P, 1>(a, 1);
+        case 2: return launch_bwd<C, CB_P, 2>(a, 1);
+        case 3: return launch_bwd<C, CB_P, 3>(a, 1);
+        default: break;
+      }
+    }
+  }
+  return -1;
+}
+
+#define FB_BWD_ARGS                                                                          \
+  BwdArgs a{(const float*)vals, (const int*)rects, (const float*)g, NB, kb, K, (float*)drec, \
+            (int*)sel, (int*)live, (float*)dvals, (cudaStream_t)cuda_stream}
+
+// The backward (kernel 1, then the route kernel) into dvals, with drec,
+// sel and live the wrapper's scratch.
 extern "C" int d3ga_fused_bwd(const void* vals, const void* rects, const void* g, int NB, int kb,
                               int K, int C, void* drec, void* sel, void* live, void* dvals,
                               void* cuda_stream) {
-  const float* v = (const float*)vals;
-  const int* r = (const int*)rects;
-  const float* gg = (const float*)g;
-  float* dr = (float*)drec;
-  int* se = (int*)sel;
-  int* li = (int*)live;
-  float* dv = (float*)dvals;
-  cudaStream_t s = (cudaStream_t)cuda_stream;
-  const size_t smem = (size_t)K * sizeof(int);
-  const dim3 route_grid((kb + CW_NPIX - 1) / CW_NPIX, NB);
-#define BWD(CC)                                                                              \
-  do {                                                                                       \
-    fused_bwd_kernel<CC><<<NB * FB_TB, CW_NPIX, smem, s>>>(v, r, gg, kb, K, dr, se, li);     \
-    const cudaError_t e = cudaGetLastError();                                                \
-    if (e != cudaSuccess) return (int)e;                                                     \
-    fused_route_kernel<CC><<<route_grid, CW_NPIX, 0, s>>>(r, kb, K, dr, se, li, dv);         \
-  } while (0)
+  FB_BWD_ARGS;
+#define BWD(CC) return launch_bwd<CC, CB_P, 4>(a, 1)
   CW_SWITCH_C(C, BWD)
 #undef BWD
-  return (int)cudaGetLastError();
+  return -1;
+}
+
+// The backward's design before (fused_bwd_kernel_v1, then the route).
+extern "C" int d3ga_fused_bwd_v1(const void* vals, const void* rects, const void* g, int NB,
+                                 int kb, int K, int C, void* drec, void* sel, void* live,
+                                 void* dvals, void* cuda_stream) {
+  FB_BWD_ARGS;
+#define BWD(CC) return launch_bwd_v1<CC>(a)
+  CW_SWITCH_C(C, BWD)
+#undef BWD
+  return -1;
+}
+
+// One (design, stage) of launch_bwd_stage, then the route; -1 where it is
+// not built.
+extern "C" int d3ga_fused_bwd_stage(const void* vals, const void* rects, const void* g, int NB,
+                                    int kb, int K, int C, void* drec, void* sel, void* live,
+                                    void* dvals, int design, int stage, void* cuda_stream) {
+  FB_BWD_ARGS;
+#define BWD(CC) return launch_bwd_stage<CC>(a, design, stage)
+  CW_SWITCH_C(C, BWD)
+#undef BWD
+  return -1;
 }

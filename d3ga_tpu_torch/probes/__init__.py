@@ -68,6 +68,28 @@ def coeff_bwd_ops(C):
     return 35 + 4 * C
 
 
+# a visited pair that the walk does not use (power > 0, or raw < 1/255)
+# costs only the polynomial (5 FMAs as two) and its test, and the exp that
+# decides raw >= 1/255 (needed wherever power <= 0; charged to every
+# unused pair, as chip_smoke.py's blend_bound charges K2's and K3's)
+COEFF_TEST_FP32_OPS_PER_PAIR = 11
+COEFF_TEST_SFU_PER_PAIR = 1
+
+
+def coeff_bound(bytes_, used, unused, fp32_per_used, sfu_per_used):
+    """`bound` for a polynomial walk (K8, K9) whose `used` pairs (power
+    <= 0 and raw >= 1/255) cost fp32_per_used FP32 operations and
+    sfu_per_used special-function results, and whose `unused` visited
+    pairs cost the test's (COEFF_TEST_*). Returns (bound ms, "bytes" or
+    "operations", both times in s)."""
+    times = {"bytes": bytes_ / HBM_BYTES_PER_S,
+             "operations": max(
+                 (used * fp32_per_used + unused * COEFF_TEST_FP32_OPS_PER_PAIR) / FP32_OPS_PER_S,
+                 (used * sfu_per_used + unused * COEFF_TEST_SFU_PER_PAIR) / SFU_OPS_PER_S)}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by, times
+
+
 def bound(bytes_, pairs, fp32_per_pair, sfu_per_pair):
     """(bound ms, "bytes" or "operations") for a walk of `pairs`
     (pixel, slot) pairs that must move `bytes_`."""

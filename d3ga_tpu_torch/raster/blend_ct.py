@@ -107,6 +107,17 @@ def _tile_origins(T, ntx, device, offset=0):
     return torch.stack([(tids % ntx) * TILE, (tids // ntx) * TILE], -1).float()
 
 
+def split_power(basis, coeffs):
+    """basis [256, 6] times coeffs [B, K, 6] -> [B, 256, K], as the JAX
+    kernel's `pallas_blend.py::_dot_split_b` rounds it: the coefficients
+    split into their bfloat16 part hi and the float32 rest lo = c - hi,
+    the two products summed. The basis is small integers, so every
+    product is exact and only the sums round."""
+    hi = coeffs.to(torch.bfloat16).float()
+    return (torch.einsum("pc,bkc->bpk", basis, hi)
+            + torch.einsum("pc,bkc->bpk", basis, coeffs - hi))
+
+
 def _blend_chunk(rec, org, live, basis):
     """The forward of `_blend_fwd_ct` for a chunk of tiles: rec [B, K, CR]
     gathered records, org [B, 2] tile origins, live [B, K] slot mask.
@@ -119,8 +130,8 @@ def _blend_chunk(rec, org, live, basis):
     rest = [A * x + B * y, Cc * y + B * x, -0.5 * A, -0.5 * Cc, -B]
     coeffs = torch.stack([c0] + rest, -1)  # [B, K, 6]
     coeffs2 = torch.stack([c0 + logop] + rest, -1)
-    power = torch.einsum("pc,bkc->bpk", basis, coeffs)  # [B, 256, K]
-    raw = torch.exp(torch.einsum("pc,bkc->bpk", basis, coeffs2))
+    power = split_power(basis, coeffs)  # [B, 256, K]
+    raw = torch.exp(split_power(basis, coeffs2))
     alpha = torch.clamp(raw, max=ALPHA_MAX)
     use = live[:, None, :] & (power <= 0.0) & (alpha >= ALPHA_SKIP)
     alpha = torch.where(use, alpha, 0.0)

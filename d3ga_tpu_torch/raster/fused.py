@@ -26,6 +26,19 @@ layout. On CUDA tensors that Function runs the hand-written kernels of
 tensors (or with plain=True) the plain versions below. There is no
 fallback between the two.
 
+The backward's per-tile kernel walks a tile with 128 threads of two
+pixels each, skips the slots a warp's rows cannot take (a band cull) and
+sums each slot's cotangents by a warp reduce-scatter
+(`csrc/coeff_walk_bwd.cuh`). Its design before (one thread a pixel,
+`coeff_walk.cuh`'s walk, which K8 and K9's forward still use) stays in
+the source as `d3ga_fused_bwd_v1`, reached only by
+`select_blend_bwd_baseline`; `select_blend_bwd_stage` launches one of
+the `BWD_DESIGNS` whole (the kernel with the band cull off among them,
+the reference for the cull's bits) or, at C = STAGE_C only, the kernel
+cut at one of the `BWD_STAGES`, with its own counters. chip_smoke.py uses
+them to check the cull's bits and to time the designs and the stages in
+turns; none is on any path of the port.
+
 The plain versions work block by block: per tile the rect mask, the
 first K overlapping lanes in rank order (the inclusive position cumsum's
 first K), the records gathered and shifted from block-local to
@@ -57,6 +70,20 @@ BLOCK_CHUNK = 8  # blocks a step of the plain versions: [8 * 64, 256, K] interme
 # backward's two kernels (per tile, then per block and lane) count once
 launches = 0
 bwd_launches = 0
+# the backward's stage cuts (csrc/coeff_walk_bwd.cuh): each writes what it
+# computed, so the differences of their device times split the per-tile
+# kernel; stage 4 is the kernel
+BWD_STAGES = ("selection + staging", "walk 1", "walk 2 per pixel", "per-slot sums", "stores")
+# the designs the stage entry point launches: the kernel, the kernel with
+# the band cull off, and its walk at 1 or 4 pixels a thread (it takes 2);
+# the cuts before stage 4 and the pixel variants are built for C = STAGE_C
+# (the champion's) only
+BWD_DESIGNS = {"kernel": 1, "kernel_no_cull": 2, "kernel_p1": 3, "kernel_p4": 4}
+STAGE_C = 6
+# one per launch of the backward's baseline design and of each (design,
+# stage) cut (chip_smoke.py's comparisons only)
+baseline_launches = 0
+stage_launches = {(d, s): 0 for d in BWD_DESIGNS for s in range(len(BWD_STAGES))}
 
 
 def _layout(vals):
@@ -177,11 +204,14 @@ def select_blend_bwd_plain(vals, rects, g, K, C, block_chunk=BLOCK_CHUNK):
 def _kernels():
     lib = cuda_build.load("fused")
     p, i = ctypes.c_void_p, ctypes.c_int
-    fwd, bwd = lib.d3ga_fused, lib.d3ga_fused_bwd
-    fwd.argtypes = [p, p, i, i, i, i, p, p, p]
-    bwd.argtypes = [p, p, p, i, i, i, i, p, p, p, p, p]
-    fwd.restype = bwd.restype = ctypes.c_int
-    return fwd, bwd
+    bwd_args = [p, p, p, i, i, i, i, p, p, p, p]
+    for name, args in (("d3ga_fused", [p, p, i, i, i, i, p, p, p]),
+                       ("d3ga_fused_bwd", bwd_args + [p]), ("d3ga_fused_bwd_v1", bwd_args + [p]),
+                       ("d3ga_fused_bwd_stage", bwd_args + [i, i, p])):
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def _check(name, vals, rects, K, C):
@@ -210,33 +240,44 @@ def _launch(vals, rects, K, C):
     counts = torch.empty((NB, TB), dtype=torch.int32, device=dev)
     if NB == 0:
         return tiles, counts
-    err = _kernels()[0](vals.data_ptr(), rects.data_ptr(), NB, kb, K, C, tiles.data_ptr(),
-                        counts.data_ptr(), cuda_build.stream_handle(dev))
+    err = _kernels().d3ga_fused(vals.data_ptr(), rects.data_ptr(), NB, kb, K, C,
+                                tiles.data_ptr(), counts.data_ptr(), cuda_build.stream_handle(dev))
     if err != 0:
         raise RuntimeError(f"select_blend: kernel launch failed (error {err})")
     launches += 1
     return tiles, counts
 
 
-def _launch_bwd(vals, rects, g, K, C):
-    global bwd_launches
-    NB, kb = _check("select_blend_bwd", vals, rects, K, C)
+def _launch_bwd(vals, rects, g, K, C, name="select_blend_bwd", entry="d3ga_fused_bwd",
+                extra=(), zero=False):
+    """Checks, allocates d(vals) and the per-tile kernel's scratch (zeroed
+    with `zero`), and launches the backward entry point `entry` of
+    csrc/fused.cu (with `extra` int arguments); the caller counts the
+    launch."""
+    NB, kb = _check(name, vals, rects, K, C)
     dev = vals.device
     if (g.dtype != torch.float32 or tuple(g.shape) != (NB, TB, NPIX, C + 1)
             or not g.is_contiguous() or g.device != dev):
-        raise ValueError(f"select_blend_bwd: cotangent {g.dtype} {tuple(g.shape)} on {g.device}")
+        raise ValueError(f"{name}: cotangent {g.dtype} {tuple(g.shape)} on {g.device}")
     dvals = torch.empty_like(vals)
     if NB == 0:
         return dvals
     # the per-tile kernel's slot rows, lane ids and live-slot counts
-    drec = torch.empty((NB * TB, K, 6 + C), dtype=torch.float32, device=dev)
+    drec = (torch.zeros if zero else torch.empty)((NB * TB, K, 6 + C), dtype=torch.float32,
+                                                  device=dev)
     sel = torch.empty((NB * TB, K), dtype=torch.int32, device=dev)
     live = torch.empty((NB * TB,), dtype=torch.int32, device=dev)
-    err = _kernels()[1](vals.data_ptr(), rects.data_ptr(), g.data_ptr(), NB, kb, K, C,
-                        drec.data_ptr(), sel.data_ptr(), live.data_ptr(), dvals.data_ptr(),
-                        cuda_build.stream_handle(dev))
+    err = getattr(_kernels(), entry)(
+        vals.data_ptr(), rects.data_ptr(), g.data_ptr(), NB, kb, K, C, drec.data_ptr(),
+        sel.data_ptr(), live.data_ptr(), dvals.data_ptr(), *extra, cuda_build.stream_handle(dev))
     if err != 0:
-        raise RuntimeError(f"select_blend_bwd: kernel launch failed (error {err})")
+        raise RuntimeError(f"{name}: kernel launch failed (error {err})")
+    return dvals
+
+
+def _launch_k9_bwd(vals, rects, g, K, C):
+    global bwd_launches
+    dvals = _launch_bwd(vals, rects, g, K, C)
     bwd_launches += 1
     return dvals
 
@@ -253,7 +294,49 @@ def select_blend_bwd(vals, rects, g, K, C):
     the plain version on CPU tensors."""
     if _device("select_blend_bwd", vals) == "cpu":
         return select_blend_bwd_plain(vals, rects, g, K, C)
-    return _launch_bwd(vals, rects, g.contiguous(), K, C)
+    return _launch_k9_bwd(vals, rects, g.contiguous(), K, C)
+
+
+def _card_only(name, vals):
+    if vals.device.type != "cuda":
+        raise ValueError(f"{name}: CUDA tensors only, got {vals.device}")
+
+
+def select_blend_bwd_baseline(vals, rects, g, K, C):
+    """K9's backward in its design before (`d3ga_fused_bwd_v1`: one
+    thread a pixel, coeff_walk.cuh's walk, then the same route kernel) on
+    CUDA tensors, for timing against `select_blend_bwd`."""
+    global baseline_launches
+    _card_only("select_blend_bwd_baseline", vals)
+    dvals = _launch_bwd(vals, rects, g.contiguous(), K, C, "select_blend_bwd_baseline",
+                        "d3ga_fused_bwd_v1")
+    baseline_launches += 1
+    return dvals
+
+
+def select_blend_bwd_stage(vals, rects, g, K, C, stage, design="kernel"):
+    """One of BWD_DESIGNS ("kernel": K9's backward; "kernel_no_cull": the
+    same with the band cull off, the same bits; "kernel_p1" / "kernel_p4":
+    its walk at 1 or 4 pixels a thread) with its per-tile kernel cut after
+    `stage` of BWD_STAGES, then the route kernel, on CUDA tensors: d(vals)
+    of what the cut computed (stage 4 is the whole backward; a cut before
+    it writes one value a thread into the tile's first slot rows, zeroed
+    first). Only "kernel" is cut before stage 4; those cuts and the pixel
+    variants take C = STAGE_C only."""
+    whole = len(BWD_STAGES) - 1
+    if stage not in range(len(BWD_STAGES)) or design not in BWD_DESIGNS:
+        raise ValueError(f"select_blend_bwd_stage: stage {stage} of design {design!r}")
+    if design != "kernel" and stage != whole:
+        raise ValueError(f"select_blend_bwd_stage: {design} runs whole (stage {whole}) only")
+    if (stage != whole or design.startswith("kernel_p")) and C != STAGE_C:
+        raise ValueError(f"select_blend_bwd_stage: stage {stage} of {design} is built for "
+                         f"C = {STAGE_C} only, not {C}")
+    _card_only("select_blend_bwd_stage", vals)
+    dvals = _launch_bwd(vals, rects, g.contiguous(), K, C, "select_blend_bwd_stage",
+                        "d3ga_fused_bwd_stage", (BWD_DESIGNS[design], stage),
+                        zero=stage != whole)
+    stage_launches[design, stage] += 1
+    return dvals
 
 
 class _FusedSelectBlend(torch.autograd.Function):
@@ -279,7 +362,7 @@ class _FusedSelectBlend(torch.autograd.Function):
         if plain:
             dvals = select_blend_bwd_plain(vals, rects, g, K, C)
         else:
-            dvals = _launch_bwd(vals, rects, g, K, C)
+            dvals = _launch_k9_bwd(vals, rects, g, K, C)
         return dvals, None, None, None, None
 
 

@@ -25,12 +25,14 @@ on the card: the test marked `cuda` runs chip_smoke.py's K2 edge checks
 and against its other batch sizes) and skips without a GPU.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
+from d3ga_tpu.raster import pallas_blend as jbl
 from d3ga_tpu.raster import pallas_blend_ct as jbct
 from d3ga_tpu_torch.raster import blend_ct
 from test_torch_raster import IMG_ATOL
@@ -105,6 +107,38 @@ def test_plain_on_threshold_matches_pallas_kernel():
     than 1e-3 of the largest are held (`flip_close`'s defaults)."""
     name = chip_smoke.K3_ON_THRESHOLD
     flip_close(plain_image(name).numpy(), jax_image(name))
+
+
+def test_split_power_matches_pallas_on_threshold():
+    """Given the JAX kernel's own coefficients (`_coeffs_ct`) on the faint
+    records on the threshold, the port's falloff power and log raw
+    (`blend_ct.split_power`, which `_blend_chunk` computes them by) equal
+    `pallas_blend._dot_split_b`'s bit for bit, and so do the alpha
+    decisions (power <= 0 and min(0.99, raw) >= 1/255)."""
+    _, rec, idx, counts, _, ntx, nty, C = CASES[chip_smoke.K3_ON_THRESHOLD]
+    basis_j = jbl._pixel_basis()  # [256, 8], two zero columns
+    basis_t = blend_ct._pixel_basis("cpu")
+    org = blend_ct._tile_origins(idx.shape[0], ntx, "cpu").numpy()
+    split = jax.jit(lambda c: jbl._dot_split_b(basis_j, c, jbct.C_NK))
+    coeffs_of = jax.jit(jbct._coeffs_ct)
+
+    def port(c):  # [8, K] -> the port's [256, K]
+        return blend_ct.split_power(basis_t, torch.from_numpy(np.array(c[:6].T))[None])[0].numpy()
+
+    decided = 0
+    for t in range(idx.shape[0]):
+        rec_ct = jnp.asarray(rec.numpy()[idx[t].numpy()].T)  # [CR, K]
+        for_t = [np.asarray(c) for c in coeffs_of(rec_ct, org[t, 0], org[t, 1])]
+        power, log_raw = (np.asarray(split(jnp.asarray(c))) for c in for_t)
+        p_t, l_t = (port(c) for c in for_t)
+        assert np.array_equal(p_t, power) and np.array_equal(l_t, log_raw)
+        use_j = (power <= 0) & (np.minimum(np.asarray(jnp.exp(log_raw)), jbct.ALPHA_MAX)
+                                >= jbct.ALPHA_SKIP)
+        use_t = (torch.from_numpy(p_t) <= 0) & (torch.clamp(
+            torch.exp(torch.from_numpy(l_t)), max=blend_ct.ALPHA_MAX) >= blend_ct.ALPHA_SKIP)
+        assert np.array_equal(use_t.numpy(), use_j)
+        decided += int(use_j.sum())
+    assert decided > 0
 
 
 def test_plain_clamps_counts():
