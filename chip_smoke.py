@@ -40,7 +40,11 @@ edge inputs (`k9_edge_cases`, both layouts) within its tolerances of its
 plain version and its baseline design (the design before), bit-equal
 across launches and to its own build with the band cull off, and timed
 in turns against the baseline and at 1 and 4 pixels a thread, cut at
-five stages. Then it
+five stages. K5's and K7's backwards, which walk with K3's walk, are
+held bit-equal to K3's drec given K3's cotangent in their layouts, on
+K3's edge inputs (`check_rec_bwd_edges`), at K5's four tile offsets and
+at full width, within K3's tolerances of their plain versions and their
+baseline designs, and timed in turns against the baselines and K3. Then it
 drives the paths of the full-width synthetic avatar (3 garments x 45,000
 Gaussians, 1024 x 667 pixels, random weights from seed 0):
 
@@ -791,6 +795,68 @@ def check_k3_edges(dev, line):
     return n
 
 
+def rec_bwd_calls(rec, idx, counts, g, ntx, nty, C, slices):
+    """K7's backward and K5's on each (offset, tiles) of `slices`, on K3's
+    inputs with K3's planar cotangent g [C+1, H, W] carried into their
+    layouts (K7's image [H, W, C+1], K5's tile-major [T, 256, C+1]):
+    {label: (the rows of K3's drec those tiles are, {"kernel", "plain",
+    "baseline": a call})}."""
+    img = g.permute(1, 2, 0).contiguous()
+    g_tiles = blend_rec._tiles_from_image(img, ntx, nty)
+    a7 = (rec, idx, counts, img, ntx, nty, C)
+    calls = {"K7": (slice(0, idx.shape[0]), {
+        "kernel": lambda: blend_rec.blend_gather_img_bwd(*a7),
+        "plain": lambda: blend_rec.blend_gather_img_bwd_plain(*a7),
+        "baseline": lambda: blend_rec.blend_gather_img_bwd_baseline(*a7)})}
+    for off, n in slices:
+        a5 = (rec, idx[off : off + n].contiguous(), counts[off : off + n].contiguous(), off,
+              g_tiles[off : off + n].contiguous(), ntx, C)
+        calls[f"K5 at offset {off}, {n} tiles"] = (slice(off, off + n), {
+            "kernel": lambda a5=a5: blend_rec.blend_gather_rec_bwd(*a5),
+            "plain": lambda a5=a5: blend_rec.blend_gather_rec_bwd_plain(*a5),
+            "baseline": lambda a5=a5: blend_rec.blend_gather_rec_bwd_baseline(*a5)})
+    return calls
+
+
+def check_rec_bwd_edges(dev, line):
+    """K7's and K5's backwards on K3's edge inputs (`k3_edge_cases`), given
+    K3's cotangent in their layouts, K5 on the whole grid and on each tile
+    of it alone: finite; on the card each drec equals K3's rows of the
+    same tiles bit for bit on every case, and but on K3_ON_THRESHOLD
+    (whose alpha tests decide by rounding) is within K3's tolerances of
+    its plain version and of its baseline design. Off the card (the plain
+    versions) each is held within K3's tolerances of K3's plain rows, but
+    on K3_ON_THRESHOLD. Returns the (case, call) pairs held."""
+    n = 0
+    for name, rec, idx, counts, g, ntx, nty, C in k3_edge_cases(dev):
+        T = idx.shape[0]
+        k3 = blend_ct.blend_gather_ct_bwd(rec, idx, counts, g, ntx, nty, C)
+        slices = [(0, T)] + ([(t, 1) for t in range(T)] if T > 1 else [])
+        for label, (rows, fns) in rec_bwd_calls(rec, idx, counts, g, ntx, nty, C,
+                                                slices).items():
+            out = fns["kernel"]()
+            where = f"{label} backward, edge case {name}"
+            check(bool(torch.isfinite(out).all()), f"{where}: non-finite cotangents")
+            if dev.type == "cuda":
+                check(torch.equal(bits(out), bits(k3[rows])), f"{where}: differs from K3's bits")
+                if name != K3_ON_THRESHOLD:
+                    check(slot_ok(slot_err(out, fns["plain"]())), f"{where}: differs from plain")
+                    check(slot_ok(slot_err(out, fns["baseline"]())),
+                          f"{where}: differs from the baseline")
+            elif name != K3_ON_THRESHOLD:
+                check(slot_ok(slot_err(out, k3[rows])), f"{where}: differs from K3's rows")
+            n += 1
+    sync(dev)
+    line(f"K7 and K5 backward edge inputs: {n} (case, call) pairs (K5 on the whole grid and "
+         "each tile alone) " + (
+             f"bit-equal to K3's drec on every case, and within p999 <= {K3_P999_REL} x "
+             f"max|drec| / rel_l2 <= {K3_REL_L2} of plain and of the baseline designs (but "
+             f"{K3_ON_THRESHOLD!r})" if dev.type == "cuda" else
+             f"within p999 <= {K3_P999_REL} x max|drec| / rel_l2 <= {K3_REL_L2} of K3's plain "
+             f"rows (but {K3_ON_THRESHOLD!r})"))
+    return n
+
+
 def check_k9_edges(dev, line):
     """K9's backward on its edge inputs (`k9_edge_cases`), through both
     input layouts (the forward and its autograd backward): finite, zero in
@@ -871,6 +937,17 @@ def ptxas_usage(log, marker):
     return out
 
 
+def rec_bwd_ptxas(report, layout, C):
+    """ptxas' usage of K5's (layout "rec") or K7's ("img") backward and its
+    baseline design at C, from blend_rec's build log, and its summary."""
+    logs = report.get("build_logs", {}).get("blend_rec")
+    usage = {d: ptxas_usage(logs, f"blend_gather_{layout}_bwd_{m}ILi{C}E")
+             for d, m in (("kernel", "kernel"), ("baseline", "v1_kernel"))}
+    return usage, (f"ptxas at C={C} (registers, static smem bytes, spill stores): " + "; ".join(
+        f"{d} {u.get('registers')}, {u.get('smem')}, {u.get('spill_stores')}"
+        for d, us in usage.items() for u in us.values()))
+
+
 def image_err(a, b):
     err = (a.float() - b.float()).abs().flatten()
     k = max(1, int(np.ceil(0.999 * err.numel())))
@@ -931,6 +1008,7 @@ def reset_launch_counts():
             counts[k] = 0
     blend_rec.launches = blend_rec.bwd_launches = 0
     blend_rec.img_launches = blend_rec.img_bwd_launches = 0
+    blend_rec.bwd_baseline_launches = blend_rec.img_bwd_baseline_launches = 0
     blend.launches = blend.bwd_launches = fused.launches = fused.bwd_launches = 0
     fused.baseline_launches = 0
     for k in fused.stage_launches:
@@ -940,12 +1018,14 @@ def reset_launch_counts():
 
 def off_path_launches():
     """Launches, since the counts were reset, of what no path of the port
-    calls: the baseline designs of K1, K2, K3, K4 and K9's backward and
-    the stage entry points of K2, K3 and K9's backward (their cuts, other
-    designs and diagnostic builds). Each main-path window must see 0."""
+    calls: the baseline designs of K1, K2, K3, K4 and of K5's, K7's and
+    K9's backwards, and the stage entry points of K2, K3 and K9's backward
+    (their cuts, other designs and diagnostic builds). Each main-path
+    window must see 0."""
     return (extract.baseline_launches + segsum.baseline_launches + blend_ct.baseline_launches
             + blend_ct.fwd_baseline_launches + sum(blend_ct.stage_launches.values())
-            + sum(blend_ct.fwd_stage_launches.values()) + fused.baseline_launches
+            + sum(blend_ct.fwd_stage_launches.values()) + blend_rec.bwd_baseline_launches
+            + blend_rec.img_bwd_baseline_launches + fused.baseline_launches
             + sum(fused.stage_launches.values()))
 
 
@@ -1777,9 +1857,12 @@ def train(dev, report, scene):
 
 
 def sharded(dev, report, scene):
-    """The sharded raster on a NCCL world of one: K5 forward and backward
+    """The sharded raster on a NCCL world of one: K5's and K7's backwards on
+    K3's edge inputs (`check_rec_bwd_edges`); K5 forward and backward
     against their plain versions at full width (the whole grid, and the
-    slices of emulated ranks of a 4-way banded split), rasterize_sharded
+    slices of emulated ranks of a 4-way banded split), the backward on the
+    card bit-equal to K3's rows of the same tiles and within tolerance of
+    its baseline design, timed in turns against both; rasterize_sharded
     against the single-device rasterize_tiled on frame 0's Gaussians, the
     banded objective's gradients with the kernels against the plain
     versions, then 10 forward+backward calls of it, each launching K1
@@ -1810,13 +1893,20 @@ def _sharded_phases(dev, report, scene, mesh, line):
     n_contrib = int(cnt.sum())
 
     # -- K5: flat-tiles blend, forward and backward, vs plain ---------------
+    with torch.no_grad():
+        rec_bwd_edges = check_rec_bwd_edges(dev, line)
     tps = -(-nty // SHARD_EMULATE) * ntx  # tiles of one band of a 4-way split
     slices = [(0, T)] + [(r * tps, min(tps, T - r * tps)) for r in range(SHARD_EMULATE)
                          if r * tps < T]
     gen = torch.Generator(device=dev).manual_seed(5)
     g_full = torch.randn((T, 256, C + 1), generator=gen, device=dev)
-    k5 = {"fwd": [], "bwd": []}
+    # the same cotangent in K3's planar layout: K5's drec at each offset
+    # is K3's rows of those tiles, to the bit
+    g_planar = blend_rec._image_from_tiles(g_full, ntx, nty).permute(2, 0, 1).contiguous()
+    k3_args = (b.records_ext, b.idx, cnt, g_planar, ntx, nty, C)
+    k5 = {"fwd": [], "bwd": [], "bwd_vs_baseline": []}
     with torch.no_grad():
+        drec_k3 = blend_ct.blend_gather_ct_bwd(*k3_args)
         for off, n in slices:
             args = (b.records_ext, b.idx[off : off + n].contiguous(), cnt[off : off + n].contiguous(),
                     off, ntx, C)
@@ -1841,6 +1931,15 @@ def _sharded_phases(dev, report, scene, mesh, line):
             check(slot_ok(d),
                   f"K5 backward at offset {off}: outside p999 <= {K3_P999_REL} x max|drec| / "
                   f"rel_l2 <= {K3_REL_L2}")
+            if dev.type == "cuda":
+                check(torch.equal(bits(drec_k), bits(drec_k3[off : off + n])),
+                      f"K5 backward at offset {off}: differs from K3's rows of its tiles")
+                db = slot_err(drec_k, blend_rec.blend_gather_rec_bwd_baseline(*args[:4], g, ntx, C))
+                k5["bwd_vs_baseline"].append(dict(db, offset=off, tiles=n))
+                line(f"K5 backward at tile offset {off}: bit-equal to K3's rows of its tiles; vs "
+                     f"its baseline design p999_abs={db['p999_abs']:.3e} rel_l2={db['rel_l2']:.3e}")
+                check(slot_ok(db), f"K5 backward at offset {off}: outside p999 <= {K3_P999_REL} "
+                                   f"x max|drec| / rel_l2 <= {K3_REL_L2} of the baseline")
         # the whole grid at offset 0 is K2's image, tile-major
         img_ct = blend_ct.blend_gather_ct(b.records_ext, b.idx, cnt, ntx, nty, C)
         full = blend_rec.blend_gather_rec(b.records_ext, b.idx, cnt, 0, ntx, C)
@@ -1858,6 +1957,18 @@ def _sharded_phases(dev, report, scene, mesh, line):
         k5b_plain_t = measure(
             lambda: blend_rec.blend_gather_rec_bwd_plain(*fargs[:4], g_full, ntx, C), 3, dev,
             warmup=1)
+        k5b_turns = k5b_ptxas = None
+        if dev.type == "cuda":
+            k5b_turns = in_turns({
+                "baseline": lambda: blend_rec.blend_gather_rec_bwd_baseline(
+                    *fargs[:4], g_full, ntx, C),
+                "kernel": lambda: blend_rec.blend_gather_rec_bwd(*fargs[:4], g_full, ntx, C),
+                "k3": lambda: blend_ct.blend_gather_ct_bwd(*k3_args),
+            }, 20, dev)
+            k5b_ptxas, said = rec_bwd_ptxas(report, "rec", C)
+            line(f"K5 backward in turns (the whole grid, offset 0; k3: K3 on the same selection "
+                 f"and cotangent): {turns_summary(k5b_turns)}; {said}")
+        del drec_k3
     in_bytes = 4 * (scene["uniq"] * CR + n_contrib + T)
     k5_bytes = in_bytes + 4 * T * 256 * (C + 1)
     k5b_bytes = in_bytes + 4 * g_full.numel() + 4 * T * b.idx.shape[1] * CR
@@ -1982,6 +2093,8 @@ def _sharded_phases(dev, report, scene, mesh, line):
             "max_abs_err": max(e["max_abs"] for e in k5["bwd"]),
             "ms": k5b_t["ms"], "plain_ms": k5b_plain_t["ms"], "bound_ms": k5b_bound_ms,
             "bound_by": k5b_by, "library_ms": None,
+            "baseline_ms": k5b_turns and k5b_turns["baseline"]["ms"],
+            "designs_ms": k5b_turns and {d: v["ms"] for d, v in k5b_turns.items()},
         },
     ]
     timings = {"blend_gather_rec": {"kernel": k5_t, "plain": k5_plain_t},
@@ -1994,6 +2107,7 @@ def _sharded_phases(dev, report, scene, mesh, line):
              + ", ".join(f"{nm}={v['call_ms']:.4f}" for nm, v in t.items()))
     report.update(
         k5=k5, k5_vs_k2=k5_vs_k2, k5_pairs=pairs, k5_bytes=k5_bytes, k5b_bytes=k5b_bytes,
+        rec_bwd_edges=rec_bwd_edges, k5b_turns=k5b_turns, k5b_ptxas=k5b_ptxas,
         sharded_vs_single=sh, sharded_vs_single_within_k=sh_in, aux_sharded=a_s, aux_single=a_1,
         objective_grad_rel_l2=obj_err,
         sharded_call_ms=call_ms, sharded_launches=launches, sharded_profiled=prof,
@@ -2021,8 +2135,10 @@ def launch_counts():
 
 def variants(dev, report, scene):
     """The rest of the single-device rasterizer: K7 (the image-layout
-    blend) forward and backward against the plain versions, and its image
-    against K2's, on the champion selection; the training step under the
+    blend) forward and backward against the plain versions, its image
+    against K2's and, on the card, its backward bit-equal to K3's drec and
+    timed in turns against its baseline design and K3, on the champion
+    selection; the training step under the
     ActorsHQ actor's raster settings (dupsort_tile, dup 4) in the rec
     layout (K7) and in the ct layout (K2/K3), each with one step's
     gradients kernels vs plain, then 5 steps; the xla backend (the topk
@@ -2059,13 +2175,35 @@ def variants(dev, report, scene):
         check(k7_is_k2, "K7's image differs from K2's")
         check(slot_ok(k7b), f"K7 backward: outside p999 <= {K3_P999_REL} x max|drec| / "
                             f"rel_l2 <= {K3_REL_L2}")
+        # the same cotangent in K3's planar layout
+        k3_args = (*args[:3], g.permute(2, 0, 1).contiguous(), ntx, nty, C)
+        k7b_base = k7b_turns = k7b_ptxas = None
+        if dev.type == "cuda":
+            check(torch.equal(bits(drec_k), bits(blend_ct.blend_gather_ct_bwd(*k3_args))),
+                  "K7 backward: differs from K3's drec")
+            k7b_base = slot_err(drec_k, blend_rec.blend_gather_img_bwd_baseline(
+                *args[:3], g, ntx, nty, C))
+            line(f"K7 backward: bit-equal to K3's drec; vs its baseline design p999_abs="
+                 f"{k7b_base['p999_abs']:.3e} rel_l2={k7b_base['rel_l2']:.3e}")
+            check(slot_ok(k7b_base), f"K7 backward: outside p999 <= {K3_P999_REL} x max|drec| / "
+                                     f"rel_l2 <= {K3_REL_L2} of the baseline")
         k7_t = measure(lambda: blend_rec.blend_gather_img(*args), 20, dev)
         k7_plain_t = measure(lambda: blend_rec.blend_gather_img_plain(*args), 3, dev, warmup=1)
         k7b_t = measure(lambda: blend_rec.blend_gather_img_bwd(*args[:3], g, ntx, nty, C), 20, dev)
         k7b_plain_t = measure(
             lambda: blend_rec.blend_gather_img_bwd_plain(*args[:3], g, ntx, nty, C), 3, dev,
             warmup=1)
-    del out_p, planar, drec_k, drec_p
+        if dev.type == "cuda":
+            k7b_turns = in_turns({
+                "baseline": lambda: blend_rec.blend_gather_img_bwd_baseline(
+                    *args[:3], g, ntx, nty, C),
+                "kernel": lambda: blend_rec.blend_gather_img_bwd(*args[:3], g, ntx, nty, C),
+                "k3": lambda: blend_ct.blend_gather_ct_bwd(*k3_args),
+            }, 20, dev)
+            k7b_ptxas, said = rec_bwd_ptxas(report, "img", C)
+            line(f"K7 backward in turns (k3: K3 on the same selection and cotangent): "
+                 f"{turns_summary(k7b_turns)}; {said}")
+    del out_p, planar, drec_k, drec_p, k3_args
     in_bytes = 4 * (scene["uniq"] * CR + n_contrib + T)
     k7_bytes = in_bytes + 4 * out_k.numel()
     k7b_bytes = in_bytes + 4 * g.numel() + 4 * T * b.idx.shape[1] * CR
@@ -2234,6 +2372,8 @@ def variants(dev, report, scene):
             "launches": rec_launches["blend_gather_img_bwd"], "max_abs_err": k7b["max_abs"],
             "ms": k7b_t["ms"], "plain_ms": k7b_plain_t["ms"],
             "bound_ms": k7b_bound_ms, "bound_by": k7b_by, "library_ms": None,
+            "baseline_ms": k7b_turns and k7b_turns["baseline"]["ms"],
+            "designs_ms": k7b_turns and {d: v["ms"] for d, v in k7b_turns.items()},
         },
     ]
     timings = {"blend_gather_img": {"kernel": k7_t, "plain": k7_plain_t},
@@ -2245,7 +2385,8 @@ def variants(dev, report, scene):
              f"launches_per_step={k['launches'] / VARIANT_STEPS:g}; wall per call "
              + ", ".join(f"{nm}={v['call_ms']:.4f}" for nm, v in t.items()))
     report.update(
-        k7=k7, k7_is_k2=k7_is_k2, k7b=k7b, k7_pairs=pairs, k7_bytes=k7_bytes,
+        k7=k7, k7_is_k2=k7_is_k2, k7b=k7b, k7b_vs_baseline=k7b_base, k7b_turns=k7b_turns,
+        k7b_ptxas=k7b_ptxas, k7_pairs=pairs, k7_bytes=k7_bytes,
         k7b_bytes=k7b_bytes, actorshq=actorshq, xla_vs_k2=xe, xla_aux=a_x, xla_ms=xla_ms,
         xla_profiled=xla_prof,
         xla_peak_bytes=peak, xla_base_bytes=base, api_vs_oracle=api_err,

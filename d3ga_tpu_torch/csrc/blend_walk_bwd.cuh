@@ -1,5 +1,6 @@
-// K3's blend backward walk (blend_ct_bwd.cu): the recompute-forward VJP
-// of one 16x16 tile, two pixels a thread. It computes what
+// K3's blend backward walk (blend_ct_bwd.cu; K5's and K7's backwards in
+// blend_rec.cu walk with it too): the recompute-forward VJP of one 16x16
+// tile, two pixels a thread. It computes what
 // blend_walk.cuh::blend_walk_bwd computes, pixel for pixel: the same
 // falloff polynomial, thresholds (power <= 0, alpha >= 1/255, the walk
 // stops before the record where T * (1 - alpha) < 1e-4, dp only where

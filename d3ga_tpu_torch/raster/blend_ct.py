@@ -30,9 +30,10 @@ record each block's SM and clocks) or K2 cut at one of the
 
 K3 walks a tile with 128 threads of two pixels each, skips the records
 a warp's rows cannot take (the band cull), and sums each record's
-cotangents by a warp reduce-scatter (`csrc/blend_walk_bwd.cuh`). The
-design before (one thread a pixel, `blend_walk.cuh::blend_walk_bwd`,
-which K5's and K7's backwards still use) stays in the source as
+cotangents by a warp reduce-scatter (`csrc/blend_walk_bwd.cuh`; K5's
+and K7's backwards walk with it too). The design before (one thread a
+pixel, `blend_walk.cuh::blend_walk_bwd`, which K5's and K7's backward
+baselines also use) stays in the source as
 `d3ga_blend_gather_ct_bwd_v1`, reached only by
 `blend_gather_ct_bwd_baseline`; `blend_gather_ct_bwd_stage` launches one
 of the `DESIGNS` whole (K3 with the band cull off among them, the
@@ -48,6 +49,7 @@ import functools
 
 import torch
 
+from d3ga_tpu_torch.ops.flog import flog, fma32
 from d3ga_tpu_torch.raster import segsum
 from d3ga_tpu_torch.utils import cuda_build
 
@@ -125,11 +127,15 @@ def _blend_chunk(rec, org, live, basis):
     x = rec[..., 0] - org[:, 0:1]
     y = rec[..., 1] - org[:, 1:2]
     A, B, Cc = rec[..., 2], rec[..., 3], rec[..., 4]
-    logop = torch.log(torch.clamp(rec[..., 5], min=OP_EPS))
+    logop = flog(torch.clamp(rec[..., 5], min=OP_EPS))
     c0 = -0.5 * (A * x * x + Cc * y * y) - B * x * y
+    # the constant row of coeffs2 as XLA-CPU computes it in the JAX
+    # kernel, whose alpha tests it decides on the 1/255 threshold: the log
+    # its own (ops/flog.py), A x^2 + C y^2 contracted to one fma
+    c0_fma = -0.5 * fma32(A * x, x, Cc * y * y) - B * x * y
     rest = [A * x + B * y, Cc * y + B * x, -0.5 * A, -0.5 * Cc, -B]
     coeffs = torch.stack([c0] + rest, -1)  # [B, K, 6]
-    coeffs2 = torch.stack([c0 + logop] + rest, -1)
+    coeffs2 = torch.stack([c0_fma + logop] + rest, -1)
     power = split_power(basis, coeffs)  # [B, 256, K]
     raw = torch.exp(split_power(basis, coeffs2))
     alpha = torch.clamp(raw, max=ALPHA_MAX)

@@ -11,7 +11,10 @@ D3GA_BLEND_LAYOUT=rec), replaces `::_run_forward_img` and
 `::_run_backward_img` (`_forward_body_img`, `_backward_body_img`) behind
 `blend_image_rec`. Both are hand-written CUDA kernels in `csrc/blend_rec.cu`
 (its header gives the bound and the design). The math is K2/K3's
-(`blend_ct.py`); what differs is where each tile sits and the layout:
+(`blend_ct.py`), and the backwards walk a tile with K3's own walk
+(`csrc/blend_walk_bwd.cuh`), so that given the same records, ids, counts
+and cotangent values their drec equals K3's to the bit; what differs is
+where each tile sits and the layout:
 
 - K5: the T_loc tiles are tiles `tile_offset .. tile_offset + T_loc - 1`
   of the row-major grid `ntx` tiles wide: tile t has its pixel origin at
@@ -36,6 +39,13 @@ TPU kernels' count-adaptive half width (`_khalf`), `TILES_PER_BLOCK` and
 `_img_group` (D3GA_TPB, D3GA_IMG_G) are tiling choices, not semantics:
 the walk stops at each tile's count, past which every slot holds the
 inert sentinel.
+
+The backwards' designs before (one thread a pixel, `blend_walk.cuh`'s
+walk) stay in the source as `d3ga_blend_gather_rec_bwd_v1` and
+`d3ga_blend_gather_img_bwd_v1`, reached only by
+`blend_gather_rec_bwd_baseline` and `blend_gather_img_bwd_baseline`
+(CUDA tensors only, with their own counters): chip_smoke.py times them
+against the kernels in turns; no path of the port calls them.
 """
 
 import ctypes
@@ -48,6 +58,7 @@ from d3ga_tpu_torch.raster.blend_ct import (
     MAX_C,
     NPIX,
     TILE,
+    _card_only,
     _tile_origins,
     blend_tiles_bwd_plain,
     blend_tiles_plain,
@@ -60,6 +71,10 @@ launches = 0
 bwd_launches = 0
 img_launches = 0
 img_bwd_launches = 0
+# one per launch of K5's and K7's backward baseline designs (chip_smoke.py's
+# comparisons only)
+bwd_baseline_launches = 0
+img_bwd_baseline_launches = 0
 
 
 def blend_gather_rec_plain(records_ext, idx, counts, tile_offset, ntx, C, tile_chunk=256,
@@ -88,13 +103,16 @@ def _lib():
     lib.d3ga_blend_gather_rec.argtypes = common + [ctypes.c_void_p, ctypes.c_void_p]
     lib.d3ga_blend_gather_rec_bwd.argtypes = common + [ctypes.c_void_p, ctypes.c_void_p,
                                                        ctypes.c_void_p]
+    lib.d3ga_blend_gather_rec_bwd_v1.argtypes = lib.d3ga_blend_gather_rec_bwd.argtypes
     img = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
            ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
     lib.d3ga_blend_gather_img.argtypes = img + [ctypes.c_void_p, ctypes.c_void_p]
     lib.d3ga_blend_gather_img_bwd.argtypes = img + [ctypes.c_void_p, ctypes.c_void_p,
                                                     ctypes.c_void_p]
+    lib.d3ga_blend_gather_img_bwd_v1.argtypes = lib.d3ga_blend_gather_img_bwd.argtypes
     for fn in (lib.d3ga_blend_gather_rec, lib.d3ga_blend_gather_rec_bwd,
-               lib.d3ga_blend_gather_img, lib.d3ga_blend_gather_img_bwd):
+               lib.d3ga_blend_gather_rec_bwd_v1, lib.d3ga_blend_gather_img,
+               lib.d3ga_blend_gather_img_bwd, lib.d3ga_blend_gather_img_bwd_v1):
         fn.restype = ctypes.c_int
     return lib
 
@@ -134,25 +152,33 @@ def _launch(records_ext, idx, counts, tile_offset, ntx, C):
     return out
 
 
-def _launch_bwd(records_ext, idx, counts, tile_offset, g, ntx, C):
-    global bwd_launches
-    _check("blend_gather_rec_bwd", records_ext, idx, counts, tile_offset, ntx, C)
+def _launch_bwd(records_ext, idx, counts, tile_offset, g, ntx, C,
+                name="blend_gather_rec_bwd", entry="d3ga_blend_gather_rec_bwd"):
+    """Launch K5's backward (or, by `entry`, its baseline design); the
+    caller counts the launch."""
+    _check(name, records_ext, idx, counts, tile_offset, ntx, C)
     T, K = idx.shape
     if g.dtype != torch.float32 or tuple(g.shape) != (T, NPIX, C + 1):
-        raise ValueError(f"blend_gather_rec_bwd: cotangent {g.dtype} {tuple(g.shape)}")
+        raise ValueError(f"{name}: cotangent {g.dtype} {tuple(g.shape)}")
     if g.device != records_ext.device or not g.is_contiguous():
-        raise ValueError("blend_gather_rec_bwd: cotangent on another device or not contiguous")
+        raise ValueError(f"{name}: cotangent on another device or not contiguous")
     n_ext, CR = records_ext.shape
     drec = torch.empty((T, K, CR), dtype=torch.float32, device=records_ext.device)
     if T == 0:
         return drec
-    err = _lib().d3ga_blend_gather_rec_bwd(
+    err = getattr(_lib(), entry)(
         records_ext.data_ptr(), n_ext, CR, idx.data_ptr(), T, K, counts.data_ptr(),
         int(tile_offset), ntx, C, g.data_ptr(), drec.data_ptr(),
         cuda_build.stream_handle(records_ext.device),
     )
     if err != 0:
-        raise RuntimeError(f"blend_gather_rec_bwd: kernel launch failed (error {err})")
+        raise RuntimeError(f"{name}: kernel launch failed (error {err})")
+    return drec
+
+
+def _launch_k5_bwd(records_ext, idx, counts, tile_offset, g, ntx, C):
+    global bwd_launches
+    drec = _launch_bwd(records_ext, idx, counts, tile_offset, g, ntx, C)
     bwd_launches += 1
     return drec
 
@@ -165,7 +191,19 @@ def blend_gather_rec_bwd(records_ext, idx, counts, tile_offset, g, ntx, C):
         return blend_gather_rec_bwd_plain(records_ext, idx, counts, tile_offset, g, ntx, C)
     if records_ext.device.type != "cuda":
         raise ValueError(f"blend_gather_rec_bwd: unsupported device {records_ext.device}")
-    return _launch_bwd(records_ext, idx, counts, tile_offset, g.contiguous(), ntx, C)
+    return _launch_k5_bwd(records_ext, idx, counts, tile_offset, g.contiguous(), ntx, C)
+
+
+def blend_gather_rec_bwd_baseline(records_ext, idx, counts, tile_offset, g, ntx, C):
+    """K5's backward design before (`d3ga_blend_gather_rec_bwd_v1`: one
+    thread a pixel, blend_walk.cuh's walk) on CUDA tensors, for timing
+    against `blend_gather_rec_bwd`."""
+    global bwd_baseline_launches
+    _card_only("blend_gather_rec_bwd_baseline", records_ext)
+    drec = _launch_bwd(records_ext, idx, counts, tile_offset, g.contiguous(), ntx, C,
+                       "blend_gather_rec_bwd_baseline", "d3ga_blend_gather_rec_bwd_v1")
+    bwd_baseline_launches += 1
+    return drec
 
 
 class _BlendGatherRec(torch.autograd.Function):
@@ -190,7 +228,7 @@ class _BlendGatherRec(torch.autograd.Function):
         if plain:
             drec = blend_gather_rec_bwd_plain(records_ext, idx, counts, tile_offset, g, ntx, C)
         else:
-            drec = _launch_bwd(records_ext, idx, counts, tile_offset, g, ntx, C)
+            drec = _launch_k5_bwd(records_ext, idx, counts, tile_offset, g, ntx, C)
         n = records_ext.shape[0] - 1
         dre = segsum.combine_from_slots(drec, idx, n, dup2, plain=plain)
         return dre, None, None, None, None, None, None, None
@@ -270,22 +308,30 @@ def _launch_img(records_ext, idx, counts, ntx, nty, C):
     return out
 
 
-def _launch_img_bwd(records_ext, idx, counts, g, ntx, nty, C):
-    global img_bwd_launches
-    _check_img("blend_gather_img_bwd", records_ext, idx, counts, ntx, nty, C)
+def _launch_img_bwd(records_ext, idx, counts, g, ntx, nty, C,
+                    name="blend_gather_img_bwd", entry="d3ga_blend_gather_img_bwd"):
+    """Launch K7's backward (or, by `entry`, its baseline design); the
+    caller counts the launch."""
+    _check_img(name, records_ext, idx, counts, ntx, nty, C)
     if g.dtype != torch.float32 or tuple(g.shape) != (nty * TILE, ntx * TILE, C + 1):
-        raise ValueError(f"blend_gather_img_bwd: cotangent {g.dtype} {tuple(g.shape)}")
+        raise ValueError(f"{name}: cotangent {g.dtype} {tuple(g.shape)}")
     if g.device != records_ext.device or not g.is_contiguous():
-        raise ValueError("blend_gather_img_bwd: cotangent on another device or not contiguous")
+        raise ValueError(f"{name}: cotangent on another device or not contiguous")
     n_ext, CR = records_ext.shape
     T, K = idx.shape
     drec = torch.empty((T, K, CR), dtype=torch.float32, device=records_ext.device)
-    err = _lib().d3ga_blend_gather_img_bwd(
+    err = getattr(_lib(), entry)(
         records_ext.data_ptr(), n_ext, CR, idx.data_ptr(), T, K, counts.data_ptr(), ntx, C,
         g.data_ptr(), drec.data_ptr(), cuda_build.stream_handle(records_ext.device),
     )
     if err != 0:
-        raise RuntimeError(f"blend_gather_img_bwd: kernel launch failed (error {err})")
+        raise RuntimeError(f"{name}: kernel launch failed (error {err})")
+    return drec
+
+
+def _launch_k7_bwd(records_ext, idx, counts, g, ntx, nty, C):
+    global img_bwd_launches
+    drec = _launch_img_bwd(records_ext, idx, counts, g, ntx, nty, C)
     img_bwd_launches += 1
     return drec
 
@@ -298,7 +344,19 @@ def blend_gather_img_bwd(records_ext, idx, counts, g, ntx, nty, C):
         return blend_gather_img_bwd_plain(records_ext, idx, counts, g, ntx, nty, C)
     if records_ext.device.type != "cuda":
         raise ValueError(f"blend_gather_img_bwd: unsupported device {records_ext.device}")
-    return _launch_img_bwd(records_ext, idx, counts, g.contiguous(), ntx, nty, C)
+    return _launch_k7_bwd(records_ext, idx, counts, g.contiguous(), ntx, nty, C)
+
+
+def blend_gather_img_bwd_baseline(records_ext, idx, counts, g, ntx, nty, C):
+    """K7's backward design before (`d3ga_blend_gather_img_bwd_v1`: one
+    thread a pixel, blend_walk.cuh's walk) on CUDA tensors, for timing
+    against `blend_gather_img_bwd`."""
+    global img_bwd_baseline_launches
+    _card_only("blend_gather_img_bwd_baseline", records_ext)
+    drec = _launch_img_bwd(records_ext, idx, counts, g.contiguous(), ntx, nty, C,
+                           "blend_gather_img_bwd_baseline", "d3ga_blend_gather_img_bwd_v1")
+    img_bwd_baseline_launches += 1
+    return drec
 
 
 class _BlendGatherImg(torch.autograd.Function):
@@ -324,7 +382,7 @@ class _BlendGatherImg(torch.autograd.Function):
         if plain:
             drec = blend_gather_img_bwd_plain(records_ext, idx, counts, g, ntx, nty, C)
         else:
-            drec = _launch_img_bwd(records_ext, idx, counts, g, ntx, nty, C)
+            drec = _launch_k7_bwd(records_ext, idx, counts, g, ntx, nty, C)
         n = records_ext.shape[0] - 1
         dre = segsum.combine_from_slots(drec, idx, n, dup2, plain=plain)
         return dre, None, None, None, None, None, None, None
