@@ -44,7 +44,13 @@ five stages. K5's and K7's backwards, which walk with K3's walk, are
 held bit-equal to K3's drec given K3's cotangent in their layouts, on
 K3's edge inputs (`check_rec_bwd_edges`), at K5's four tile offsets and
 at full width, within K3's tolerances of their plain versions and their
-baseline designs, and timed in turns against the baselines and K3. Then it
+baseline designs, and timed in turns against the baselines and K3. K5's
+and K7's forwards, which walk with K2's walk and write their tiles' rows
+as 16-byte stores, are held bit-equal to K2's image of the same tiles and
+to their baseline designs (the designs before) on K2's edge inputs
+(`check_rec_fwd_edges`), at K5's four tile offsets and at full width,
+within the image tolerances of their plain versions, and timed in turns
+against the baselines and K2, with ptxas' registers. Then it
 drives the paths of the full-width synthetic avatar (3 garments x 45,000
 Gaussians, 1024 x 667 pixels, random weights from seed 0):
 
@@ -84,7 +90,8 @@ and checks that the kernels carried every frame, step, call and probe.
 Prints the card (nvidia-smi name, power limit), the checks, timings, a
 `{"kernels": [...]}` JSON line and, last, `{"ok": true, "device": ...}`.
 Details go to run_out/chip_smoke.json. Exits non-zero, before any
-result line, without a CUDA device or on any failed phase.
+result line, without a CUDA device or on any failed phase; a failure is
+also printed, with its traceback, to standard error.
 """
 
 import json
@@ -92,6 +99,7 @@ import os
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -267,7 +275,7 @@ def profile_calls(fn, calls, dev):
         return None
     from torch.autograd import DeviceType
 
-    prof, wall, rec = run
+    prof, wall, rec, attempts = run
     rec = max(rec, 1)
     events = prof.key_averages()
     kern = sorted(((e.key, *probes.per_call(e, rec)) for e in device_events(prof, DeviceType)),
@@ -275,9 +283,10 @@ def profile_calls(fn, calls, dev):
     busy = sum(ms for _, ms, _ in kern)
     launch = sum(e.self_cpu_time_total for e in events if e.key == "cudaLaunchKernel")
     return {
-        "calls": calls, "recorded_calls": rec, "wall_ms": wall, "device_busy_ms": busy,
-        "idle_share": 1 - busy / wall, "kernels_per_call": sum(n for _, _, n in kern),
-        "launch_host_ms": launch / 1e3 / calls, "top": kern[:12],
+        "calls": calls, "recorded_calls": rec, "attempts": attempts, "wall_ms": wall,
+        "device_busy_ms": busy, "idle_share": 1 - busy / wall,
+        "kernels_per_call": sum(n for _, _, n in kern), "launch_host_ms": launch / 1e3 / calls,
+        "top": kern[:12],
     }
 
 
@@ -857,6 +866,78 @@ def check_rec_bwd_edges(dev, line):
     return n
 
 
+def rec_fwd_calls(rec, idx, counts, ntx, nty, C, slices):
+    """K7's forward and K5's on each (offset, tiles) of `slices`, on K2's
+    inputs, each call's values tile-major ([T, 256, C+1]; K7's image
+    carried over): {label: (the tiles of the grid it blends, {"kernel",
+    "plain", "baseline": a call})}."""
+    def tiled(fn):
+        return lambda: blend_rec._tiles_from_image(fn(), ntx, nty)
+
+    a7 = (rec, idx, counts, ntx, nty, C)
+    calls = {"K7": (slice(0, idx.shape[0]), {
+        "kernel": tiled(lambda: blend_rec.blend_gather_img(*a7)),
+        "plain": tiled(lambda: blend_rec.blend_gather_img_plain(*a7)),
+        "baseline": tiled(lambda: blend_rec.blend_gather_img_baseline(*a7))})}
+    for off, n in slices:
+        a5 = (rec, idx[off : off + n].contiguous(), counts[off : off + n].contiguous(), off, ntx,
+              C)
+        calls[f"K5 at offset {off}, {n} tiles"] = (slice(off, off + n), {
+            "kernel": lambda a5=a5: blend_rec.blend_gather_rec(*a5),
+            "plain": lambda a5=a5: blend_rec.blend_gather_rec_plain(*a5),
+            "baseline": lambda a5=a5: blend_rec.blend_gather_rec_baseline(*a5)})
+    return calls
+
+
+def k2_tiles(rec, idx, counts, ntx, nty, C):
+    """K2's planar image of the grid, tile-major [T, 256, C+1]."""
+    img = blend_ct.blend_gather_ct(rec, idx, counts, ntx, nty, C)
+    return blend_rec._tiles_from_image(img.permute(1, 2, 0), ntx, nty)
+
+
+def check_rec_fwd_edges(dev, line):
+    """K7's and K5's forwards on K2's edge inputs (`k3_edge_cases`), K5 on
+    the whole grid and on each tile of it alone: finite; on the card
+    bit-equal to K2's image of the same tiles and to their baseline
+    designs on every case and, but on K3_ON_THRESHOLD (whose alpha tests
+    decide by rounding), within the image tolerances of their plain
+    versions. Off the card (the plain versions) each whole-grid call is
+    K2's plain image to the bit, and each tile alone within the image
+    tolerances of K2's rows (the plain einsum over one tile rounds apart
+    from a batch of tiles: up to 3e-7 at C 1). Returns the (case, call)
+    pairs held."""
+    n = 0
+    for name, rec, idx, counts, _, ntx, nty, C in k3_edge_cases(dev):
+        T = idx.shape[0]
+        k2 = k2_tiles(rec, idx, counts, ntx, nty, C)
+        slices = [(0, T)] + ([(t, 1) for t in range(T)] if T > 1 else [])
+        for label, (rows, fns) in rec_fwd_calls(rec, idx, counts, ntx, nty, C, slices).items():
+            out = fns["kernel"]()
+            where = f"{label} forward, edge case {name}"
+            check(bool(torch.isfinite(out).all()), f"{where}: non-finite values")
+            if dev.type == "cuda" or rows == slice(0, T):
+                check(torch.equal(bits(out), bits(k2[rows])), f"{where}: differs from K2's bits")
+            else:
+                e = image_err(out, k2[rows])
+                check(image_ok(e), f"{where}: differs from K2's rows ({e})")
+            if dev.type == "cuda":
+                check(torch.equal(bits(out), bits(fns["baseline"]())),
+                      f"{where}: differs from the baseline design")
+                if name != K3_ON_THRESHOLD:
+                    e = image_err(out, fns["plain"]())
+                    check(image_ok(e), f"{where}: differs from plain ({e})")
+            n += 1
+    sync(dev)
+    line(f"K7 and K5 forward edge inputs: {n} (case, call) pairs (K5 on the whole grid and each "
+         "tile alone) " + (
+             "bit-equal to K2's image of the same tiles and to the baseline designs on every "
+             f"case, and within p999 <= {P999_MAX} / flips <= {FLIP_MAX} of plain (but "
+             f"{K3_ON_THRESHOLD!r})" if dev.type == "cuda" else
+             "bit-equal to K2's plain image on the whole grid, each tile alone within p999 <= "
+             f"{P999_MAX} / flips <= {FLIP_MAX} of K2's plain rows"))
+    return n
+
+
 def check_k9_edges(dev, line):
     """K9's backward on its edge inputs (`k9_edge_cases`), through both
     input layouts (the forward and its autograd backward): finite, zero in
@@ -937,11 +1018,13 @@ def ptxas_usage(log, marker):
     return out
 
 
-def rec_bwd_ptxas(report, layout, C):
-    """ptxas' usage of K5's (layout "rec") or K7's ("img") backward and its
-    baseline design at C, from blend_rec's build log, and its summary."""
+def rec_ptxas(report, layout, C, backward):
+    """ptxas' usage of K5's (layout "rec") or K7's ("img") forward or
+    backward and its baseline design at C, from blend_rec's build log,
+    and its summary."""
     logs = report.get("build_logs", {}).get("blend_rec")
-    usage = {d: ptxas_usage(logs, f"blend_gather_{layout}_bwd_{m}ILi{C}E")
+    kind = "bwd_" if backward else ""
+    usage = {d: ptxas_usage(logs, f"blend_gather_{layout}_{kind}{m}ILi{C}E")
              for d, m in (("kernel", "kernel"), ("baseline", "v1_kernel"))}
     return usage, (f"ptxas at C={C} (registers, static smem bytes, spill stores): " + "; ".join(
         f"{d} {u.get('registers')}, {u.get('smem')}, {u.get('spill_stores')}"
@@ -1008,6 +1091,7 @@ def reset_launch_counts():
             counts[k] = 0
     blend_rec.launches = blend_rec.bwd_launches = 0
     blend_rec.img_launches = blend_rec.img_bwd_launches = 0
+    blend_rec.fwd_baseline_launches = blend_rec.img_fwd_baseline_launches = 0
     blend_rec.bwd_baseline_launches = blend_rec.img_bwd_baseline_launches = 0
     blend.launches = blend.bwd_launches = fused.launches = fused.bwd_launches = 0
     fused.baseline_launches = 0
@@ -1018,13 +1102,14 @@ def reset_launch_counts():
 
 def off_path_launches():
     """Launches, since the counts were reset, of what no path of the port
-    calls: the baseline designs of K1, K2, K3, K4 and of K5's, K7's and
-    K9's backwards, and the stage entry points of K2, K3 and K9's backward
-    (their cuts, other designs and diagnostic builds). Each main-path
-    window must see 0."""
+    calls: the baseline designs of K1, K2, K3, K4, of K5's and K7's
+    forwards and backwards and of K9's backward, and the stage entry
+    points of K2, K3 and K9's backward (their cuts, other designs and
+    diagnostic builds). Each main-path window must see 0."""
     return (extract.baseline_launches + segsum.baseline_launches + blend_ct.baseline_launches
             + blend_ct.fwd_baseline_launches + sum(blend_ct.stage_launches.values())
-            + sum(blend_ct.fwd_stage_launches.values()) + blend_rec.bwd_baseline_launches
+            + sum(blend_ct.fwd_stage_launches.values()) + blend_rec.fwd_baseline_launches
+            + blend_rec.img_fwd_baseline_launches + blend_rec.bwd_baseline_launches
             + blend_rec.img_bwd_baseline_launches + fused.baseline_launches
             + sum(fused.stage_launches.values()))
 
@@ -1857,12 +1942,14 @@ def train(dev, report, scene):
 
 
 def sharded(dev, report, scene):
-    """The sharded raster on a NCCL world of one: K5's and K7's backwards on
-    K3's edge inputs (`check_rec_bwd_edges`); K5 forward and backward
-    against their plain versions at full width (the whole grid, and the
-    slices of emulated ranks of a 4-way banded split), the backward on the
-    card bit-equal to K3's rows of the same tiles and within tolerance of
-    its baseline design, timed in turns against both; rasterize_sharded
+    """The sharded raster on a NCCL world of one: K5's and K7's forwards
+    and backwards on K3's edge inputs (`check_rec_fwd_edges`,
+    `check_rec_bwd_edges`); K5 forward and backward against their plain
+    versions at full width (the whole grid, and the slices of emulated
+    ranks of a 4-way banded split), on the card the forward bit-equal to
+    K2's rows of the same tiles and to its baseline design, the backward
+    bit-equal to K3's rows and within tolerance of its baseline design,
+    each timed in turns against its baseline and K2 or K3; rasterize_sharded
     against the single-device rasterize_tiled on frame 0's Gaussians, the
     banded objective's gradients with the kernels against the plain
     versions, then 10 forward+backward calls of it, each launching K1
@@ -1894,6 +1981,7 @@ def _sharded_phases(dev, report, scene, mesh, line):
 
     # -- K5: flat-tiles blend, forward and backward, vs plain ---------------
     with torch.no_grad():
+        rec_fwd_edges = check_rec_fwd_edges(dev, line)
         rec_bwd_edges = check_rec_bwd_edges(dev, line)
     tps = -(-nty // SHARD_EMULATE) * ntx  # tiles of one band of a 4-way split
     slices = [(0, T)] + [(r * tps, min(tps, T - r * tps)) for r in range(SHARD_EMULATE)
@@ -1907,6 +1995,9 @@ def _sharded_phases(dev, report, scene, mesh, line):
     k5 = {"fwd": [], "bwd": [], "bwd_vs_baseline": []}
     with torch.no_grad():
         drec_k3 = blend_ct.blend_gather_ct_bwd(*k3_args)
+        # K2's image, tile-major: K5's values at each offset are its rows
+        # of those tiles, to the bit
+        k2_t = k2_tiles(b.records_ext, b.idx, cnt, ntx, nty, C)
         for off, n in slices:
             args = (b.records_ext, b.idx[off : off + n].contiguous(), cnt[off : off + n].contiguous(),
                     off, ntx, C)
@@ -1932,22 +2023,28 @@ def _sharded_phases(dev, report, scene, mesh, line):
                   f"K5 backward at offset {off}: outside p999 <= {K3_P999_REL} x max|drec| / "
                   f"rel_l2 <= {K3_REL_L2}")
             if dev.type == "cuda":
+                check(torch.equal(bits(out_k), bits(k2_t[off : off + n])),
+                      f"K5 forward at offset {off}: differs from K2's rows of its tiles")
+                check(torch.equal(bits(out_k), bits(blend_rec.blend_gather_rec_baseline(*args))),
+                      f"K5 forward at offset {off}: differs from its baseline design")
                 check(torch.equal(bits(drec_k), bits(drec_k3[off : off + n])),
                       f"K5 backward at offset {off}: differs from K3's rows of its tiles")
                 db = slot_err(drec_k, blend_rec.blend_gather_rec_bwd_baseline(*args[:4], g, ntx, C))
                 k5["bwd_vs_baseline"].append(dict(db, offset=off, tiles=n))
-                line(f"K5 backward at tile offset {off}: bit-equal to K3's rows of its tiles; vs "
-                     f"its baseline design p999_abs={db['p999_abs']:.3e} rel_l2={db['rel_l2']:.3e}")
+                line(f"K5 at tile offset {off}: forward bit-equal to K2's rows of its tiles and to "
+                     "its baseline design; backward bit-equal to K3's rows of its tiles, vs its "
+                     f"baseline design p999_abs={db['p999_abs']:.3e} rel_l2={db['rel_l2']:.3e}")
                 check(slot_ok(db), f"K5 backward at offset {off}: outside p999 <= {K3_P999_REL} "
                                    f"x max|drec| / rel_l2 <= {K3_REL_L2} of the baseline")
-        # the whole grid at offset 0 is K2's image, tile-major
-        img_ct = blend_ct.blend_gather_ct(b.records_ext, b.idx, cnt, ntx, nty, C)
+        # the whole grid at offset 0 is K2's image, tile-major, to the bit
         full = blend_rec.blend_gather_rec(b.records_ext, b.idx, cnt, 0, ntx, C)
-        as_tiles = img_ct.reshape(C + 1, nty, 16, ntx, 16).permute(1, 3, 2, 4, 0).reshape(T, 256, -1)
         sync(dev)
-        k5_vs_k2 = float((full - as_tiles).abs().max())
-        line(f"K5 whole grid vs K2's image (tile-major): max_abs={k5_vs_k2:.3e}")
-        check(k5_vs_k2 <= P999_MAX, "K5 and K2 disagree on the whole grid")
+        k5_vs_k2 = float((full - k2_t).abs().max())
+        k5_is_k2 = bool(torch.equal(bits(full), bits(k2_t)))
+        line(f"K5 whole grid vs K2's image (tile-major): max_abs={k5_vs_k2:.3e}, equal to the "
+             f"last bit: {k5_is_k2}")
+        check(k5_is_k2, "K5 and K2 disagree on the whole grid")
+        del k2_t
         # timing at the main path's shapes: the whole grid (world size 1)
         fargs = (b.records_ext, b.idx, cnt, 0, ntx, C)
         _, pairs = blend_rec.blend_gather_rec_plain(*fargs, count_pairs=True)
@@ -1957,15 +2054,23 @@ def _sharded_phases(dev, report, scene, mesh, line):
         k5b_plain_t = measure(
             lambda: blend_rec.blend_gather_rec_bwd_plain(*fargs[:4], g_full, ntx, C), 3, dev,
             warmup=1)
-        k5b_turns = k5b_ptxas = None
+        k5_turns = k5_ptxas = k5b_turns = k5b_ptxas = None
         if dev.type == "cuda":
+            k5_turns = in_turns({
+                "baseline": lambda: blend_rec.blend_gather_rec_baseline(*fargs),
+                "kernel": lambda: blend_rec.blend_gather_rec(*fargs),
+                "k2": lambda: blend_ct.blend_gather_ct(b.records_ext, b.idx, cnt, ntx, nty, C),
+            }, 20, dev)
+            k5_ptxas, said = rec_ptxas(report, "rec", C, False)
+            line(f"K5 forward in turns (the whole grid, offset 0; k2: K2 on the same selection): "
+                 f"{turns_summary(k5_turns)}; {said}")
             k5b_turns = in_turns({
                 "baseline": lambda: blend_rec.blend_gather_rec_bwd_baseline(
                     *fargs[:4], g_full, ntx, C),
                 "kernel": lambda: blend_rec.blend_gather_rec_bwd(*fargs[:4], g_full, ntx, C),
                 "k3": lambda: blend_ct.blend_gather_ct_bwd(*k3_args),
             }, 20, dev)
-            k5b_ptxas, said = rec_bwd_ptxas(report, "rec", C)
+            k5b_ptxas, said = rec_ptxas(report, "rec", C, True)
             line(f"K5 backward in turns (the whole grid, offset 0; k3: K3 on the same selection "
                  f"and cotangent): {turns_summary(k5b_turns)}; {said}")
         del drec_k3
@@ -2084,6 +2189,8 @@ def _sharded_phases(dev, report, scene, mesh, line):
             "max_abs_err": max(e["max_abs"] for e in k5["fwd"]),
             "ms": k5_t["ms"], "plain_ms": k5_plain_t["ms"], "bound_ms": k5_bound_ms,
             "bound_by": k5_by, "library_ms": None,
+            "baseline_ms": k5_turns and k5_turns["baseline"]["ms"],
+            "designs_ms": k5_turns and {d: v["ms"] for d, v in k5_turns.items()},
         },
         {
             "name": "blend_gather_rec_bwd", "route": "cuda",
@@ -2106,8 +2213,9 @@ def _sharded_phases(dev, report, scene, mesh, line):
              f"launches_per_call={k['launches'] / SHARD_CALLS:g}; wall per call "
              + ", ".join(f"{nm}={v['call_ms']:.4f}" for nm, v in t.items()))
     report.update(
-        k5=k5, k5_vs_k2=k5_vs_k2, k5_pairs=pairs, k5_bytes=k5_bytes, k5b_bytes=k5b_bytes,
-        rec_bwd_edges=rec_bwd_edges, k5b_turns=k5b_turns, k5b_ptxas=k5b_ptxas,
+        k5=k5, k5_vs_k2=k5_vs_k2, k5_is_k2=k5_is_k2, k5_pairs=pairs, k5_bytes=k5_bytes,
+        k5b_bytes=k5b_bytes, rec_fwd_edges=rec_fwd_edges, rec_bwd_edges=rec_bwd_edges,
+        k5_turns=k5_turns, k5_ptxas=k5_ptxas, k5b_turns=k5b_turns, k5b_ptxas=k5b_ptxas,
         sharded_vs_single=sh, sharded_vs_single_within_k=sh_in, aux_sharded=a_s, aux_single=a_1,
         objective_grad_rel_l2=obj_err,
         sharded_call_ms=call_ms, sharded_launches=launches, sharded_profiled=prof,
@@ -2136,12 +2244,13 @@ def launch_counts():
 def variants(dev, report, scene):
     """The rest of the single-device rasterizer: K7 (the image-layout
     blend) forward and backward against the plain versions, its image
-    against K2's and, on the card, its backward bit-equal to K3's drec and
-    timed in turns against its baseline design and K3, on the champion
-    selection; the training step under the
-    ActorsHQ actor's raster settings (dupsort_tile, dup 4) in the rec
-    layout (K7) and in the ct layout (K2/K3), each with one step's
-    gradients kernels vs plain, then 5 steps; the xla backend (the topk
+    bit-equal to K2's and, on the card, to its baseline design, its
+    backward bit-equal to K3's drec, each timed in turns against its
+    baseline design and K2 or K3, on the champion selection; the
+    training step under the ActorsHQ actor's raster settings
+    (dupsort_tile, dup 4) in the rec layout (K7) and in the ct layout
+    (K2/K3), each with one step's gradients kernels vs plain, then 5
+    steps; the xla backend (the topk
     funnel and `_blend_tiles`), forward + backward, against the same
     selection blended by K2; the public API's backends against the oracle
     on a small scene. Returns the K7 entries."""
@@ -2165,7 +2274,7 @@ def variants(dev, report, scene):
         check(bool(torch.isfinite(out_k).all() and torch.isfinite(drec_k).all()),
               "K7: non-finite output")
         k7 = image_err(out_k, out_p)
-        k7_is_k2 = bool(torch.equal(out_k, planar.permute(1, 2, 0)))
+        k7_is_k2 = bool(torch.equal(bits(out_k), bits(planar.permute(1, 2, 0))))
         k7b = slot_err(drec_k, drec_p)
         line(f"K7 blend_gather_img vs plain at full width: max_abs={k7['max_abs']:.3e} "
              f"p999_abs={k7['p999_abs']:.3e} frac={k7['flip_frac']:.3e}; equals K2's image "
@@ -2177,13 +2286,16 @@ def variants(dev, report, scene):
                             f"rel_l2 <= {K3_REL_L2}")
         # the same cotangent in K3's planar layout
         k3_args = (*args[:3], g.permute(2, 0, 1).contiguous(), ntx, nty, C)
-        k7b_base = k7b_turns = k7b_ptxas = None
+        k7b_base = k7_turns = k7_ptxas = k7b_turns = k7b_ptxas = None
         if dev.type == "cuda":
+            check(torch.equal(bits(out_k), bits(blend_rec.blend_gather_img_baseline(*args))),
+                  "K7: differs from its baseline design")
             check(torch.equal(bits(drec_k), bits(blend_ct.blend_gather_ct_bwd(*k3_args))),
                   "K7 backward: differs from K3's drec")
             k7b_base = slot_err(drec_k, blend_rec.blend_gather_img_bwd_baseline(
                 *args[:3], g, ntx, nty, C))
-            line(f"K7 backward: bit-equal to K3's drec; vs its baseline design p999_abs="
+            line(f"K7: forward bit-equal to its baseline design; backward bit-equal to K3's "
+                 f"drec, vs its baseline design p999_abs="
                  f"{k7b_base['p999_abs']:.3e} rel_l2={k7b_base['rel_l2']:.3e}")
             check(slot_ok(k7b_base), f"K7 backward: outside p999 <= {K3_P999_REL} x max|drec| / "
                                      f"rel_l2 <= {K3_REL_L2} of the baseline")
@@ -2194,13 +2306,21 @@ def variants(dev, report, scene):
             lambda: blend_rec.blend_gather_img_bwd_plain(*args[:3], g, ntx, nty, C), 3, dev,
             warmup=1)
         if dev.type == "cuda":
+            k7_turns = in_turns({
+                "baseline": lambda: blend_rec.blend_gather_img_baseline(*args),
+                "kernel": lambda: blend_rec.blend_gather_img(*args),
+                "k2": lambda: blend_ct.blend_gather_ct(*args),
+            }, 20, dev)
+            k7_ptxas, said = rec_ptxas(report, "img", C, False)
+            line(f"K7 forward in turns (k2: K2 on the same selection): "
+                 f"{turns_summary(k7_turns)}; {said}")
             k7b_turns = in_turns({
                 "baseline": lambda: blend_rec.blend_gather_img_bwd_baseline(
                     *args[:3], g, ntx, nty, C),
                 "kernel": lambda: blend_rec.blend_gather_img_bwd(*args[:3], g, ntx, nty, C),
                 "k3": lambda: blend_ct.blend_gather_ct_bwd(*k3_args),
             }, 20, dev)
-            k7b_ptxas, said = rec_bwd_ptxas(report, "img", C)
+            k7b_ptxas, said = rec_ptxas(report, "img", C, True)
             line(f"K7 backward in turns (k3: K3 on the same selection and cotangent): "
                  f"{turns_summary(k7b_turns)}; {said}")
     del out_p, planar, drec_k, drec_p, k3_args
@@ -2364,6 +2484,8 @@ def variants(dev, report, scene):
             "launches": rec_launches["blend_gather_img"], "max_abs_err": k7["max_abs"],
             "ms": k7_t["ms"], "plain_ms": k7_plain_t["ms"], "bound_ms": k7_bound_ms,
             "bound_by": k7_by, "library_ms": None,
+            "baseline_ms": k7_turns and k7_turns["baseline"]["ms"],
+            "designs_ms": k7_turns and {d: v["ms"] for d, v in k7_turns.items()},
         },
         {
             "name": "blend_gather_img_bwd", "route": "cuda",
@@ -2385,9 +2507,10 @@ def variants(dev, report, scene):
              f"launches_per_step={k['launches'] / VARIANT_STEPS:g}; wall per call "
              + ", ".join(f"{nm}={v['call_ms']:.4f}" for nm, v in t.items()))
     report.update(
-        k7=k7, k7_is_k2=k7_is_k2, k7b=k7b, k7b_vs_baseline=k7b_base, k7b_turns=k7b_turns,
-        k7b_ptxas=k7b_ptxas, k7_pairs=pairs, k7_bytes=k7_bytes,
-        k7b_bytes=k7b_bytes, actorshq=actorshq, xla_vs_k2=xe, xla_aux=a_x, xla_ms=xla_ms,
+        k7=k7, k7_is_k2=k7_is_k2, k7b=k7b, k7b_vs_baseline=k7b_base, k7_turns=k7_turns,
+        k7_ptxas=k7_ptxas, k7b_turns=k7b_turns, k7b_ptxas=k7b_ptxas, k7_pairs=pairs,
+        k7_bytes=k7_bytes, k7b_bytes=k7b_bytes, actorshq=actorshq, xla_vs_k2=xe, xla_aux=a_x,
+        xla_ms=xla_ms,
         xla_profiled=xla_prof,
         xla_peak_bytes=peak, xla_base_bytes=base, api_vs_oracle=api_err,
         variant_timings=timings,
@@ -2972,9 +3095,12 @@ def main():
     dev = torch.device("cuda", 0)
     try:
         kernels = run(dev, report)
-    except Exception as e:  # report, then fail the run
+    except Exception as e:  # report, on both streams, then fail the run
         report["failed"] = f"{type(e).__name__}: {e}"
+        report["traceback"] = traceback.format_exc()
         print(f"chip_smoke: FAILED: {report['failed']}", flush=True)
+        print(f"{report['traceback']}chip_smoke: FAILED: {report['failed']}", file=sys.stderr,
+              flush=True)
         return 1
     finally:
         os.makedirs(OUT_DIR, exist_ok=True)

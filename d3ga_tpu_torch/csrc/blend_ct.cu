@@ -26,8 +26,8 @@
 //
 // The design before (blend_walk.cuh::blend_walk_fwd: one thread a pixel,
 // 256 threads a tile) stays as the baseline entry point
-// d3ga_blend_gather_ct_v1, the bit reference (K5's and K7's forwards
-// still walk with it). d3ga_blend_gather_ct_stage launches, at
+// d3ga_blend_gather_ct_v1, the bit reference (K5's and K7's forward
+// baselines walk with it too). d3ga_blend_gather_ct_stage launches, at
 // K2_STAGE_C (the champion's 6) only, so that the library holds 23
 // kernels and not a hundred: the kernel cut at a stage (the walk's STAGE
 // parameter: 0 staging and stores, 1 + the batches' polynomials and

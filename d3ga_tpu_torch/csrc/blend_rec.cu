@@ -11,12 +11,14 @@
 // ::_run_backward_img (_forward_body_img / _backward_body_img) behind
 // blend_image_rec. The TPU path gathers a [T, K, CR] record tensor first;
 // here each block gathers its own tile's records through idx. The
-// forwards walk with blend_walk.cuh::blend_walk_fwd (K2's design before),
-// the backwards with blend_walk_bwd.cuh::blend_walk_bwd_px, K3's walk:
-// two pixels a thread, 128 threads a tile, the band cull, per-record sums
-// by a warp reduce-scatter, staged rows and 16-byte drec stores (that
-// header says why). The semantics are K2/K3's; what differs is where a
-// block's tile sits and what it reads and writes:
+// forwards walk with blend_walk_fwd.cuh::blend_walk_fwd_px, K2's walk:
+// two pixels a thread, 128 threads a tile, the band cull, per-warp lists
+// of the records each warp takes walked in batches of FW_R; the
+// backwards with blend_walk_bwd.cuh::blend_walk_bwd_px, K3's walk: the
+// same two pixels a thread and cull, per-record sums by a warp
+// reduce-scatter, staged rows and 16-byte drec stores (those headers say
+// why). The semantics are K2/K3's; what differs is where a block's tile
+// sits and what it reads and writes:
 //   - K5: block t blends grid tile off + t of a row-major grid ntx tiles
 //     wide (origin ((off + t) % ntx, (off + t) / ntx) * 16, _tile_origin),
 //     so a shard blends its own contiguous slice of tiles; out and the
@@ -25,8 +27,7 @@
 //   - K7: block t blends grid tile t; out and g are the padded image
 //     [nty * 16, ntx * 16, C+1] (the C+1 values of a pixel adjacent, T_bg
 //     last), so pixel p of tile t is image row (t / ntx) * 16 + p / 16,
-//     column (t % ntx) * 16 + p % 16. The walk and its order are K2's, so
-//     K7's image equals K2's planar image to the last bit.
+//     column (t % ntx) * 16 + p % 16.
 // Slots past counts[t] hold the zero sentinel record in the TPU kernels'
 // contract (opacity 0: alpha ~ 1e-12, never blended), so the walk stops
 // at counts[t]; the TPU kernels' count-adaptive half width, tiles per
@@ -34,12 +35,24 @@
 // here.
 //
 // Bound on Hopper, as for K2/K3: forward ~25 FP32 operations and one exp
-// per used (pixel, record) pair; backward two walks, ~60 operations and 3
+// per used (pixel, record) pair, the polynomial, its test and the exp
+// per unused one; backward two walks, ~60 operations and 3
 // special-function results per used pair (chip_smoke.py's blend_bound
 // counts used and unused pairs apart). Bytes: the gathered live records,
 // idx, the output or cotangent (T * 256 * (C+1) floats) and, backward,
-// drec [T, K, CR] (dense, zeros in dead slots); at the champion
-// selection the backward's bytes bound it (0.0163 ms).
+// drec [T, K, CR] (dense, zeros in dead slots). At the champion
+// selection the forward's exps bound it (0.00647 ms, its bytes 0.00646),
+// the backward's bytes (0.0163 ms).
+//
+// The forwards: the walk is K2's to the last bit (given the same records,
+// ids, counts and tile origin, K5's and K7's values equal K2's image of
+// the same tiles); only the stores differ. After the walk each block
+// stages its tile's [256, C+1] values pixel-major over the walk's shared
+// rows and writes the tile's 16 rows of 16 (C + 1) contiguous floats as
+// 16-byte stores (fw_store_rows), 28 a row at C 6: one thread a pixel
+// storing its own 7 floats at a 28-byte stride spans 896 bytes a warp
+// store to write 128. The launch is K2's: 128 threads, the walk's static
+// shared memory, the vec flag, a misaligned output refused.
 //
 // The backwards: the walk is K3's to the last bit (given the same
 // records, ids, counts and cotangent values, K5's and K7's drec equal
@@ -47,20 +60,43 @@
 // thread loads its own two pixels' C + 1 values (bw_pixel's rows) once,
 // before the walk: 28 bytes a pixel at C 6, 7 KB a tile against the 12
 // KB of drec rows the tile stores at CR 12; at the champion selection the
-// backward takes what K3 takes, so staging the load gains nothing. The designs before (one thread a
-// pixel, blend_walk.cuh::blend_walk_bwd) stay as the baseline entry
-// points d3ga_blend_gather_rec_bwd_v1 and d3ga_blend_gather_img_bwd_v1,
-// which no path of the port calls: chip_smoke.py times them in turns.
+// backward takes what K3 takes, so staging the load gains nothing.
+//
+// The designs before (one thread a pixel, 256 threads a tile,
+// blend_walk.cuh::blend_walk_fwd / blend_walk_bwd, each thread storing or
+// loading its own pixel's values) stay as the baseline entry points
+// d3ga_blend_gather_rec_v1, d3ga_blend_gather_img_v1,
+// d3ga_blend_gather_rec_bwd_v1 and d3ga_blend_gather_img_bwd_v1, which no
+// path of the port calls: chip_smoke.py holds the kernels to them and
+// times them in turns.
 
 #include <cstdint>
 
-#include "blend_walk_bwd.cuh"
+#include "blend_walk_fwd.cuh"
 
+// K5's forward: block t blends grid tile off + t into the tile-major
+// block out[t] ([256, C+1], contiguous).
 template <int C>
-__global__ void __launch_bounds__(NPIX)
-blend_gather_rec_kernel(const float* __restrict__ rec, int n_ext, int CR,
+__global__ void __launch_bounds__(bw_threads<BW_P>)
+blend_gather_rec_kernel(const float* __restrict__ rec, int n_ext, int CR, int vec,
                         const int* __restrict__ idx, int K, const int* __restrict__ counts,
                         int off, int ntx, float* __restrict__ out) {
+  __shared__ FwShared<BW_P> s;
+  const int t = blockIdx.x;
+  const int tg = off + t;
+  float acc[BW_P][C], T[BW_P];
+  blend_walk_fwd_px<C, BW_P, FW_R>(rec, n_ext, CR, vec != 0, idx + (long long)t * K,
+                                   min(max(counts[t], 0), K), (float)((tg % ntx) * TILE),
+                                   (float)((tg / ntx) * TILE), s, acc, T);
+  fw_store_rows<C, BW_P>(s, acc, T, out + (long long)t * NPIX * (C + 1), TILE * (C + 1));
+}
+
+// K5's forward before (the baseline): one thread a pixel.
+template <int C>
+__global__ void __launch_bounds__(NPIX)
+blend_gather_rec_v1_kernel(const float* __restrict__ rec, int n_ext, int CR,
+                           const int* __restrict__ idx, int K, const int* __restrict__ counts,
+                           int off, int ntx, float* __restrict__ out) {
   const int t = blockIdx.x;
   const int tg = off + t;
   float acc[C];
@@ -91,11 +127,31 @@ blend_gather_rec_bwd_v1_kernel(const float* __restrict__ rec, int n_ext, int CR,
                     drec + (long long)t * K * CR);
 }
 
+// K7's forward: block t blends grid tile t into the padded image out,
+// its 16 rows ntx * 16 * (C + 1) floats apart.
 template <int C>
-__global__ void __launch_bounds__(NPIX)
-blend_gather_img_kernel(const float* __restrict__ rec, int n_ext, int CR,
+__global__ void __launch_bounds__(bw_threads<BW_P>)
+blend_gather_img_kernel(const float* __restrict__ rec, int n_ext, int CR, int vec,
                         const int* __restrict__ idx, int K, const int* __restrict__ counts,
                         int ntx, float* __restrict__ out) {
+  __shared__ FwShared<BW_P> s;
+  const int t = blockIdx.x;
+  const int tx = t % ntx, ty = t / ntx;
+  float acc[BW_P][C], T[BW_P];
+  blend_walk_fwd_px<C, BW_P, FW_R>(rec, n_ext, CR, vec != 0, idx + (long long)t * K,
+                                   min(max(counts[t], 0), K), (float)(tx * TILE),
+                                   (float)(ty * TILE), s, acc, T);
+  const long long pitch = (long long)ntx * TILE * (C + 1);
+  fw_store_rows<C, BW_P>(s, acc, T, out + ty * TILE * pitch + (long long)tx * TILE * (C + 1),
+                         pitch);
+}
+
+// K7's forward before (the baseline): one thread a pixel.
+template <int C>
+__global__ void __launch_bounds__(NPIX)
+blend_gather_img_v1_kernel(const float* __restrict__ rec, int n_ext, int CR,
+                           const int* __restrict__ idx, int K, const int* __restrict__ counts,
+                           int ntx, float* __restrict__ out) {
   const int t = blockIdx.x;
   const int tx = t % ntx, ty = t / ntx;
   float acc[C];
@@ -222,17 +278,42 @@ static int launch_img_bwd(const float* r, int n_ext, int CR, const int* i, int T
   return (int)cudaGetLastError();
 }
 
+// The forwards' vec flag, as K2's launch computes it (16-byte row loads
+// where CR % 4 == 0 and rec is aligned); -1 where out is not 16-byte
+// aligned (the kernels' rows go out as 16-byte stores).
+static int fwd_vec(const float* r, int CR, const float* o) {
+  if ((reinterpret_cast<uintptr_t>(o) & 15) != 0) return -1;
+  return CR % 4 == 0 && (reinterpret_cast<uintptr_t>(r) & 15) == 0;
+}
+
+#define REC_ARGS                                                                         \
+  const float* r = (const float*)rec;                                                    \
+  const int* i = (const int*)idx;                                                        \
+  const int* c = (const int*)counts;                                                     \
+  float* o = (float*)out;                                                                \
+  cudaStream_t s = (cudaStream_t)cuda_stream
+
 // Each returns the cudaError_t of the launch, or -1 for an unsupported C.
 extern "C" int d3ga_blend_gather_rec(const void* rec, int n_ext, int CR, const void* idx, int T,
                                      int K, const void* counts, int tile_offset, int ntx, int C,
                                      void* out, void* cuda_stream) {
-  const float* r = (const float*)rec;
-  const int* i = (const int*)idx;
-  const int* c = (const int*)counts;
-  float* o = (float*)out;
-  cudaStream_t s = (cudaStream_t)cuda_stream;
+  REC_ARGS;
+  const int vec = fwd_vec(r, CR, o);
+  if (vec < 0) return (int)cudaErrorMisalignedAddress;
+#define FWD(CC)                                                                        \
+  blend_gather_rec_kernel<CC><<<T, bw_threads<BW_P>, 0, s>>>(r, n_ext, CR, vec, i, K, c, \
+                                                              tile_offset, ntx, o)
+  D3GA_SWITCH_C(C, FWD)
+#undef FWD
+  return (int)cudaGetLastError();
+}
+
+extern "C" int d3ga_blend_gather_rec_v1(const void* rec, int n_ext, int CR, const void* idx,
+                                        int T, int K, const void* counts, int tile_offset,
+                                        int ntx, int C, void* out, void* cuda_stream) {
+  REC_ARGS;
 #define FWD(CC) \
-  blend_gather_rec_kernel<CC><<<T, NPIX, 0, s>>>(r, n_ext, CR, i, K, c, tile_offset, ntx, o)
+  blend_gather_rec_v1_kernel<CC><<<T, NPIX, 0, s>>>(r, n_ext, CR, i, K, c, tile_offset, ntx, o)
   D3GA_SWITCH_C(C, FWD)
 #undef FWD
   return (int)cudaGetLastError();
@@ -272,12 +353,22 @@ extern "C" int d3ga_blend_gather_rec_bwd_v1(const void* rec, int n_ext, int CR, 
 extern "C" int d3ga_blend_gather_img(const void* rec, int n_ext, int CR, const void* idx, int T,
                                      int K, const void* counts, int ntx, int C, void* out,
                                      void* cuda_stream) {
-  const float* r = (const float*)rec;
-  const int* i = (const int*)idx;
-  const int* c = (const int*)counts;
-  float* o = (float*)out;
-  cudaStream_t s = (cudaStream_t)cuda_stream;
-#define FWD(CC) blend_gather_img_kernel<CC><<<T, NPIX, 0, s>>>(r, n_ext, CR, i, K, c, ntx, o)
+  REC_ARGS;
+  const int vec = fwd_vec(r, CR, o);
+  if (vec < 0) return (int)cudaErrorMisalignedAddress;
+#define FWD(CC)                                                                        \
+  blend_gather_img_kernel<CC><<<T, bw_threads<BW_P>, 0, s>>>(r, n_ext, CR, vec, i, K, c, \
+                                                              ntx, o)
+  D3GA_SWITCH_C(C, FWD)
+#undef FWD
+  return (int)cudaGetLastError();
+}
+
+extern "C" int d3ga_blend_gather_img_v1(const void* rec, int n_ext, int CR, const void* idx,
+                                        int T, int K, const void* counts, int ntx, int C,
+                                        void* out, void* cuda_stream) {
+  REC_ARGS;
+#define FWD(CC) blend_gather_img_v1_kernel<CC><<<T, NPIX, 0, s>>>(r, n_ext, CR, i, K, c, ntx, o)
   D3GA_SWITCH_C(C, FWD)
 #undef FWD
   return (int)cudaGetLastError();

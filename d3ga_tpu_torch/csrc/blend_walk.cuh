@@ -1,6 +1,9 @@
-// The per-tile front-to-back walk shared by the blend kernels: K2/K3
-// (blend_ct.cu, blend_ct_bwd.cu, a planar image over the whole tile grid)
-// and K5 (blend_rec.cu, a shard's run of tiles, tile-major). A kernel
+// The per-tile front-to-back walk of the blend kernels' designs before,
+// kept as their baselines: K2's and K3's (blend_ct.cu, blend_ct_bwd.cu, a
+// planar image over the whole tile grid) and K5's and K7's forwards and
+// backwards (blend_rec.cu: a shard's run of tiles, tile-major, and the
+// padded image); the kernels themselves walk with blend_walk_fwd.cuh and
+// blend_walk_bwd.cuh, which compute what these walks compute. A kernel
 // calls one walk per block: it places its tile (origin sx, sy), finds
 // its records (tidx, cnt) and reads or writes its own layout; the walks
 // hold the semantics, those of the JAX package's _blend_fwd_ct /

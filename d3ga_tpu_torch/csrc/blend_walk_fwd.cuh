@@ -1,5 +1,6 @@
-// K2's blend forward walk (blend_ct.cu): the front-to-back alpha blend of
-// one 16x16 tile, two pixels a thread, in batches of records. It computes
+// K2's blend forward walk (blend_ct.cu; K5's and K7's forwards in
+// blend_rec.cu walk with it too): the front-to-back alpha blend of one
+// 16x16 tile, two pixels a thread, in batches of records. It computes
 // what blend_walk.cuh::blend_walk_fwd computes, bit for bit: per pixel
 // the same records are taken in the same order with the same arithmetic
 // (the falloff polynomial, power <= 0, e = exp(c0 + log op + q) >= 1/255,
@@ -46,7 +47,11 @@
 //   R = 8: chip_smoke.py times R = 1, 2, 4 and 8 in turns.
 // - Stores: the tile's C + 1 planes are built in shared memory (over the
 //   staged rows, after the walk) and written as coalesced 16-byte stores,
-//   the empty tiles' zeros and T_bg = 1 among them.
+//   the empty tiles' zeros and T_bg = 1 among them (fw_store). K5 and K7
+//   write each pixel's C + 1 values adjacent; they stage the tile
+//   pixel-major and write its 16 rows of 16 (C + 1) floats the same way
+//   (fw_store_rows), where one thread a pixel storing its own values
+//   spans (C + 1) x 128 bytes a warp store for 128 bytes written.
 //
 // Stage cuts (STAGE, default 2: the whole walk), each writing what it
 // computed so that no stage is dead code:
@@ -229,4 +234,35 @@ __device__ __forceinline__ void fw_store(FwShared<P>& s, const float (&acc)[P][C
     reinterpret_cast<float4*>(o + c * plane + (f / 4) * wp)[f % 4] =
         reinterpret_cast<const float4*>(so)[e];
   }
+}
+
+// The tile's [256][C+1] block (pixel p = dy * 16 + dx, its C colours then
+// T_bg adjacent) from thread t's pixels' acc and T, staged pixel-major
+// through s (free once the walk is done) and written as 16-byte stores:
+// tile row dy, 16 (C + 1) contiguous floats, goes to out + dy * pitch
+// (K5's tile-major block: pitch 16 (C + 1), the whole block contiguous;
+// K7's image: pitch ntx * 16 * (C + 1)). out must be 16-byte aligned;
+// every row start then is (pitch is a multiple of 16 floats). The staged
+// writes run at a stride of C + 1 floats: free of bank conflicts at odd
+// C + 1 (C 6 among them), 2- to 8-way at even C + 1.
+template <int C, int P>
+__device__ __forceinline__ void fw_store_rows(FwShared<P>& s, const float (&acc)[P][C],
+                                              const float (&T)[P], float* __restrict__ out,
+                                              long long pitch) {
+  static_assert((C + 1) * NPIX <= FW_CHUNK * BW_ROW, "the block fits over the staged rows");
+  constexpr int ROW4 = TILE * (C + 1) / 4;  // 16-byte vectors a tile row
+  float* so = &s.rec[0][0];
+  const int t = threadIdx.x;
+  __syncthreads();  // every warp's walk has read its last row
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    float* sp = so + bw_pixel<P>(t, j) * (C + 1);
+#pragma unroll
+    for (int c = 0; c < C; ++c) sp[c] = acc[j][c];
+    sp[C] = T[j];
+  }
+  __syncthreads();
+  for (int e = t; e < TILE * ROW4; e += bw_threads<P>)
+    reinterpret_cast<float4*>(out + (e / ROW4) * pitch)[e % ROW4] =
+        reinterpret_cast<const float4*>(so)[e];
 }

@@ -125,7 +125,7 @@ def slope(launch, device, target_ms=20.0, trips=None):
 # one, so a profile counts the calls whose kernels it recorded
 MARKER = "spin_kernel"
 QUEUE_SPIN_CYCLES = 20_000_000  # ~10 ms at the 1.98 GHz boost: `queued_ms`'s head start
-PROFILE_ATTEMPTS = 3  # profiles `profiled` takes at most to record every call
+PROFILE_ATTEMPTS = 5  # profiles `profiled` takes at most to record every call
 
 
 def device_events(prof, DeviceType):
@@ -158,10 +158,11 @@ def profiled(fn, calls, device):
     """torch.profiler (CPU and CUDA activity) over `calls` calls of fn,
     after an unprofiled call and a warm-up call inside the profiler, each
     call followed by a one-cycle marker kernel. A profile does not always
-    record every launch (it has dropped whole calls' kernels, in windows),
-    so it is taken again, up to PROFILE_ATTEMPTS times, until its markers
-    count every call. Returns (the profile, wall ms a call, the calls it
-    recorded); None off the card."""
+    record every launch (it has dropped whole calls' kernels, in windows,
+    and once every call), so it is taken again, up to PROFILE_ATTEMPTS
+    times, until its markers count every call. Returns (the profile, wall
+    ms a call, the calls it recorded) of the attempt that recorded the
+    most calls, and the calls each attempt recorded; None off the card."""
     device = torch.device(device)
     if device.type != "cuda":
         return None
@@ -170,6 +171,7 @@ def profiled(fn, calls, device):
 
     fn()
     torch.cuda.synchronize(device)
+    best, attempts = None, []
     for _ in range(PROFILE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=calls, repeat=1)) as prof:
@@ -185,9 +187,12 @@ def profiled(fn, calls, device):
                     wall = (time.perf_counter() - t0) * 1e3 / calls
                 prof.step()
         recorded = recorded_calls(prof, DeviceType)
+        attempts.append(recorded)
+        if best is None or recorded > best[2]:
+            best = (prof, wall, recorded)
         if recorded == calls:
             break
-    return prof, wall, recorded
+    return (*best, attempts)
 
 
 def queued_ms(fn, iters, device):
@@ -219,7 +224,8 @@ def queued_ms(fn, iters, device):
 def device_ms(fn, iters, device, names=()):
     """Device time of `fn`'s kernels over `iters` profiled calls
     (`profiled`): {"total": a call's (`per_call` of each kernel), "calls":
-    how many calls were recorded, name: {"ms": the mean duration
+    how many calls were recorded, "attempts": the calls each profile
+    taken recorded, name: {"ms": the mean duration
     of one launch of the kernels whose name holds it, "launches": how many
     were recorded}, for each of `names`}; None off the card or where the
     profiler records no call."""
@@ -240,7 +246,7 @@ def device_ms(fn, iters, device, names=()):
                 n[name] += e.count
     if total <= 0:
         return None
-    out = {"total": total, "calls": calls}
+    out = {"total": total, "calls": calls, "attempts": run[3]}
     out.update({k: {"ms": us[k] / 1e3 / n[k] if n[k] else None, "launches": n[k]} for k in names})
     return out
 

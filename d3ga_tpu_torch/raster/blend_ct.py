@@ -21,7 +21,7 @@ warp's rows cannot take (K3's band cull), and takes the rest in batches
 whose polynomials and exps run ahead of the transmittance chain
 (`csrc/blend_walk_fwd.cuh`); its image equals the design before's to the
 bit. That design (one thread a pixel, `blend_walk.cuh::blend_walk_fwd`,
-which K5's and K7's forwards still use) stays in the source as
+which K5's and K7's forward baselines also use) stays in the source as
 `d3ga_blend_gather_ct_v1`, reached only by `blend_gather_ct_baseline`;
 `blend_gather_ct_stage` launches, at C = STAGE_C only, one of the
 `FWD_DESIGNS` (K2 at other batch sizes, and diagnostic builds that

@@ -11,10 +11,13 @@ D3GA_BLEND_LAYOUT=rec), replaces `::_run_forward_img` and
 `::_run_backward_img` (`_forward_body_img`, `_backward_body_img`) behind
 `blend_image_rec`. Both are hand-written CUDA kernels in `csrc/blend_rec.cu`
 (its header gives the bound and the design). The math is K2/K3's
-(`blend_ct.py`), and the backwards walk a tile with K3's own walk
-(`csrc/blend_walk_bwd.cuh`), so that given the same records, ids, counts
-and cotangent values their drec equals K3's to the bit; what differs is
-where each tile sits and the layout:
+(`blend_ct.py`): the forwards walk a tile with K2's own walk
+(`csrc/blend_walk_fwd.cuh`), so that given the same records, ids and
+counts their values equal K2's image of the same tiles to the bit, and
+write each tile's 16 rows as 16-byte stores; the backwards walk with
+K3's (`csrc/blend_walk_bwd.cuh`), so that given the same cotangent
+values their drec equals K3's to the bit. What differs is where each
+tile sits and the layout:
 
 - K5: the T_loc tiles are tiles `tile_offset .. tile_offset + T_loc - 1`
   of the row-major grid `ntx` tiles wide: tile t has its pixel origin at
@@ -40,12 +43,13 @@ TPU kernels' count-adaptive half width (`_khalf`), `TILES_PER_BLOCK` and
 the walk stops at each tile's count, past which every slot holds the
 inert sentinel.
 
-The backwards' designs before (one thread a pixel, `blend_walk.cuh`'s
-walk) stay in the source as `d3ga_blend_gather_rec_bwd_v1` and
-`d3ga_blend_gather_img_bwd_v1`, reached only by
+The designs before (one thread a pixel, `blend_walk.cuh`'s walks) stay
+in the source as `d3ga_blend_gather_rec_v1`, `d3ga_blend_gather_img_v1`,
+`d3ga_blend_gather_rec_bwd_v1` and `d3ga_blend_gather_img_bwd_v1`,
+reached only by `blend_gather_rec_baseline`, `blend_gather_img_baseline`,
 `blend_gather_rec_bwd_baseline` and `blend_gather_img_bwd_baseline`
-(CUDA tensors only, with their own counters): chip_smoke.py times them
-against the kernels in turns; no path of the port calls them.
+(CUDA tensors only, with their own counters): chip_smoke.py holds the
+kernels to them and times them in turns; no path of the port calls them.
 """
 
 import ctypes
@@ -71,8 +75,10 @@ launches = 0
 bwd_launches = 0
 img_launches = 0
 img_bwd_launches = 0
-# one per launch of K5's and K7's backward baseline designs (chip_smoke.py's
-# comparisons only)
+# one per launch of K5's and K7's baseline designs, forward and backward
+# (chip_smoke.py's comparisons only)
+fwd_baseline_launches = 0
+img_fwd_baseline_launches = 0
 bwd_baseline_launches = 0
 img_bwd_baseline_launches = 0
 
@@ -101,17 +107,20 @@ def _lib():
     common = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
               ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.d3ga_blend_gather_rec.argtypes = common + [ctypes.c_void_p, ctypes.c_void_p]
+    lib.d3ga_blend_gather_rec_v1.argtypes = lib.d3ga_blend_gather_rec.argtypes
     lib.d3ga_blend_gather_rec_bwd.argtypes = common + [ctypes.c_void_p, ctypes.c_void_p,
                                                        ctypes.c_void_p]
     lib.d3ga_blend_gather_rec_bwd_v1.argtypes = lib.d3ga_blend_gather_rec_bwd.argtypes
     img = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
            ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
     lib.d3ga_blend_gather_img.argtypes = img + [ctypes.c_void_p, ctypes.c_void_p]
+    lib.d3ga_blend_gather_img_v1.argtypes = lib.d3ga_blend_gather_img.argtypes
     lib.d3ga_blend_gather_img_bwd.argtypes = img + [ctypes.c_void_p, ctypes.c_void_p,
                                                     ctypes.c_void_p]
     lib.d3ga_blend_gather_img_bwd_v1.argtypes = lib.d3ga_blend_gather_img_bwd.argtypes
-    for fn in (lib.d3ga_blend_gather_rec, lib.d3ga_blend_gather_rec_bwd,
-               lib.d3ga_blend_gather_rec_bwd_v1, lib.d3ga_blend_gather_img,
+    for fn in (lib.d3ga_blend_gather_rec, lib.d3ga_blend_gather_rec_v1,
+               lib.d3ga_blend_gather_rec_bwd, lib.d3ga_blend_gather_rec_bwd_v1,
+               lib.d3ga_blend_gather_img, lib.d3ga_blend_gather_img_v1,
                lib.d3ga_blend_gather_img_bwd, lib.d3ga_blend_gather_img_bwd_v1):
         fn.restype = ctypes.c_int
     return lib
@@ -134,21 +143,41 @@ def _check(name, records_ext, idx, counts, tile_offset, ntx, C):
         raise ValueError(f"{name}: inputs must be contiguous")
 
 
-def _launch(records_ext, idx, counts, tile_offset, ntx, C):
-    global launches
-    _check("blend_gather_rec", records_ext, idx, counts, tile_offset, ntx, C)
+def _launch_fwd(records_ext, idx, counts, tile_offset, ntx, C, name="blend_gather_rec",
+                entry="d3ga_blend_gather_rec"):
+    """Launch K5's forward (or, by `entry`, its baseline design) into a
+    new 16-byte-aligned [T_loc, 256, C+1]; the caller counts the launch."""
+    _check(name, records_ext, idx, counts, tile_offset, ntx, C)
     n_ext, CR = records_ext.shape
     T, K = idx.shape
     out = torch.empty((T, NPIX, C + 1), dtype=torch.float32, device=records_ext.device)
     if T == 0:
         return out
-    err = _lib().d3ga_blend_gather_rec(
+    err = getattr(_lib(), entry)(
         records_ext.data_ptr(), n_ext, CR, idx.data_ptr(), T, K, counts.data_ptr(),
         int(tile_offset), ntx, C, out.data_ptr(), cuda_build.stream_handle(records_ext.device),
     )
     if err != 0:
-        raise RuntimeError(f"blend_gather_rec: kernel launch failed (error {err})")
+        raise RuntimeError(f"{name}: kernel launch failed (error {err})")
+    return out
+
+
+def _launch(records_ext, idx, counts, tile_offset, ntx, C):
+    global launches
+    out = _launch_fwd(records_ext, idx, counts, tile_offset, ntx, C)
     launches += 1
+    return out
+
+
+def blend_gather_rec_baseline(records_ext, idx, counts, tile_offset, ntx, C):
+    """K5's forward design before (`d3ga_blend_gather_rec_v1`: one thread
+    a pixel, blend_walk.cuh's walk) on CUDA tensors, for holding and
+    timing `blend_gather_rec`'s kernel against it."""
+    global fwd_baseline_launches
+    _card_only("blend_gather_rec_baseline", records_ext)
+    out = _launch_fwd(records_ext, idx, counts, tile_offset, ntx, C, "blend_gather_rec_baseline",
+                      "d3ga_blend_gather_rec_v1")
+    fwd_baseline_launches += 1
     return out
 
 
@@ -291,20 +320,40 @@ def _check_img(name, records_ext, idx, counts, ntx, nty, C):
         raise ValueError(f"{name}: {idx.shape[0]} tiles for a {ntx}x{nty} grid")
 
 
-def _launch_img(records_ext, idx, counts, ntx, nty, C):
-    global img_launches
-    _check_img("blend_gather_img", records_ext, idx, counts, ntx, nty, C)
+def _launch_img_fwd(records_ext, idx, counts, ntx, nty, C, name="blend_gather_img",
+                    entry="d3ga_blend_gather_img"):
+    """Launch K7's forward (or, by `entry`, its baseline design) into a
+    new 16-byte-aligned padded image; the caller counts the launch."""
+    _check_img(name, records_ext, idx, counts, ntx, nty, C)
     n_ext, CR = records_ext.shape
     T, K = idx.shape
     out = torch.empty((nty * TILE, ntx * TILE, C + 1), dtype=torch.float32,
                       device=records_ext.device)
-    err = _lib().d3ga_blend_gather_img(
+    err = getattr(_lib(), entry)(
         records_ext.data_ptr(), n_ext, CR, idx.data_ptr(), T, K, counts.data_ptr(), ntx, C,
         out.data_ptr(), cuda_build.stream_handle(records_ext.device),
     )
     if err != 0:
-        raise RuntimeError(f"blend_gather_img: kernel launch failed (error {err})")
+        raise RuntimeError(f"{name}: kernel launch failed (error {err})")
+    return out
+
+
+def _launch_img(records_ext, idx, counts, ntx, nty, C):
+    global img_launches
+    out = _launch_img_fwd(records_ext, idx, counts, ntx, nty, C)
     img_launches += 1
+    return out
+
+
+def blend_gather_img_baseline(records_ext, idx, counts, ntx, nty, C):
+    """K7's forward design before (`d3ga_blend_gather_img_v1`: one thread
+    a pixel, blend_walk.cuh's walk) on CUDA tensors, for holding and
+    timing `blend_gather_img`'s kernel against it."""
+    global img_fwd_baseline_launches
+    _card_only("blend_gather_img_baseline", records_ext)
+    out = _launch_img_fwd(records_ext, idx, counts, ntx, nty, C, "blend_gather_img_baseline",
+                          "d3ga_blend_gather_img_v1")
+    img_fwd_baseline_launches += 1
     return out
 
 
