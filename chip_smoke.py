@@ -40,7 +40,18 @@ edge inputs (`k9_edge_cases`, both layouts) within its tolerances of its
 plain version and its baseline design (the design before), bit-equal
 across launches and to its own build with the band cull off, and timed
 in turns against the baseline and at 1 and 4 pixels a thread, cut at
-five stages. K5's and K7's backwards, which walk with K3's walk, are
+five stages. K9's forward and K8's, which walk with
+`csrc/coeff_walk_fwd.cuh` (K2's batched walk on their rule) and write
+each tile's block as 16-byte stores, are held on their edge inputs
+(`k9_edge_cases`, both layouts; `k8_edge_cases`: K9's tile inputs at C 3
+and 6 and whole-K tiles with opacity-0 padding) within the image
+tolerances of plain and bit-equal to their baseline designs (the designs
+before), across launches, to their own builds with the band cull off and
+at C 6 to their walks at 1, 2 and 4 slots a batch; at full width too
+(frame 0 and the stage bench's shapes), K8 on frame 0's K9 tile inputs
+within the image tolerances of K9's tiles; both are timed in turns
+against their baselines with the batch sizes beside them, cut at three
+stages, with ptxas' registers. K5's and K7's backwards, which walk with K3's walk, are
 held bit-equal to K3's drec given K3's cotangent in their layouts, on
 K3's edge inputs (`check_rec_bwd_edges`), at K5's four tile offsets and
 at full width, within K3's tolerances of their plain versions and their
@@ -733,6 +744,54 @@ def k9_edge_cases(dev):
     return cases
 
 
+K8_PADDING = "whole-K tiles, opacity-0 padding"
+
+
+def k8_edge_cases(dev):
+    """K8's edge inputs on `dev`: (name, coeffs [T, K, 8], colors [T, K, C],
+    opacs [T, 1, K], C), K = K9_EDGE_K. At C 3 and 6: each K9 edge case
+    (`k9_edge_cases`) as `fused._tile_inputs` makes K8's inputs of it (the
+    tiles' first K selected candidates, zero rows past each count; a C-1
+    case's colour channels past its first are its noise channels), and
+    K8_PADDING (seed 23): 64 tiles of counts 0, K and between, every slot
+    past a tile's count holding finite random coefficients and opacity 0
+    (the stage bench's padding), and among the live slots wide opaque ones
+    (raw >= 0.99), faint ones, and slots whose falloff is not concave in dx
+    (c3 >= 0: the band bound keeps every band)."""
+    rng = np.random.default_rng(23)
+    cases = []
+    k9 = k9_edge_cases(torch.device("cpu"))
+    for C in (3, 6):
+        for name, vals, rects, _, _ in k9:
+            co, col, op, *_ = fused._tile_inputs(vals, rects, K9_EDGE_K, C)
+            cases.append((f"{name} at C={C}", co, col, op, C))
+        T, K = 64, K9_EDGE_K
+        xy = rng.uniform(-24, 40, (T, K, 2))
+        s = rng.uniform(1.5, 10.0, (T, K, 2))
+        th = rng.uniform(0, np.pi, (T, K))
+        c, sn = np.cos(th), np.sin(th)
+        a, b = 1 / s[..., 0] ** 2, 1 / s[..., 1] ** 2
+        conic = np.stack([c * c * a + sn * sn * b, c * sn * (a - b), sn * sn * a + c * c * b], -1)
+        op = rng.uniform(0.05, 0.95, (T, K))
+        wide = rng.uniform(size=(T, K)) < 0.05
+        conic[wide], op[wide] = (1 / 400, 0.0, 1 / 400), 1.0
+        op[rng.uniform(size=(T, K)) < 0.1] = rng.uniform(0.004, 0.01)  # faint
+        co = blend.falloff_coeffs(torch.from_numpy(xy).float(), torch.from_numpy(conic).float())
+        flat = rng.uniform(size=(T, K)) < 0.03  # not concave in dx
+        co[..., 3][torch.from_numpy(flat)] = 0.01
+        co[..., 0][torch.from_numpy(flat)] = -3.0
+        counts = rng.integers(0, K + 1, T)
+        counts[:8] = (0, K, K, 1, 127, 128, 129, K - 1)
+        dead = np.arange(K)[None] >= counts[:, None]
+        junk = torch.from_numpy(rng.normal(scale=3.0, size=(T, K, 6))).float()
+        co[..., :6] = torch.where(torch.from_numpy(dead)[..., None], junk, co[..., :6])
+        op[dead] = 0.0
+        col = rng.uniform(0, 1, (T, K, C))
+        cases.append((f"{K8_PADDING} at C={C}", co,
+                      torch.from_numpy(col).float(), torch.from_numpy(op).float()[:, None, :], C))
+    return [(n, *(t.contiguous().to(dev) for t in ts), C) for n, *ts, C in cases]
+
+
 def check_kernel_edges(dev, line):
     """K1 and K4 on their edge inputs: bit-equal to their plain versions
     and, on the card, to their baseline designs. Returns the cases held."""
@@ -1000,6 +1059,104 @@ def check_k9_edges(dev, line):
     return n
 
 
+def k9_fwd_designs(vals, rects, K, C):
+    """K9's forward in its other whole designs (the unculled build; at
+    fused.STAGE_C the batch sizes) and its baseline design, by name: each
+    should give the kernel's tiles and counts to the bit."""
+    whole = len(fused.FWD_STAGES) - 1
+    names = ["kernel_no_cull"] + (["kernel_r1", "kernel_r2", "kernel_r4"]
+                                  if C == fused.STAGE_C else [])
+    out = {d: fused.select_blend_stage(vals, rects, K, C, whole, design=d) for d in names}
+    out["baseline"] = fused.select_blend_baseline(vals, rects, K, C)
+    return out
+
+
+def check_k9_fwd_edges(dev, line):
+    """K9's forward on its edge inputs (`k9_edge_cases`), through both
+    input layouts: finite, counts equal to plain's, bit-equal across the
+    layouts, within the image tolerances of plain (but K9_ON_THRESHOLD,
+    whose alpha tests decide by rounding) and, on the card, bit-equal to a
+    second launch, to its baseline design (the design before), to its own
+    build with the band cull off and, at fused.STAGE_C, to its walk at 1,
+    2 and 4 slots a batch. Returns the cases held."""
+    n = 0
+    for name, vals, rects, _, C in k9_edge_cases(dev):
+        NB, kb = rects.shape
+        ref, ref_counts = fused.select_blend_plain(vals, rects, K9_EDGE_K, C)
+        outs = []
+        for variant in (1, 2):
+            if variant == 1:
+                v = vals.reshape(NB, kb // fused.CHUNK, fused.CHUNK, fused.NCH).permute(0, 1, 3, 2)
+                r = rects.reshape(NB, kb // fused.CHUNK, fused.CHUNK)
+                fn = fused.fused_select_blend
+            else:
+                v, r, fn = vals.permute(0, 2, 1), rects[:, None, :], fused.fused_select_blend2
+            out, counts = fn(v.contiguous(), r.contiguous(), K9_EDGE_K, C)
+            where = f"K9 forward edge case {name} (v{variant} layout)"
+            check(bool(torch.isfinite(out).all()), f"{where}: non-finite tiles")
+            check(torch.equal(counts, ref_counts), f"{where}: counts differ from plain")
+            if name != K9_ON_THRESHOLD:
+                e = image_err(out, ref)
+                check(image_ok(e), f"{where}: differs from plain ({e})")
+            outs.append(out)
+        check(torch.equal(bits(outs[0]), bits(outs[1])), f"K9 forward edge case {name}: layouts "
+                                                         "differ")
+        if dev.type == "cuda":
+            out, counts = fused.select_blend(vals, rects, K9_EDGE_K, C)
+            check(torch.equal(bits(out), bits(outs[0])), f"K9 forward edge case {name}: launches "
+                                                         "differ")
+            for d, (o, c) in k9_fwd_designs(vals, rects, K9_EDGE_K, C).items():
+                check(torch.equal(bits(o), bits(out)) and torch.equal(c, counts),
+                      f"K9 forward edge case {name}: {d} differs from the kernel")
+        n += 1
+    sync(dev)
+    line(f"K9 forward edge inputs: {n} cases in both layouts, counts equal to plain, within p999 "
+         f"<= {P999_MAX} / flips <= {FLIP_MAX} of plain (but {K9_ON_THRESHOLD!r})"
+         + (", bit-equal across layouts and launches, to the baseline design and to the kernel "
+            f"without the band cull, at C={fused.STAGE_C} to R = 1, 2, 4"
+            if dev.type == "cuda" else ", bit-equal across layouts"))
+    return n
+
+
+def k8_fwd_designs(co, col, op):
+    """K8's forward in its other whole designs and its baseline design, by
+    name (as `k9_fwd_designs`)."""
+    whole = len(blend.FWD_STAGES) - 1
+    names = ["kernel_no_cull"] + (["kernel_r1", "kernel_r2", "kernel_r4"]
+                                  if col.shape[-1] == blend.STAGE_C else [])
+    out = {d: blend.blend_tiles_coeffs_stage(co, col, op, whole, design=d) for d in names}
+    out["baseline"] = blend.blend_tiles_coeffs_baseline(co, col, op)
+    return out
+
+
+def check_k8_edges(dev, line):
+    """K8's forward on its edge inputs (`k8_edge_cases`): finite, within
+    the image tolerances of plain (but K9_ON_THRESHOLD's tiles) and, on
+    the card, bit-equal to a second launch, to its baseline design, to its
+    own build with the band cull off and, at blend.STAGE_C, to its walk at
+    1, 2 and 4 slots a batch. Returns the cases held."""
+    n = 0
+    for name, co, col, op, C in k8_edge_cases(dev):
+        out = blend.blend_tiles_coeffs(co, col, op)
+        where = f"K8 forward edge case {name}"
+        check(bool(torch.isfinite(out).all()), f"{where}: non-finite values")
+        if not name.startswith(K9_ON_THRESHOLD):
+            e = image_err(out, blend.blend_tiles_coeffs_plain(co, col, op))
+            check(image_ok(e), f"{where}: differs from plain ({e})")
+        if dev.type == "cuda":
+            check(torch.equal(bits(out), bits(blend.blend_tiles_coeffs(co, col, op))),
+                  f"{where}: two launches differ")
+            for d, o in k8_fwd_designs(co, col, op).items():
+                check(torch.equal(bits(o), bits(out)), f"{where}: {d} differs from the kernel")
+        n += 1
+    sync(dev)
+    line(f"K8 forward edge inputs: {n} cases within p999 <= {P999_MAX} / flips <= {FLIP_MAX} of "
+         f"plain (but the tiles of {K9_ON_THRESHOLD!r})"
+         + (", bit-equal across two launches, to the baseline design and to the kernel without "
+            f"the band cull, at C={blend.STAGE_C} to R = 1, 2, 4" if dev.type == "cuda" else ""))
+    return n
+
+
 def ptxas_usage(log, marker):
     """Registers, shared memory and spills that `-Xptxas -v` reports for
     the entry functions whose mangled names contain `marker`, by name."""
@@ -1094,24 +1251,28 @@ def reset_launch_counts():
     blend_rec.fwd_baseline_launches = blend_rec.img_fwd_baseline_launches = 0
     blend_rec.bwd_baseline_launches = blend_rec.img_bwd_baseline_launches = 0
     blend.launches = blend.bwd_launches = fused.launches = fused.bwd_launches = 0
-    fused.baseline_launches = 0
-    for k in fused.stage_launches:
-        fused.stage_launches[k] = 0
+    fused.baseline_launches = fused.fwd_baseline_launches = blend.baseline_launches = 0
+    for counts in (fused.stage_launches, fused.fwd_stage_launches, blend.stage_launches):
+        for k in counts:
+            counts[k] = 0
     probes.reset_launches()
 
 
 def off_path_launches():
     """Launches, since the counts were reset, of what no path of the port
     calls: the baseline designs of K1, K2, K3, K4, of K5's and K7's
-    forwards and backwards and of K9's backward, and the stage entry
-    points of K2, K3 and K9's backward (their cuts, other designs and
-    diagnostic builds). Each main-path window must see 0."""
+    forwards and backwards, of K8's forward and of K9's forward and
+    backward, and the stage entry points of K2, K3, K8's forward and K9's
+    forward and backward (their cuts, other designs and diagnostic
+    builds). Each main-path window must see 0."""
     return (extract.baseline_launches + segsum.baseline_launches + blend_ct.baseline_launches
             + blend_ct.fwd_baseline_launches + sum(blend_ct.stage_launches.values())
             + sum(blend_ct.fwd_stage_launches.values()) + blend_rec.fwd_baseline_launches
             + blend_rec.img_fwd_baseline_launches + blend_rec.bwd_baseline_launches
             + blend_rec.img_bwd_baseline_launches + fused.baseline_launches
-            + sum(fused.stage_launches.values()))
+            + sum(fused.stage_launches.values()) + fused.fwd_baseline_launches
+            + sum(fused.fwd_stage_launches.values()) + blend.baseline_launches
+            + sum(blend.stage_launches.values()))
 
 
 def blend_bound(work, nbytes, backward=False):
@@ -1430,6 +1591,34 @@ def cull_bands(rec, org):
     return torch.where(bound[..., None], reach, True)
 
 
+K8_REL_SLACK, K8_ABS_SLACK = 1e-5, 1e-3  # blend_coeffs.cu's band bound margins
+
+
+def coeff_cull_bands(coeffs, opacs):
+    """[T, K, 8] the 2-row bands of a tile that K8's band cull lets each
+    slot reach, from coeffs [T, K, 8] and opacs [T, 1, K]
+    (blend_coeffs.cu::k8_bands in float32: per row dy the largest power
+    over real dx, c0 + c2 dy + c4 dy^2 - (c1 + c5 dy)^2 / (4 c3), plus
+    log(255 opacity) and the margin, must reach 0 on one of the band's two
+    rows; none at opacity <= 0, every band where a value is not finite or
+    c3 >= 0; nvcc's contractions may move an edge by a rounding)."""
+    c = coeffs[..., :6].unbind(-1)
+    op = opacs[:, 0, :]
+    lop = torch.log(op) + CULL_LOG255
+    inv = 1.0 / (-4.0 * c[3])
+    fy = torch.arange(16, dtype=coeffs.dtype, device=coeffs.device)[:, None, None]
+    q = c[1] + c[5] * fy
+    u = c[1].abs() + c[5].abs() * fy
+    top = c[0] + c[2] * fy + c[4] * fy * fy + q * q * inv
+    mag = (c[0].abs() + 15.0 * c[1].abs() + c[2].abs() * fy + 225.0 * c[3].abs()
+           + c[4].abs() * fy * fy + 15.0 * c[5].abs() * fy + u * u * inv + lop.abs())
+    rows = ~(top + lop + K8_REL_SLACK * mag + K8_ABS_SLACK < 0.0)  # [16, T, K]
+    bands = rows.reshape(8, 2, *rows.shape[1:]).any(1).permute(1, 2, 0)
+    finite = torch.isfinite(coeffs[..., :6]).all(-1) & torch.isfinite(op)
+    every = (~finite | ~(c[3] < 0.0))[..., None]
+    return torch.where((op <= 0.0)[..., None], False, bands | every)
+
+
 def blend_work(b, cnt, tile_chunk=128):
     """What the blend walks face at a selection: tiles by live count, the
     (pixel, record) pairs visited (before each pixel's stop) and used
@@ -1462,16 +1651,18 @@ def blend_work(b, cnt, tile_chunk=128):
     return w
 
 
-def coeff_work(coeffs, opacs, tile_chunk=128):
+def coeff_work(coeffs, opacs, tile_chunk=128, cull=True):
     """What K8's and K9's polynomial walks face: the (pixel, slot) pairs
     visited (before each pixel's stop; a slot of opacity 0 is inert) and
     used there (power <= 0 and raw >= 1/255), for coeffs [T, K, 8] and
-    opacs [T, 1, K]."""
+    opacs [T, 1, K]; with `cull`, also the (slot, warp of 4 rows) pairs of
+    live slots and those K8's band cull lets its warps take
+    (`coeff_cull_bands`)."""
     T, K, _ = coeffs.shape
     dev = coeffs.device
     basis = blend._pixel_basis(dev)
     U = torch.triu(torch.ones((K, K), device=dev))
-    w = dict(visited=0, used=0)
+    w = dict(visited=0, used=0, **(dict(warp_slots=0, warp_slots_taken=0) if cull else {}))
     with full_float32():
         for c0 in range(0, T, tile_chunk):
             sl = slice(c0, c0 + tile_chunk)
@@ -1479,6 +1670,11 @@ def coeff_work(coeffs, opacs, tile_chunk=128):
             visited = (opacs[sl] > 0) & (f["t_before"] >= blend.T_EPS)
             w["visited"] += int(visited.sum())
             w["used"] += int((f["use"] & visited).sum())
+            if cull:
+                live = opacs[sl, 0] > 0
+                warps = coeff_cull_bands(coeffs[sl], opacs[sl]).reshape(*live.shape, 4, 2).any(-1)
+                w["warp_slots"] += int(live.sum()) * 4
+                w["warp_slots_taken"] += int(warps.sum())
     return w
 
 
@@ -1493,7 +1689,7 @@ def fused_work(vals, rects, K, C, block_chunk=8):
     for b0 in range(0, vals.shape[0], block_chunk):
         sl = slice(b0, b0 + block_chunk)
         coeffs, _, opacs, slot, _, hit, _ = fused._tile_inputs(vals[sl], rects[sl], K, C)
-        for k, v in coeff_work(coeffs, opacs).items():
+        for k, v in coeff_work(coeffs, opacs, cull=False).items():
             w[k] += v
         warps = cull_bands(slot, org).reshape(*hit.shape, 4, 2).any(-1)
         w["warp_slots"] += int(hit.sum()) * 4
@@ -2519,6 +2715,123 @@ def variants(dev, report, scene):
     return kernels
 
 
+def fwd_ptxas(report, source, marks):
+    """ptxas' usage of a forward's designs ({name: mangled-name marker})
+    from `source`'s build log, and its summary line."""
+    logs = report.get("build_logs", {}).get(source)
+    usage = {d: ptxas_usage(logs, m) for d, m in marks.items()}
+    return usage, "; ".join(f"{d} {u.get('registers')}, {u.get('smem')}, {u.get('spill_stores')}"
+                            for d, us in usage.items() for u in us.values())
+
+
+def k9_forward_designs(dev, report, line, vals, rects, K, C):
+    """K9's forward at frame 0 on the card: bit-equal across launches, to
+    its baseline design and its other designs; K8 on the same tiles'
+    inputs (its coefficients made apart: image tolerances) against it; the
+    baseline, the kernel and its batch sizes in turns, its stage cuts in
+    turns, ptxas' registers. Returns the results (turns None off the
+    card)."""
+    res = dict(turns=None, stages=None, ptxas=None)
+    tiles_k9, counts_k9 = fused.select_blend(vals, rects, K, C)
+    co, col, op, *_ = fused._tile_inputs(vals, rects, K, C)
+    k8_tiles = blend.blend_tiles_coeffs(co.contiguous(), col.contiguous(), op.contiguous())
+    res["k8_vs_k9"] = image_err(k8_tiles.reshape(tiles_k9.shape), tiles_k9)
+    line(f"K8 on frame 0's K9 tile inputs vs K9's tiles: p999_abs="
+         f"{res['k8_vs_k9']['p999_abs']:.3e} frac={res['k8_vs_k9']['flip_frac']:.3e} "
+         f"max_abs={res['k8_vs_k9']['max_abs']:.3e}")
+    check(image_ok(res["k8_vs_k9"]), "K8 on K9's tile inputs: outside the image tolerances of K9")
+    del co, col, op, k8_tiles
+    if dev.type != "cuda":
+        return res
+    check(torch.equal(bits(tiles_k9), bits(fused.select_blend(vals, rects, K, C)[0])),
+          "K9 forward: two launches differ")
+    for d, (o, c) in k9_fwd_designs(vals, rects, K, C).items():
+        check(torch.equal(bits(o), bits(tiles_k9)) and torch.equal(c, counts_k9),
+              f"K9 forward: {d} differs from the kernel at full width")
+    whole = len(fused.FWD_STAGES) - 1
+    for st in range(whole):
+        check(bool(torch.isfinite(fused.select_blend_stage(vals, rects, K, C, st)[0]).all()),
+              f"K9 forward stage {st}: non-finite output")
+    line(f"K9 forward at full width (NB={vals.shape[0]}, kb={vals.shape[1]}, K={K}, C={C}): "
+         "bit-equal across two launches, to the baseline design and to the kernel without the "
+         "band cull" + (", R = 1, 2, 4 bit-equal to the kernel" if C == fused.STAGE_C else ""))
+    del tiles_k9, counts_k9
+    if C != fused.STAGE_C:
+        return res
+    res["turns"] = in_turns({
+        "baseline": lambda: fused.select_blend_baseline(vals, rects, K, C),
+        "kernel": lambda: fused.select_blend(vals, rects, K, C),
+        **{d: (lambda d=d: fused.select_blend_stage(vals, rects, K, C, whole, design=d))
+           for d in ("kernel_r1", "kernel_r2", "kernel_r4")},
+    }, 20, dev)
+    res["stages"] = in_turns({
+        f"stage{st}": (lambda st=st: fused.select_blend_stage(vals, rects, K, C, st))
+        for st in range(len(fused.FWD_STAGES))}, 20, dev)
+    line(f"K9 forward in turns (kernel: R = {fused.FWD_BATCH} slots a batch; kernel_rN: R = N): "
+         f"{turns_summary(res['turns'])}")
+    ms = [res["stages"][f"stage{st}"]["ms"] for st in range(len(fused.FWD_STAGES))]
+    line("K9 forward stages (ms a call; delta): " + ", ".join(
+        f"{st} {nm} {m:.5f} ({m - (ms[st - 1] if st else 0.0):+.5f})"
+        for st, (nm, m) in enumerate(zip(fused.FWD_STAGES, ms))))
+    # mangled template arguments: <C, P, R, STAGE> and, baseline, <C, STAGE>
+    res["ptxas"], summary = fwd_ptxas(report, "fused", {
+        "kernel": f"fused_fwd_kernelILi{C}ELi2ELi{fused.FWD_BATCH}ELi2E",
+        **{f"kernel_r{r}": f"fused_fwd_kernelILi{C}ELi2ELi{r}ELi2E" for r in (1, 2, 4)},
+        "baseline": f"fused_kernel_v1ILi{C}ELi3E"})
+    line(f"K9 forward ptxas at C={C} (registers, static smem bytes, spill stores): {summary}")
+    return res
+
+
+def k8_forward_designs(dev, report, line, bench_args, frame_args):
+    """K8's forward on the card at the stage bench's shapes (bench_args,
+    C 3) and on frame 0's K9 tile inputs (frame_args, C 6): bit-equal
+    across launches, to its baseline design and to its other designs; the
+    baseline and the kernel in turns at the stage bench's shapes, and at
+    frame 0's with the batch sizes, the stage cuts in turns there, ptxas'
+    registers at both C. Returns the results (None off the card)."""
+    if dev.type != "cuda":
+        return None
+    res = {}
+    whole = len(blend.FWD_STAGES) - 1
+    for where, args in (("stage bench", bench_args), ("frame 0", frame_args)):
+        out = blend.blend_tiles_coeffs(*args)
+        check(torch.equal(bits(out), bits(blend.blend_tiles_coeffs(*args))),
+              f"K8 forward ({where}): two launches differ")
+        for d, o in k8_fwd_designs(*args).items():
+            check(torch.equal(bits(o), bits(out)), f"K8 forward ({where}): {d} differs from the "
+                                                   "kernel")
+        del out
+        designs = {"baseline": lambda args=args: blend.blend_tiles_coeffs_baseline(*args),
+                   "kernel": lambda args=args: blend.blend_tiles_coeffs(*args)}
+        if args[1].shape[-1] == blend.STAGE_C:
+            designs.update({d: (lambda d=d, args=args: blend.blend_tiles_coeffs_stage(
+                *args, whole, design=d)) for d in ("kernel_r1", "kernel_r2", "kernel_r4")})
+        res[where] = in_turns(designs, 20, dev)
+        line(f"K8 forward in turns ({where}: T={args[0].shape[0]}, K={args[0].shape[1]}, "
+             f"C={args[1].shape[-1]}): {turns_summary(res[where])}")
+    co, col, op = frame_args
+    for st in range(whole):
+        check(bool(torch.isfinite(blend.blend_tiles_coeffs_stage(co, col, op, st)).all()),
+              f"K8 forward stage {st}: non-finite output")
+    res["stages"] = in_turns({
+        f"stage{st}": (lambda st=st: blend.blend_tiles_coeffs_stage(co, col, op, st))
+        for st in range(len(blend.FWD_STAGES))}, 20, dev)
+    ms = [res["stages"][f"stage{st}"]["ms"] for st in range(len(blend.FWD_STAGES))]
+    line("K8 forward stages at frame 0 (ms a call; delta): " + ", ".join(
+        f"{st} {nm} {m:.5f} ({m - (ms[st - 1] if st else 0.0):+.5f})"
+        for st, (nm, m) in enumerate(zip(blend.FWD_STAGES, ms))))
+    marks = {}
+    for C in sorted({bench_args[1].shape[-1], col.shape[-1]}):
+        marks[f"kernel C{C}"] = f"blend_coeffs_kernelILi{C}ELi2ELi{blend.FWD_BATCH}ELi2E"
+        if C == blend.STAGE_C:
+            marks.update({f"kernel_r{r} C{C}": f"blend_coeffs_kernelILi{C}ELi2ELi{r}ELi2E"
+                          for r in (1, 2, 4)})
+        marks[f"baseline C{C}"] = f"blend_coeffs_v1_kernelILi{C}E"
+    res["ptxas"], summary = fwd_ptxas(report, "blend_coeffs", marks)
+    line(f"K8 forward ptxas (registers, static smem bytes, spill stores): {summary}")
+    return res
+
+
 def fused_phase(dev, report, scene):
     """K9 (the fused select + blend) forward and backward against its plain
     versions through both input layouts, on frame 0's Gaussians at the
@@ -2553,6 +2866,8 @@ def fused_phase(dev, report, scene):
         n_sel = int(torch.zeros(NB, kb + 1, dtype=torch.bool, device=dev)
                     .scatter_(1, lanes.reshape(NB, -1), True)[:, :kb].sum())
     k9_edges = check_k9_edges(dev, line)
+    k9f_edges = check_k9_fwd_edges(dev, line)
+    k8_edges = check_k8_edges(dev, line)
     k9, k9b = {}, {}
     for variant, (v, r) in layouts.items():
         fn = fused.fused_select_blend if variant == 1 else fused.fused_select_blend2
@@ -2641,6 +2956,7 @@ def fused_phase(dev, report, scene):
             line(f"K9 backward ptxas at C={C} (registers, static smem bytes, spill stores): "
                  + "; ".join(f"{d} {u.get('registers')}, {u.get('smem')}, {u.get('spill_stores')}"
                              for d, us in k9b_ptxas.items() for u in us.values()))
+        k9f = k9_forward_designs(dev, report, line, vals, rects, K, C)
         k9_t = measure(lambda: fused.select_blend(vals, rects, K, C), 20, dev)
         k9_plain_t = measure(lambda: fused.select_blend_plain(vals, rects, K, C), 3, dev,
                              warmup=1)
@@ -2762,6 +3078,10 @@ def fused_phase(dev, report, scene):
         check(image_ok(k8), f"K8 forward: outside p999 <= {P999_MAX} / flips <= {FLIP_MAX}")
         check(all(e["rel_l2"] <= K3_REL_L2 for e in k8b.values()),
               f"K8 backward: a cotangent off by rel L2 > {K3_REL_L2}")
+        f_co, f_col, f_op, *_ = fused._tile_inputs(vals, rects, K, C)
+        k8f = k8_forward_designs(dev, report, line, (co, col, op),
+                                 (f_co.contiguous(), f_col.contiguous(), f_op.contiguous()))
+        del f_co, f_col, f_op
         k8_t = measure(lambda: blend.blend_tiles_coeffs(co, col, op), 20, dev)
         k8_plain_t = measure(lambda: blend.blend_tiles_coeffs_plain(co, col, op), 3, dev, warmup=1)
         k8b_t = measure(lambda: blend.blend_tiles_coeffs_bwd(co, col, op, g8), 20, dev)
@@ -2776,7 +3096,9 @@ def fused_phase(dev, report, scene):
     k8b_bound = coeff_bound(k8_in + 4 * g8.numel() + 4 * T8 * K8K * (8 + C8 + 1), used8, unused8,
                             coeff_bwd_ops(C8), COEFF_BWD_SFU_PER_PAIR)
     line(f"K8 work: pixel-slot pairs visited={work8['visited']} (count_pairs {pairs8}), "
-         f"used={used8}, on {inp['n_contrib']} live slots; bounds (ms): forward bytes "
+         f"used={used8}, on {inp['n_contrib']} live slots; (slot, warp) pairs the forward's "
+         f"cull takes {work8['warp_slots_taken']} of {work8['warp_slots']}; bounds (ms): "
+         "forward bytes "
          f"{k8_bound[2]['bytes'] * 1e3:.5f} operations {k8_bound[2]['operations'] * 1e3:.5f}, "
          f"backward bytes {k8b_bound[2]['bytes'] * 1e3:.5f} operations "
          f"{k8b_bound[2]['operations'] * 1e3:.5f}")
@@ -2802,6 +3124,7 @@ def fused_phase(dev, report, scene):
     check(all(np.isfinite(v) for v in stage_ms.values()), "stage bench: a time is not finite")
     check(k8_launches["blend_tiles_coeffs"] > 0 and k8_launches["blend_tiles_coeffs_bwd"] > 0,
           f"stage bench: K8 not launched {k8_launches}")
+    check(off_path_launches() == 0, "stage bench: a baseline design or a stage cut was launched")
     del inp
 
     kernels = [
@@ -2810,8 +3133,13 @@ def fused_phase(dev, report, scene):
             "source": "d3ga_tpu_torch/csrc/blend_coeffs.cu",
             "replaces": "d3ga_tpu/raster/pallas_blend.py:238",
             "launches": k8_launches["blend_tiles_coeffs"], "max_abs_err": k8["max_abs"],
-            "ms": k8_t["ms"], "plain_ms": k8_plain_t["ms"], "bound_ms": k8_bound[0],
+            "ms": k8f["stage bench"]["kernel"]["ms"] if k8f else k8_t["ms"],
+            "plain_ms": k8_plain_t["ms"], "bound_ms": k8_bound[0],
             "bound_by": k8_bound[1], "library_ms": None,
+            "baseline_ms": k8f and k8f["stage bench"]["baseline"]["ms"],
+            "designs_ms": k8f and {d: v["ms"] for d, v in k8f["frame 0"].items()},
+            "stages_ms": k8f and [k8f["stages"][f"stage{st}"]["ms"]
+                                  for st in range(len(blend.FWD_STAGES))],
         },
         {
             "name": "blend_tiles_coeffs_bwd", "route": "cuda",
@@ -2828,8 +3156,13 @@ def fused_phase(dev, report, scene):
             "replaces": "d3ga_tpu/raster/attic/pallas_fused2.py:376",
             "launches": k9_launches["fused_select_blend"],
             "max_abs_err": max(e["max_abs"] for e in k9.values()),
-            "ms": k9_t["ms"], "plain_ms": k9_plain_t["ms"], "bound_ms": k9_bound[0],
+            "ms": k9f["turns"]["kernel"]["ms"] if k9f["turns"] else k9_t["ms"],
+            "plain_ms": k9_plain_t["ms"], "bound_ms": k9_bound[0],
             "bound_by": k9_bound[1], "library_ms": None,
+            "baseline_ms": k9f["turns"] and k9f["turns"]["baseline"]["ms"],
+            "designs_ms": k9f["turns"] and {d: v["ms"] for d, v in k9f["turns"].items()},
+            "stages_ms": k9f["stages"] and [k9f["stages"][f"stage{st}"]["ms"]
+                                            for st in range(len(fused.FWD_STAGES))],
         },
         {
             "name": "fused_select_blend_bwd", "route": "cuda",
@@ -2859,7 +3192,8 @@ def fused_phase(dev, report, scene):
     report.update(
         k9=k9, k9b=k9b, k9_pairs=pairs, k9_work=work9, k9_edges=k9_edges, k9b_base=k9b_base,
         k9b_px=k9b_px, k9b_turns=k9b_turns, k9b_split=k9b_split, k9b_stages=k9b_stages,
-        k9b_ptxas=k9b_ptxas, k8_work=work8, k9_blocks=NB, k9_kb=kb, fused_vs_topk=fe, aux_fused=a_f,
+        k9b_ptxas=k9b_ptxas, k9f_edges=k9f_edges, k8_edges=k8_edges, k9f=k9f, k8f=k8f,
+        k8_work=work8, k9_blocks=NB, k9_kb=kb, fused_vs_topk=fe, aux_fused=a_f,
         aux_topk=a_t, fused_terms_rel=term_err, fused_grad_rel_l2=leaf_err, fused_step_ms=step_ms,
         fused_launches=k9_launches, fused_profiled=fused_prof, k8=k8, k8b=k8b, k8_pairs=pairs8,
         stage_bench=bench, fused_timings=timings,

@@ -185,11 +185,13 @@ struct CbShared {
 // the block's records vb (16 floats each) as its six tile-local falloff
 // coefficients (the JAX kernels' _coeffs_from_rec), its opacity and C
 // colours, and the bands it can reach (all without cull), into s.rec[t];
-// with GEO, its geometry into s.geo.
-template <int C, int P, bool GEO>
+// with GEO, its geometry into s.geo. Sh is the caller's shared layout:
+// CbShared here, coeff_walk_fwd.cuh's CfShared for K9's forward (rows
+// only, no GEO).
+template <int C, int P, bool GEO, class Sh>
 __device__ __forceinline__ void cb_stage(const float* __restrict__ vb, bool vec, bool cull,
                                          const int* s_sel, int base, int n, float sx, float sy,
-                                         CbShared<C, P>& s, int t) {
+                                         Sh& s, int t) {
   if (t >= n) return;
   const float* r = vb + (long long)s_sel[base + t] * 16;
   float v[16];

@@ -17,7 +17,7 @@
 // in lane (depth-rank) order, the first K of them compacted; the tile's
 // count is the uncapped number. Each compacted record becomes the six
 // falloff coefficients in tile-local pixels (x - 16 tx, y - 16 ty; the
-// JAX kernels' _coeffs_from_rec), then coeff_walk.cuh's walk. Output
+// JAX kernels' _coeffs_from_rec), then the polynomial walk. Output
 // tiles [NB, 64, 256, C+1] (T_bg last), counts [NB, 64]. The backward
 // returns d(vals) [NB, kb, 16]; the padding channels and the candidates no
 // tile selected get 0.
@@ -37,13 +37,30 @@
 // 0.0054), the forward's 0.0073 (bytes).
 //
 // Design. The TPU grid is one program per block (48 at full width); here
-// one CUDA block of 256 threads per tile (3,072), one thread per pixel.
-//   Forward: the block scans its 8x8 block's kb rects 256 at a time; a
-//   warp ballot and the per-warp popcounts give each overlapping
-//   candidate its position, and the first K lane ids go to shared memory
-//   (K ints). The walk stages its chunks through those ids straight from
-//   vals: the [K, 16] compacted record block of the TPU kernels is never
-//   written.
+// one CUDA block per tile (3,072).
+//   Forward (fused_fwd_kernel, 128 threads): the block scans its 8x8
+//   block's kb rects 256 at a time, two consecutive rects a thread in one
+//   8-byte load (select_tile_pairs: 16 rounds at kb 4,096, each with two
+//   barriers, where one rect a thread at 128 threads would take 32); two
+//   warp ballots and the per-warp popcounts give each overlapping
+//   candidate its position in lane order, and the first K lane ids go to
+//   shared memory (K ints). Then coeff_walk_fwd.cuh's walk (K2's design on
+//   K9's rule: two pixels a thread, a 2-row band cull, per-warp slot lists
+//   in batches of 8; that header says why), which stages its chunks
+//   through those ids straight from vals with the backward's staging
+//   (coeff_walk_bwd.cuh::cb_stage: the tile-local coefficients and the
+//   ellipse's bands): the [K, 16] compacted record block of the TPU
+//   kernels is never written. The tile's [256, C+1] block is built in
+//   shared memory and written as 16-byte stores (cf_store). Its image is
+//   the design before's to the bit. The design before (256 threads, one a
+//   pixel, coeff_walk.cuh's coeff_walk_fwd, each thread storing its
+//   pixel's C + 1 floats at a (C + 1) x 4-byte stride) stays as
+//   fused_kernel_v1, launched by d3ga_fused_v1 (chip_smoke.py only) and,
+//   cut, by d3ga_fused_stage (P3). d3ga_fused_fwd_stage launches the new
+//   kernel with its band cull off (the reference for the cull's bits) at
+//   every C and, at FB_STAGE_C only, cut at a stage (coeff_walk_fwd.cuh's
+//   STAGE: 0 selection + staging + stores, 1 + lists, polynomials and
+//   exps, 2 the kernel) or with 1, 2 or 4 slots a batch.
 //   Backward, kernel 1 (per tile, fused_bwd_kernel): the same selection,
 //   then coeff_walk_bwd.cuh's walk (two pixels a thread, 128 threads a
 //   tile; a warp skips the slots its 2-row bands cannot take; per-slot
@@ -72,27 +89,36 @@
 // the cull and times the designs and the stages in turns.
 //
 // Stage cuts (probe P3, the counterpart of the TPU bisect
-// tools/fused_bisect.py): fused_kernel's STAGE parameter stops the forward
-// early, so each cut runs K9's own code up to its point. STAGE 0 writes
-// 1.0 to every output; 1 runs the selection and writes the tile's count to
-// every pixel and channel; 2 also sums channels [0, C] of the first
-// min(count, K) selected candidates (threads stride the slots, then warp
-// shuffles and the 8 warps' partials in order) and writes that sum plus
-// the count; 3 is K9. Only STAGE 3 writes counts.
+// tools/fused_bisect.py): fused_kernel_v1's STAGE parameter stops the
+// design before early, so each cut runs its code up to its point. STAGE
+// 0 writes 1.0 to every output; 1 runs the selection and writes the tile's
+// count to every pixel and channel; 2 also sums channels [0, C] of the
+// first min(count, K) selected candidates (threads stride the slots, then
+// warp shuffles and the 8 warps' partials in order) and writes that sum
+// plus the count; 3 is the whole design before, K9's tiles to the bit.
+// Only STAGE 3 writes counts.
 
 #include <cstdint>
 
 #include "coeff_walk.cuh"
 #include "coeff_walk_bwd.cuh"
+#include "coeff_walk_fwd.cuh"
 
 #define FB_BLOCK 8
 #define FB_TB (FB_BLOCK * FB_BLOCK)
 #define FB_NCH 16
-#define FB_STAGE_C 6  // the C the backward's stage cuts and pixel variants are built for
+#define FB_STAGE_C 6  // the C the stage cuts and the pixel and batch variants are built for
 
 // Candidate j of a block's records.
 __device__ __forceinline__ const float* cand(const float* vb, int j) {
   return vb + (long long)j * FB_NCH;
+}
+
+// Whether packed rect r (xmin | xmax << 8 | ymin << 16 | ymax << 24)
+// holds tile (tx, ty); rect 0 holds none.
+__device__ __forceinline__ bool fb_holds(int r, int tx, int ty) {
+  return tx >= (r & 0xFF) && tx < ((r >> 8) & 0xFF) && ty >= ((r >> 16) & 0xFF) &&
+         ty < ((r >> 24) & 0xFF);
 }
 
 // The first K candidates (lane order) whose rect holds tile (tx, ty) into
@@ -108,11 +134,7 @@ __device__ __forceinline__ int select_tile(const int* __restrict__ rects_b, int 
   for (int base = 0; base < kb; base += THREADS) {
     const int j = base + p;
     bool m = false;
-    if (j < kb) {
-      const int r = rects_b[j];
-      m = tx >= (r & 0xFF) && tx < ((r >> 8) & 0xFF) && ty >= ((r >> 16) & 0xFF) &&
-          ty < ((r >> 24) & 0xFF);
-    }
+    if (j < kb) m = fb_holds(rects_b[j], tx, ty);
     const unsigned ballot = __ballot_sync(CW_FULL_MASK, m);
     if (lane == 0) s_warp[warp] = __popc(ballot);
     __syncthreads();
@@ -125,6 +147,54 @@ __device__ __forceinline__ int select_tile(const int* __restrict__ rects_b, int 
     }
     const int pos = running + before + __popc(ballot & ((1u << lane) - 1u));
     if (m && pos < K) s_sel[pos] = j;
+    running += total;
+    __syncthreads();  // s_warp is rewritten by the next round
+  }
+  return running;
+}
+
+// select_tile's result (the same positions in lane order) by a block of
+// THREADS threads testing two consecutive rects a round: kb / (2 THREADS)
+// rounds, where select_tile<128> takes twice as many, each with its two
+// barriers. A thread's pair is one 8-byte load with vec (rects_b 8-byte
+// aligned, kb even), else two; lane l's two candidates come before lane
+// l + 1's. Ends synchronized.
+template <int THREADS>
+__device__ __forceinline__ int select_tile_pairs(const int* __restrict__ rects_b, int kb, int tx,
+                                                 int ty, int K, bool vec, int* s_sel,
+                                                 int* s_warp) {
+  const int p = threadIdx.x;
+  const int lane = p & 31;
+  const int warp = p >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  int running = 0;
+  for (int base = 0; base < kb; base += 2 * THREADS) {
+    const int j = base + 2 * p;
+    int r0 = 0, r1 = 0;
+    if (vec && j + 1 < kb) {
+      const int2 v = *reinterpret_cast<const int2*>(rects_b + j);
+      r0 = v.x;
+      r1 = v.y;
+    } else {
+      if (j < kb) r0 = rects_b[j];
+      if (j + 1 < kb) r1 = rects_b[j + 1];
+    }
+    const bool m0 = fb_holds(r0, tx, ty);
+    const bool m1 = fb_holds(r1, tx, ty);
+    const unsigned b0 = __ballot_sync(CW_FULL_MASK, m0);
+    const unsigned b1 = __ballot_sync(CW_FULL_MASK, m1);
+    if (lane == 0) s_warp[warp] = __popc(b0) + __popc(b1);
+    __syncthreads();
+    int before = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < THREADS / 32; ++w) {
+      const int c = s_warp[w];
+      before += w < warp ? c : 0;
+      total += c;
+    }
+    const int pos = running + before + __popc(b0 & below) + __popc(b1 & below);
+    if (m0 && pos < K) s_sel[pos] = j;
+    if (m1 && pos + m0 < K) s_sel[pos + m0] = j + 1;
     running += total;
     __syncthreads();  // s_warp is rewritten by the next round
   }
@@ -155,10 +225,12 @@ struct CandRows {
   }
 };
 
+// The forward's design before: one thread a pixel, coeff_walk_fwd, each
+// thread storing its pixel's C + 1 floats; STAGE cuts it for P3.
 template <int C, int STAGE = 3>
 __global__ void __launch_bounds__(CW_NPIX)
-fused_kernel(const float* __restrict__ vals, const int* __restrict__ rects, int kb, int K,
-             float* __restrict__ out, int* __restrict__ counts) {
+fused_kernel_v1(const float* __restrict__ vals, const int* __restrict__ rects, int kb, int K,
+                float* __restrict__ out, int* __restrict__ counts) {
   extern __shared__ int s_sel[];  // K lane ids
   __shared__ int s_warp[CW_NWARP];
   const int bt = blockIdx.x;
@@ -210,6 +282,44 @@ fused_kernel(const float* __restrict__ vals, const int* __restrict__ rects, int 
 #pragma unroll
   for (int c = 0; c < C; ++c) o[c] = acc[c];
   o[C] = T;
+}
+
+// Stages slot base + r of the walk: candidate s_sel[base + r], by K9's
+// backward's staging (tile-local coefficients and the ellipse's bands).
+template <int C, int P>
+struct CandStage {
+  const float* vb;
+  const int* s_sel;
+  float sx, sy;
+  bool vec, cull;
+  __device__ __forceinline__ void operator()(int base, int m, int r, CfShared<P>& s) const {
+    cb_stage<C, P, false>(vb, vec, cull, s_sel, base, m, sx, sy, s, r);
+  }
+};
+
+// The forward: select_tile_pairs, then coeff_walk_fwd_px at P pixels a
+// thread and R slots a batch (coeff_walk_fwd.cuh), the tile's block
+// written by cf_store. vec: vals 16-byte aligned; rvec: rects 8-byte
+// aligned and kb even; cull: the band cull on. Dynamic shared memory: K
+// lane ids. Counts are written at every STAGE.
+template <int C, int P = CB_P, int R = CF_R, int STAGE = 2>
+__global__ void __launch_bounds__(cb_threads<P>)
+fused_fwd_kernel(const float* __restrict__ vals, const int* __restrict__ rects, int kb, int K,
+                 int vec, int rvec, int cull, float* __restrict__ out, int* __restrict__ counts) {
+  extern __shared__ int s_sel[];  // K lane ids
+  __shared__ int s_warp[cb_warps<P>];
+  __shared__ CfShared<P> s;
+  const int bt = blockIdx.x;
+  const int b = bt / FB_TB, t = bt % FB_TB;
+  const int tx = t % FB_BLOCK, ty = t / FB_BLOCK;
+  const int cnt = select_tile_pairs<cb_threads<P>>(rects + (long long)b * kb, kb, tx, ty, K,
+                                                   rvec != 0, s_sel, s_warp);
+  if (threadIdx.x == 0) counts[bt] = cnt;
+  const CandStage<C, P> stage{vals + (long long)b * kb * FB_NCH, s_sel, (float)(tx * CW_TILE),
+                              (float)(ty * CW_TILE), vec != 0, cull != 0};
+  float acc[P][C], T[P];
+  coeff_walk_fwd_px<C, P, R, STAGE>(min(cnt, K), stage, s, acc, T);
+  cf_store<C, P>(s, acc, T, out + (long long)bt * CW_NPIX * (C + 1));
 }
 
 // The backward's design before: one thread a pixel, coeff_walk_bwd.
@@ -325,33 +435,71 @@ fused_route_kernel(const int* __restrict__ rects, int kb, int K,
   for (int i = 6 + C; i < FB_NCH; ++i) o[i] = 0.0f;
 }
 
-// Each returns the cudaError_t of its launches, or -1 for an unsupported C.
+template <int C, int R, int STAGE>
+static int launch_fwd(const float* v, const int* r, int NB, int kb, int K, int cull, float* o,
+                      int* c, cudaStream_t s) {
+  if ((reinterpret_cast<uintptr_t>(o) & 15) != 0) return (int)cudaErrorMisalignedAddress;
+  const int vec = (reinterpret_cast<uintptr_t>(v) & 15) == 0;
+  const int rvec = kb % 2 == 0 && (reinterpret_cast<uintptr_t>(r) & 7) == 0;
+  fused_fwd_kernel<C, CB_P, R, STAGE><<<NB * FB_TB, cb_threads<CB_P>, (size_t)K * sizeof(int), s>>>(
+      v, r, kb, K, vec, rvec, cull, o, c);
+  return (int)cudaGetLastError();
+}
+
+// design 1: the kernel; 2: the kernel with the band cull off (stage 2, at
+// every C); at FB_STAGE_C only, design 1 cut at stages 0-1 and designs
+// 3-5, the walk at 1, 2 and 4 slots a batch (stage 2).
+template <int C>
+static int launch_fwd_stage(const float* v, const int* r, int NB, int kb, int K, float* o, int* c,
+                            int design, int stage, cudaStream_t s) {
+  if (stage == 2 && (design == 1 || design == 2))
+    return launch_fwd<C, CF_R, 2>(v, r, NB, kb, K, design == 1, o, c, s);
+  if constexpr (C == FB_STAGE_C) {
+    if (design == 1 && stage == 0) return launch_fwd<C, CF_R, 0>(v, r, NB, kb, K, 1, o, c, s);
+    if (design == 1 && stage == 1) return launch_fwd<C, CF_R, 1>(v, r, NB, kb, K, 1, o, c, s);
+    if (stage == 2 && design == 3) return launch_fwd<C, 1, 2>(v, r, NB, kb, K, 1, o, c, s);
+    if (stage == 2 && design == 4) return launch_fwd<C, 2, 2>(v, r, NB, kb, K, 1, o, c, s);
+    if (stage == 2 && design == 5) return launch_fwd<C, 4, 2>(v, r, NB, kb, K, 1, o, c, s);
+  }
+  return -1;
+}
+
+#define FB_FWD_ARGS                                                                       \
+  const float* v = (const float*)vals;                                                    \
+  const int* r = (const int*)rects;                                                       \
+  float* o = (float*)out;                                                                 \
+  int* c = (int*)counts;                                                                  \
+  cudaStream_t s = (cudaStream_t)cuda_stream
+
+// Each returns the cudaError_t of its launches, or -1 for an unsupported C
+// (or design, or stage).
 extern "C" int d3ga_fused(const void* vals, const void* rects, int NB, int kb, int K, int C,
                           void* out, void* counts, void* cuda_stream) {
-  const float* v = (const float*)vals;
-  const int* r = (const int*)rects;
-  float* o = (float*)out;
-  int* c = (int*)counts;
-  cudaStream_t s = (cudaStream_t)cuda_stream;
+  FB_FWD_ARGS;
+#define FWD(CC) return launch_fwd<CC, CF_R, 2>(v, r, NB, kb, K, 1, o, c, s)
+  CW_SWITCH_C(C, FWD)
+#undef FWD
+  return -1;
+}
+
+// The forward's design before (fused_kernel_v1, whole).
+extern "C" int d3ga_fused_v1(const void* vals, const void* rects, int NB, int kb, int K, int C,
+                             void* out, void* counts, void* cuda_stream) {
+  FB_FWD_ARGS;
   const size_t smem = (size_t)K * sizeof(int);
-#define FWD(CC) fused_kernel<CC><<<NB * FB_TB, CW_NPIX, smem, s>>>(v, r, kb, K, o, c)
+#define FWD(CC) fused_kernel_v1<CC><<<NB * FB_TB, CW_NPIX, smem, s>>>(v, r, kb, K, o, c)
   CW_SWITCH_C(C, FWD)
 #undef FWD
   return (int)cudaGetLastError();
 }
 
-// The forward cut at `stage` (0-3, see the header); counts is written by
-// stage 3 only. Returns the cudaError_t, or -1 for an unsupported C or
-// stage.
+// The forward's design before cut at `stage` (0-3, P3's cuts, see the
+// header); counts is written by stage 3 only.
 extern "C" int d3ga_fused_stage(const void* vals, const void* rects, int NB, int kb, int K, int C,
                                 int stage, void* out, void* counts, void* cuda_stream) {
-  const float* v = (const float*)vals;
-  const int* r = (const int*)rects;
-  float* o = (float*)out;
-  int* c = (int*)counts;
-  cudaStream_t s = (cudaStream_t)cuda_stream;
+  FB_FWD_ARGS;
   const size_t smem = (size_t)K * sizeof(int);
-#define STAGED(CC, SS) fused_kernel<CC, SS><<<NB * FB_TB, CW_NPIX, smem, s>>>(v, r, kb, K, o, c)
+#define STAGED(CC, SS) fused_kernel_v1<CC, SS><<<NB * FB_TB, CW_NPIX, smem, s>>>(v, r, kb, K, o, c)
 #define CUT(CC)                          \
   switch (stage) {                       \
     case 0: STAGED(CC, 0); break;        \
@@ -364,6 +512,17 @@ extern "C" int d3ga_fused_stage(const void* vals, const void* rects, int NB, int
 #undef CUT
 #undef STAGED
   return (int)cudaGetLastError();
+}
+
+// One (design, stage) of launch_fwd_stage; -1 where it is not built.
+extern "C" int d3ga_fused_fwd_stage(const void* vals, const void* rects, int NB, int kb, int K,
+                                    int C, void* out, void* counts, int design, int stage,
+                                    void* cuda_stream) {
+  FB_FWD_ARGS;
+#define FWD(CC) return launch_fwd_stage<CC>(v, r, NB, kb, K, o, c, design, stage, s)
+  CW_SWITCH_C(C, FWD)
+#undef FWD
+  return -1;
 }
 
 // The backward's scratch and the route kernel after kernel 1.

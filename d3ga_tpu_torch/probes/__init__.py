@@ -7,7 +7,8 @@
   wide rows of the same bytes (`csrc/probes_widerow.cu`), row gathers and
   searches in PyTorch ops;
 - `fused_bisect.py` (P3, tools/fused_bisect.py): K9's forward cut at four
-  stages (the STAGE parameter of `csrc/fused.cu::fused_kernel`) and its
+  stages (the STAGE parameter of `csrc/fused.cu::fused_kernel_v1`, K9's
+  forward design before, whose whole build gives K9's tiles) and its
   backward's two kernels timed apart.
 
 Each module has hand-written kernels with plain PyTorch versions beside

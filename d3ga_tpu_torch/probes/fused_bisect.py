@@ -3,15 +3,16 @@ timed apart (counterpart of tools/fused_bisect.py).
 
 The TPU tool cut K9 v1's body (attic/pallas_fused.py) into four kernels to
 find the stage a compiler refused. Here the cut is the STAGE parameter of
-`csrc/fused.cu::fused_kernel`, so each stage runs K9's own code and stops:
+`csrc/fused.cu::fused_kernel_v1`, K9's forward design before (one thread
+a pixel), so each stage runs that design's own code and stops:
 
   0  writes only: 1.0 to every output
   1  mask + positions: the selection, the tile's count to every pixel
   2  compaction: the selection, then the sum of channels [0, C] of the
      first min(count, K) selected candidates, plus the count
-  3  blend: K9's forward tiles
+  3  blend: K9's forward tiles (the current kernel's to the bit)
 
-The deltas between the stages' device times split K9's forward. K9's
+The deltas between the stages' device times split that design. K9's
 backward is two launches (`fused_bwd_kernel` per tile, `fused_route_kernel`
 per block and lane); `backward_split` reads each one's device time from
 torch.profiler.

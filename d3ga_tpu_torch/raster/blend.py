@@ -5,8 +5,16 @@ d3ga_tpu/raster/pallas_blend.py).
 K8 replaces the TPU kernels `pallas_blend.py::_run_forward` and
 `::_run_backward` (`_forward_body`, `_backward_body`) behind
 `blend_tiles_pallas` with the hand-written CUDA kernels of
-`csrc/blend_coeffs.cu` (its header gives the bound and the design; the
-walk is `csrc/coeff_walk.cuh`'s, which K9 shares). Its inputs are
+`csrc/blend_coeffs.cu` (its header gives the bound and the design). The
+forward walks with `csrc/coeff_walk_fwd.cuh`, as K9's forward does: two
+pixels a thread, a band cull from the coefficients, batches of 8 listed
+slots, the tile's block written as 16-byte stores, its image its design
+before's to the bit. That design (one thread a pixel, `coeff_walk.cuh`'s
+walk, which the backward still uses) stays as `d3ga_blend_coeffs_v1`,
+reached only by `blend_tiles_coeffs_baseline`; `blend_tiles_coeffs_stage`
+launches one of the `FWD_DESIGNS` (the kernel with the cull off among
+them) or, at C = STAGE_C only, a cut at one of the `FWD_STAGES`, with
+their own counters (chip_smoke.py's comparisons only). Its inputs are
 per-tile gathered slots: coeffs [T, K, 8] from `falloff_coeffs` (six
 used, two padding), colors [T, K, C], opacs [T, 1, K] (0 for dead
 slots); it returns [T, 256, C+1], pixel p = dy * 16 + dx, T_bg last (the
@@ -15,12 +23,16 @@ caller composites the background). Its callers are the stage benches
 `bench_stages.py`).
 
 The plain versions are the JAX kernel's formula in float32: the falloff
-as a [256, 6] x [6, K] product over the quadratic pixel basis, alpha =
+as a [256, 6] x [6, K] product over the quadratic pixel basis (the
+coefficients split into their bfloat16 part and the rest, as the JAX
+kernel splits them, so that the alpha tests decide as there), alpha =
 min(0.99, opacity * exp(power)) where power <= 0 and alpha >= 1/255, the
 log1p(-alpha) prefix sums as a product with the triangular ones matrix,
 and the T_after >= 1e-4 accept. The JAX kernel's bf16 hi/lo split
 matmuls are a TPU precision workaround, not semantics (ROADMAP queue 2):
-the port computes in float32, TF32 off.
+the kernels compute in float32, TF32 off; the plain power alone follows
+the split, whose sums of exact products round apart from a float32 FMA
+chain only in the last bits.
 
 `blend_tiles_pallas` is one `torch.autograd.Function` for both devices:
 the kernels on CUDA tensors, the plain versions on CPU tensors (or with
@@ -33,6 +45,7 @@ import functools
 
 import torch
 
+from d3ga_tpu_torch.raster.blend_ct import split_power
 from d3ga_tpu_torch.train.losses import full_float32
 from d3ga_tpu_torch.utils import cuda_build
 
@@ -46,6 +59,19 @@ MAX_C = 10  # colour channels the kernels are instantiated for
 # one per launch of the CUDA kernel (never for the plain versions)
 launches = 0
 bwd_launches = 0
+# the forward's stage cuts (csrc/coeff_walk_fwd.cuh); stage 2 is the kernel
+FWD_STAGES = ("staging + stores", "lists + polynomials + exps", "transmittance chain")
+# the designs the forward's stage entry point launches: the kernel, the
+# kernel with the band cull off, and its walk at 1, 2 or 4 slots a batch
+# (it takes FWD_BATCH); the cuts before stage 2 and the batch variants are
+# built for C = STAGE_C only
+FWD_DESIGNS = {"kernel": 1, "kernel_no_cull": 2, "kernel_r1": 3, "kernel_r2": 4, "kernel_r4": 5}
+FWD_BATCH = 8
+STAGE_C = 6
+# one per launch of the forward's baseline design and of each (design,
+# stage) cut (chip_smoke.py's comparisons only)
+baseline_launches = 0
+stage_launches = {(d, s): 0 for d in FWD_DESIGNS for s in range(len(FWD_STAGES))}
 
 
 def falloff_coeffs(xy_local, conic):
@@ -73,8 +99,10 @@ def _pixel_basis(device):
 
 def _forward_chunk(coeffs, opacs, basis, U):
     """`_forward_body`'s intermediates for a chunk of tiles: coeffs
-    [B, K, 8], opacs [B, 1, K]."""
-    power = torch.einsum("pc,bkc->bpk", basis, coeffs[..., :6])  # [B, 256, K]
+    [B, K, 8], opacs [B, 1, K]. The power is rounded as the JAX kernel's
+    bf16 hi/lo split rounds it (`blend_ct.split_power`), so that a slot on
+    the alpha >= 1/255 threshold is decided as there."""
+    power = split_power(basis, coeffs[..., :6])  # [B, 256, K]
     e = torch.exp(power)
     raw = opacs * e
     alpha = torch.minimum(raw, torch.tensor(ALPHA_MAX, device=raw.device))
@@ -152,11 +180,14 @@ def blend_tiles_coeffs_bwd_plain(coeffs, colors, opacs, g, tile_chunk=256):
 def _kernels():
     lib = cuda_build.load("blend_coeffs")
     p, i = ctypes.c_void_p, ctypes.c_int
-    fwd, bwd = lib.d3ga_blend_coeffs, lib.d3ga_blend_coeffs_bwd
-    fwd.argtypes = [p, p, p, i, i, i, p, p]
-    bwd.argtypes = [p, p, p, p, i, i, i, p, p, p, p]
-    fwd.restype = bwd.restype = ctypes.c_int
-    return fwd, bwd
+    fwd = [p, p, p, i, i, i, p]
+    for name, args in (("d3ga_blend_coeffs", fwd + [p]), ("d3ga_blend_coeffs_v1", fwd + [p]),
+                       ("d3ga_blend_coeffs_stage", fwd + [i, i, p]),
+                       ("d3ga_blend_coeffs_bwd", [p, p, p, p, i, i, i, p, p, p, p])):
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def _check(name, coeffs, colors, opacs):
@@ -178,16 +209,25 @@ def _check(name, coeffs, colors, opacs):
     return T, K, C
 
 
-def _launch(coeffs, colors, opacs):
-    global launches
-    T, K, C = _check("blend_tiles_pallas", coeffs, colors, opacs)
+def _launch_fwd(coeffs, colors, opacs, name, entry, extra=()):
+    """Checks, allocates the output and launches the forward entry point
+    `entry` of csrc/blend_coeffs.cu (with `extra` int arguments); the
+    caller counts the launch."""
+    T, K, C = _check(name, coeffs, colors, opacs)
     out = torch.empty((T, NPIX, C + 1), dtype=torch.float32, device=coeffs.device)
     if T == 0:
         return out
-    err = _kernels()[0](coeffs.data_ptr(), colors.data_ptr(), opacs.data_ptr(), T, K, C,
-                        out.data_ptr(), cuda_build.stream_handle(coeffs.device))
+    err = getattr(_kernels(), entry)(coeffs.data_ptr(), colors.data_ptr(), opacs.data_ptr(), T,
+                                     K, C, out.data_ptr(), *extra,
+                                     cuda_build.stream_handle(coeffs.device))
     if err != 0:
-        raise RuntimeError(f"blend_tiles_pallas: kernel launch failed (error {err})")
+        raise RuntimeError(f"{name}: kernel launch failed (error {err})")
+    return out
+
+
+def _launch(coeffs, colors, opacs):
+    global launches
+    out = _launch_fwd(coeffs, colors, opacs, "blend_tiles_pallas", "d3ga_blend_coeffs")
     launches += 1
     return out
 
@@ -202,9 +242,9 @@ def _launch_bwd(coeffs, colors, opacs, g):
     dco, dcol, dop = (torch.empty_like(t) for t in (coeffs, colors, opacs))
     if T == 0 or K == 0:
         return dco, dcol, dop
-    err = _kernels()[1](coeffs.data_ptr(), colors.data_ptr(), opacs.data_ptr(), g.data_ptr(), T,
-                        K, C, dco.data_ptr(), dcol.data_ptr(), dop.data_ptr(),
-                        cuda_build.stream_handle(coeffs.device))
+    err = _kernels().d3ga_blend_coeffs_bwd(
+        coeffs.data_ptr(), colors.data_ptr(), opacs.data_ptr(), g.data_ptr(), T, K, C,
+        dco.data_ptr(), dcol.data_ptr(), dop.data_ptr(), cuda_build.stream_handle(coeffs.device))
     if err != 0:
         raise RuntimeError(f"blend_tiles_pallas_bwd: kernel launch failed (error {err})")
     bwd_launches += 1
@@ -229,6 +269,47 @@ def blend_tiles_coeffs_bwd(coeffs, colors, opacs, g):
     if coeffs.device.type != "cuda":
         raise ValueError(f"blend_tiles_coeffs_bwd: unsupported device {coeffs.device}")
     return _launch_bwd(coeffs, colors, opacs, g.contiguous())
+
+
+def _card_only(name, coeffs):
+    if coeffs.device.type != "cuda":
+        raise ValueError(f"{name}: CUDA tensors only, got {coeffs.device}")
+
+
+def blend_tiles_coeffs_baseline(coeffs, colors, opacs):
+    """K8's forward in its design before (`d3ga_blend_coeffs_v1`: one
+    thread a pixel, coeff_walk.cuh's walk, each thread storing its pixel)
+    on CUDA tensors: the bit reference and the timing baseline of
+    `blend_tiles_coeffs`' kernel."""
+    global baseline_launches
+    _card_only("blend_tiles_coeffs_baseline", coeffs)
+    out = _launch_fwd(coeffs, colors, opacs, "blend_tiles_coeffs_baseline",
+                      "d3ga_blend_coeffs_v1")
+    baseline_launches += 1
+    return out
+
+
+def blend_tiles_coeffs_stage(coeffs, colors, opacs, stage, design="kernel"):
+    """One of FWD_DESIGNS ("kernel": K8's forward; "kernel_no_cull": the
+    same with the band cull off, the same bits; "kernel_r1" / "kernel_r2"
+    / "kernel_r4": its walk at 1, 2 or 4 slots a batch) cut after `stage`
+    of FWD_STAGES, on CUDA tensors: [T, 256, C+1] of what the cut computed
+    (stage 2 is the whole forward). Only "kernel" is cut before stage 2;
+    those cuts and the batch variants take C = STAGE_C only."""
+    whole = len(FWD_STAGES) - 1
+    C = colors.shape[-1]
+    if stage not in range(len(FWD_STAGES)) or design not in FWD_DESIGNS:
+        raise ValueError(f"blend_tiles_coeffs_stage: stage {stage} of design {design!r}")
+    if design != "kernel" and stage != whole:
+        raise ValueError(f"blend_tiles_coeffs_stage: {design} runs whole (stage {whole}) only")
+    if (stage != whole or design.startswith("kernel_r")) and C != STAGE_C:
+        raise ValueError(f"blend_tiles_coeffs_stage: stage {stage} of {design} is built for "
+                         f"C = {STAGE_C} only, not {C}")
+    _card_only("blend_tiles_coeffs_stage", coeffs)
+    out = _launch_fwd(coeffs, colors, opacs, "blend_tiles_coeffs_stage",
+                      "d3ga_blend_coeffs_stage", (FWD_DESIGNS[design], stage))
+    stage_launches[design, stage] += 1
+    return out
 
 
 class _BlendTilesCoeffs(torch.autograd.Function):

@@ -26,18 +26,30 @@ layout. On CUDA tensors that Function runs the hand-written kernels of
 tensors (or with plain=True) the plain versions below. There is no
 fallback between the two.
 
+The forward (`csrc/fused.cu::fused_fwd_kernel`) selects with two rects a
+thread a round and walks a tile with 128 threads of two pixels each,
+skipping the slots a warp's rows cannot take (a band cull), in batches
+of 8 listed slots, and writes each tile's block as 16-byte stores
+(`csrc/coeff_walk_fwd.cuh`); its tiles are its design before's to the
+bit. That design (one thread a pixel, `coeff_walk.cuh`'s walk) stays in
+the source as `d3ga_fused_v1`, reached only by `select_blend_baseline`
+(and, cut, by probe P3); `select_blend_stage` launches one of the
+`FWD_DESIGNS` whole (the kernel with the band cull off, the reference for
+the cull's bits, among them) or, at C = STAGE_C only, the kernel cut at
+one of the `FWD_STAGES`, with its own counters.
+
 The backward's per-tile kernel walks a tile with 128 threads of two
 pixels each, skips the slots a warp's rows cannot take (a band cull) and
 sums each slot's cotangents by a warp reduce-scatter
 (`csrc/coeff_walk_bwd.cuh`). Its design before (one thread a pixel,
-`coeff_walk.cuh`'s walk, which K8 and K9's forward still use) stays in
+`coeff_walk.cuh`'s walk, which K8's backward still uses) stays in
 the source as `d3ga_fused_bwd_v1`, reached only by
 `select_blend_bwd_baseline`; `select_blend_bwd_stage` launches one of
 the `BWD_DESIGNS` whole (the kernel with the band cull off among them,
 the reference for the cull's bits) or, at C = STAGE_C only, the kernel
-cut at one of the `BWD_STAGES`, with its own counters. chip_smoke.py uses
-them to check the cull's bits and to time the designs and the stages in
-turns; none is on any path of the port.
+cut at one of the `BWD_STAGES`, with its own counters. chip_smoke.py
+uses these entry points to check the culls' bits and to time the designs
+and the stages in turns; none is on any path of the port.
 
 The plain versions work block by block: per tile the rect mask, the
 first K overlapping lanes in rank order (the inclusive position cumsum's
@@ -84,6 +96,18 @@ STAGE_C = 6
 # stage) cut (chip_smoke.py's comparisons only)
 baseline_launches = 0
 stage_launches = {(d, s): 0 for d in BWD_DESIGNS for s in range(len(BWD_STAGES))}
+# the forward's stage cuts (csrc/coeff_walk_fwd.cuh); stage 2 is the kernel
+FWD_STAGES = ("selection + staging + stores", "lists + polynomials + exps", "transmittance chain")
+# the designs the forward's stage entry point launches: the kernel, the
+# kernel with the band cull off, and its walk at 1, 2 or 4 slots a batch
+# (it takes FWD_BATCH); the cuts before stage 2 and the batch variants are
+# built for C = STAGE_C only
+FWD_DESIGNS = {"kernel": 1, "kernel_no_cull": 2, "kernel_r1": 3, "kernel_r2": 4, "kernel_r4": 5}
+FWD_BATCH = 8
+# one per launch of the forward's baseline design and of each (design,
+# stage) cut (chip_smoke.py's comparisons only)
+fwd_baseline_launches = 0
+fwd_stage_launches = {(d, s): 0 for d in FWD_DESIGNS for s in range(len(FWD_STAGES))}
 
 
 def _layout(vals):
@@ -204,8 +228,10 @@ def select_blend_bwd_plain(vals, rects, g, K, C, block_chunk=BLOCK_CHUNK):
 def _kernels():
     lib = cuda_build.load("fused")
     p, i = ctypes.c_void_p, ctypes.c_int
+    fwd_args = [p, p, i, i, i, i, p, p]
     bwd_args = [p, p, p, i, i, i, i, p, p, p, p]
-    for name, args in (("d3ga_fused", [p, p, i, i, i, i, p, p, p]),
+    for name, args in (("d3ga_fused", fwd_args + [p]), ("d3ga_fused_v1", fwd_args + [p]),
+                       ("d3ga_fused_fwd_stage", fwd_args + [i, i, p]),
                        ("d3ga_fused_bwd", bwd_args + [p]), ("d3ga_fused_bwd_v1", bwd_args + [p]),
                        ("d3ga_fused_bwd_stage", bwd_args + [i, i, p])):
         fn = getattr(lib, name)
@@ -232,20 +258,29 @@ def _check(name, vals, rects, K, C):
     return vals.shape[:2]
 
 
-def _launch(vals, rects, K, C):
-    global launches
-    NB, kb = _check("select_blend", vals, rects, K, C)
+def _launch_fwd(vals, rects, K, C, name, entry, extra=()):
+    """Checks, allocates the tiles and counts and launches the forward
+    entry point `entry` of csrc/fused.cu (with `extra` int arguments); the
+    caller counts the launch."""
+    NB, kb = _check(name, vals, rects, K, C)
     dev = vals.device
     tiles = torch.empty((NB, TB, NPIX, C + 1), dtype=torch.float32, device=dev)
     counts = torch.empty((NB, TB), dtype=torch.int32, device=dev)
     if NB == 0:
         return tiles, counts
-    err = _kernels().d3ga_fused(vals.data_ptr(), rects.data_ptr(), NB, kb, K, C,
-                                tiles.data_ptr(), counts.data_ptr(), cuda_build.stream_handle(dev))
+    err = getattr(_kernels(), entry)(vals.data_ptr(), rects.data_ptr(), NB, kb, K, C,
+                                     tiles.data_ptr(), counts.data_ptr(), *extra,
+                                     cuda_build.stream_handle(dev))
     if err != 0:
-        raise RuntimeError(f"select_blend: kernel launch failed (error {err})")
-    launches += 1
+        raise RuntimeError(f"{name}: kernel launch failed (error {err})")
     return tiles, counts
+
+
+def _launch(vals, rects, K, C):
+    global launches
+    out = _launch_fwd(vals, rects, K, C, "select_blend", "d3ga_fused")
+    launches += 1
+    return out
 
 
 def _launch_bwd(vals, rects, g, K, C, name="select_blend_bwd", entry="d3ga_fused_bwd",
@@ -300,6 +335,40 @@ def select_blend_bwd(vals, rects, g, K, C):
 def _card_only(name, vals):
     if vals.device.type != "cuda":
         raise ValueError(f"{name}: CUDA tensors only, got {vals.device}")
+
+
+def select_blend_baseline(vals, rects, K, C):
+    """K9's forward in its design before (`d3ga_fused_v1`: one thread a
+    pixel, coeff_walk.cuh's walk, each thread storing its pixel) on CUDA
+    tensors: the bit reference and the timing baseline of `select_blend`'s
+    kernel. (tiles, counts)."""
+    global fwd_baseline_launches
+    _card_only("select_blend_baseline", vals)
+    out = _launch_fwd(vals, rects, K, C, "select_blend_baseline", "d3ga_fused_v1")
+    fwd_baseline_launches += 1
+    return out
+
+
+def select_blend_stage(vals, rects, K, C, stage, design="kernel"):
+    """One of FWD_DESIGNS ("kernel": K9's forward; "kernel_no_cull": the
+    same with the band cull off, the same bits; "kernel_r1" / "kernel_r2"
+    / "kernel_r4": its walk at 1, 2 or 4 slots a batch) cut after `stage`
+    of FWD_STAGES, on CUDA tensors: (tiles of what the cut computed,
+    counts); stage 2 is the whole forward. Only "kernel" is cut before
+    stage 2; those cuts and the batch variants take C = STAGE_C only."""
+    whole = len(FWD_STAGES) - 1
+    if stage not in range(len(FWD_STAGES)) or design not in FWD_DESIGNS:
+        raise ValueError(f"select_blend_stage: stage {stage} of design {design!r}")
+    if design != "kernel" and stage != whole:
+        raise ValueError(f"select_blend_stage: {design} runs whole (stage {whole}) only")
+    if (stage != whole or design.startswith("kernel_r")) and C != STAGE_C:
+        raise ValueError(f"select_blend_stage: stage {stage} of {design} is built for "
+                         f"C = {STAGE_C} only, not {C}")
+    _card_only("select_blend_stage", vals)
+    out = _launch_fwd(vals, rects, K, C, "select_blend_stage", "d3ga_fused_fwd_stage",
+                      (FWD_DESIGNS[design], stage))
+    fwd_stage_launches[design, stage] += 1
+    return out
 
 
 def select_blend_bwd_baseline(vals, rects, g, K, C):
