@@ -89,10 +89,16 @@ Gaussians, 1024 x 667 pixels, random weights from seed 0):
   bench (`d3ga_tpu_torch/bench_stages.py`, bench.py's 135,000-Gaussian
   scene: per-stage times, K8 forward and backward among them), its JSON
   in run_out/bench_stages.json;
-- probes: the probes' own runs (`d3ga_tpu_torch/probes/`: P1's 15
-  matmul cases on one CTA and on one CTA per SM, its 4 roll cases, P2's
-  passthroughs and gathers, P3's stages on frame 0's K9 inputs and K9's
-  backward's two kernels apart), one JSON line each;
+- probes: P1's matmuls (TF32 and 3xTF32 on `wgmma`, whose SASS must
+  hold GMMA instructions; FP32 SIMT) and P2's passthrough against their
+  plain versions and their designs before; K2, K3, K9 and K9's backward
+  against the JAX kernels' outputs on the two cases on the alpha
+  threshold (`ON_THRESHOLD_FIXTURE`, a report); the probes' own runs
+  (`d3ga_tpu_torch/probes/`: P1's 15 matmul cases on one CTA and on one
+  CTA per SM, its 4 roll cases, P2's passthroughs and gathers, P3's
+  stages on frame 0's K9 inputs and K9's backward's two kernels apart),
+  one JSON line each; P1 and P2 timed in turns against their designs
+  before;
 
 and checks that the kernels carried every frame, step, call and probe.
 
@@ -234,6 +240,10 @@ BLEND_BWD_TEST_SFU_PER_PAIR = 2
 
 
 OUT_DIR = "run_out"
+# the JAX kernels' outputs on K3_ON_THRESHOLD and K9_ON_THRESHOLD
+# (tests/test_torch_on_threshold.py writes and holds it)
+ON_THRESHOLD_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "d3ga_tpu_torch",
+                                    "fixtures", "on_threshold.npz")
 
 
 class PhaseFailed(Exception):
@@ -1261,10 +1271,11 @@ def reset_launch_counts():
 def off_path_launches():
     """Launches, since the counts were reset, of what no path of the port
     calls: the baseline designs of K1, K2, K3, K4, of K5's and K7's
-    forwards and backwards, of K8's forward and of K9's forward and
-    backward, and the stage entry points of K2, K3, K8's forward and K9's
-    forward and backward (their cuts, other designs and diagnostic
-    builds). Each main-path window must see 0."""
+    forwards and backwards, of K8's forward, of K9's forward and backward
+    and of the probes P1's matmul and P2's passthrough, and the stage
+    entry points of K2, K3, K8's forward and K9's forward and backward
+    (their cuts, other designs and diagnostic builds). Each main-path
+    window must see 0."""
     return (extract.baseline_launches + segsum.baseline_launches + blend_ct.baseline_launches
             + blend_ct.fwd_baseline_launches + sum(blend_ct.stage_launches.values())
             + sum(blend_ct.fwd_stage_launches.values()) + blend_rec.fwd_baseline_launches
@@ -1272,7 +1283,8 @@ def off_path_launches():
             + blend_rec.img_bwd_baseline_launches + fused.baseline_launches
             + sum(fused.stage_launches.values()) + fused.fwd_baseline_launches
             + sum(fused.fwd_stage_launches.values()) + blend.baseline_launches
-            + sum(blend.stage_launches.values()))
+            + sum(blend.stage_launches.values()) + sum(mxu.v1_launches.values())
+            + widerow.v1_launches)
 
 
 def blend_bound(work, nbytes, backward=False):
@@ -3236,27 +3248,157 @@ def hold_stages(vals, rects, K, C, where, line):
     return errs
 
 
+PROBE_TURN_MS = 5.0  # the longer timed launch of each of P1's turns (slope)
+
+
+def mxu_code(report, line):
+    """ptxas' registers and spills of P1's matmul kernels (both designs),
+    and the GMMA instructions in the SASS of the new design's tensor-core
+    instantiations (`cuobjdump -sass` of the built library): each of the
+    six (TF32 and 3xTF32 at 8, 16 and 128 columns) must hold some."""
+    usage = ptxas_usage(report.get("build_logs", {}).get("probes_mxu"), "matmul_kernel")
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(cuda_build.lib_path("probes_mxu"))],
+                          capture_output=True, text=True, timeout=300)
+    check(sass.returncode == 0, f"P1: cuobjdump -sass failed: {sass.stderr[-400:]}")
+    gmma, fn = {}, None
+    for ln in sass.stdout.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :", 1)[1].strip()
+            gmma[fn] = 0
+        elif fn is not None and "GMMA" in ln:
+            gmma[fn] += 1
+    tc = {k: v for k, v in gmma.items() if "wgmma_matmul_kernel" in k}
+    check(len(tc) == 6 and all(v > 0 for v in tc.values()),
+          f"P1: a tensor-core instantiation has no GMMA instruction in its SASS: {tc}")
+    line("P1 SASS: GMMA instructions a tensor-core instantiation "
+         + ", ".join(f"{k}: {v}" for k, v in tc.items())
+         + "; ptxas (registers/spill stores): "
+         + ", ".join(f"{k}: {u.get('registers')}/{u.get('spill_stores')}" for k, u in usage.items()))
+    report["p1_code"] = {"ptxas": usage, "gmma": gmma}
+
+
+def probe_turns(dev, report, line):
+    """P1's and P2's designs against their designs before, in turns (old,
+    new, new, old): P1 by slope (ms an op) on one CTA and on one CTA per
+    SM, each case; P2 by CUDA events around back-to-back calls
+    (`probes.time_ms`, the protocol `widerow.run` times torch.mul by) and
+    around calls queued behind a spin (`probes.queued_ms`: no host launch
+    cost), with one torch.mul a turn under both."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    order = ("v1", "new", "new", "v1")
+    p1 = {}
+    for name, M, K_, N, prec, cl in PROBE_MATMUL_CASES:
+        a, b = mxu.operands(M, K_, N, cl, device=dev)
+        stacked = (a.expand(sms, -1, -1).contiguous(), b.expand(sms, -1, -1).contiguous())
+        fns = {"v1": mxu.matmul_v1, "new": mxu.matmul}
+        p1[name] = {}
+        for mode, (x, y) in (("one_cta", (a, b)), ("per_sm", stacked)):
+            t = {"v1": [], "new": []}
+            for k in order:
+                t[k].append(probes.slope(lambda n: fns[k](x, y, n, prec, cl), dev,
+                                         PROBE_TURN_MS)["ns_per_op"] * 1e-6)
+            p1[name][mode] = {k: {"turns": v, "ms": float(np.mean(v))} for k, v in t.items()}
+        del stacked
+    line("P1 in turns, ms an op (the design before -> new; one CTA | one CTA per SM): "
+         + "; ".join(f"{n}: {r['one_cta']['v1']['ms']:.5f} -> {r['one_cta']['new']['ms']:.5f} | "
+                     f"{r['per_sm']['v1']['ms']:.5f} -> {r['per_sm']['new']['ms']:.5f}"
+                     for n, r in p1.items()))
+    p2 = {}
+    for name, shape, bs in widerow.PASS_CASES:
+        x = torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(4), device=dev)
+        fns = {"v1": lambda: widerow.passthrough_v1(x, bs), "new": lambda: widerow.passthrough(x, bs)}
+        fns["torch.mul"] = lambda: torch.mul(x, widerow.SCALE)
+        t = {k: {"ms": [], "queued_ms": []} for k in fns}
+        for k in order:
+            for w in (k, "torch.mul"):
+                t[w]["ms"].append(probes.time_ms(fns[w], PROBE_ITERS, dev))
+                t[w]["queued_ms"].append(probes.queued_ms(fns[w], PROBE_ITERS, dev))
+        p2[name] = {k: {"turns": v, "ms": float(np.mean(v["ms"])),
+                        "queued_ms": float(np.mean([q for q in v["queued_ms"] if q is not None]))}
+                    for k, v in t.items()}
+        del x
+    line("P2 in turns, ms a call (the design before -> new; torch.mul), back to back | queued "
+         "behind a spin: " + "; ".join(
+             f"{n}: " + " | ".join(f"{r['v1'][w]:.5f} -> {r['new'][w]:.5f}; {r['torch.mul'][w]:.5f}"
+                                   for w in ("ms", "queued_ms"))
+             for n, r in p2.items()))
+    report["probe_turns"] = {"p1": p1, "p2": p2}
+    return report["probe_turns"]
+
+
+def parity(out, ref):
+    """PALLAS_PARITY.json's metrics of `out` against the JAX kernel's `ref`
+    (numpy): the largest and p999 absolute error, the p999 relative to
+    ref's largest |value|, and the share of values off by more than 1e-3
+    of it (threshold flips)."""
+    err = (out.detach().double().cpu().flatten() - torch.from_numpy(ref).double().flatten()).abs()
+    scale = float(np.abs(ref).max())
+    k = max(1, int(np.ceil(0.999 * err.numel())))
+    p999 = float(err.kthvalue(k).values)
+    return {"max_abs": float(err.max()), "p999_abs": p999, "p999_rel": p999 / scale,
+            "flip_share": float((err > 1e-3 * scale).double().mean())}
+
+
+def on_threshold_report(dev, line):
+    """K2, K3, K9 and K9's backward, and their plain versions, on the two
+    cases on the alpha threshold (K3_ON_THRESHOLD, K9_ON_THRESHOLD) against
+    the JAX kernels' outputs kept in ON_THRESHOLD_FIXTURE, by `parity`:
+    which side the kernels' roundings fall on there. A report, no check."""
+    fx = np.load(ON_THRESHOLD_FIXTURE)
+    _, rec, idx, counts, g, ntx, nty, C = {c[0]: c for c in k3_edge_cases(dev)}[K3_ON_THRESHOLD]
+    _, vals, rects, g9, C9 = {c[0]: c for c in k9_edge_cases(dev)}[K9_ON_THRESHOLD]
+    K9 = K9_EDGE_K
+    k2, k3 = (rec, idx, counts, ntx, nty, C), (rec, idx, counts, g, ntx, nty, C)
+    runs = {
+        "K2": ("k3_image", blend_ct.blend_gather_ct(*k2), blend_ct.blend_gather_ct_plain(*k2)),
+        "K3": ("k3_drec", blend_ct.blend_gather_ct_bwd(*k3), blend_ct.blend_gather_ct_bwd_plain(*k3)),
+        "K9": ("k9_tiles", fused.select_blend(vals, rects, K9, C9)[0],
+               fused.select_blend_plain(vals, rects, K9, C9)[0]),
+        "K9 backward": ("k9_dvals", fused.select_blend_bwd(vals, rects, g9, K9, C9),
+                        fused.select_blend_bwd_plain(vals, rects, g9, K9, C9)),
+    }
+    out = {}
+    for name, (key, kern, plain) in runs.items():
+        out[name] = {"kernel": parity(kern, fx[key]), "plain": parity(plain, fx[key])}
+    line("on the alpha threshold, against the JAX kernels (p999 abs / p999 rel / flip share; "
+         "kernel | plain): " + "; ".join(
+             f"{n}: " + " | ".join(f"{e[w]['p999_abs']:.3g} / {e[w]['p999_rel']:.3g} / "
+                                   f"{e[w]['flip_share']:.3g}" for w in ("kernel", "plain"))
+             for n, e in out.items()))
+    return out
+
+
 def probes_phase(dev, report, scene):
     """P1-P3, the card probes: each probe kernel against its plain version
     (P2's passthrough and the roll bit-equal; P1's matmuls by relative L2
     against their plain versions and TF32 / 3xTF32 against float64, the
-    one-CTA-per-SM launch equal to the one-CTA one; P3's stages at the
-    TPU bisect's shapes and at frame 0's K9 shapes), then with the launch
-    counts at 0 the probes' runs (`mxu.run_matmul`, `mxu.run_roll`,
-    `widerow.run`, `fused_bisect.run` on frame 0), one JSON line each, and
-    the kernels' entries (P1's times per op, the rest per call)."""
+    one-CTA-per-SM launch equal to the one-CTA one; on the card P1 and P2
+    against their designs before too, and P1's SASS and ptxas
+    (`mxu_code`); P3's stages at the TPU bisect's shapes and at frame 0's
+    K9 shapes), the on-threshold report (`on_threshold_report`), then with
+    the launch counts at 0 the probes' runs (`mxu.run_matmul`,
+    `mxu.run_roll`, `widerow.run`, `fused_bisect.run` on frame 0), one
+    JSON line each, P1 and P2 in turns against their designs before
+    (`probe_turns`), and the kernels' entries (P1's times per op, the
+    rest per call)."""
     line = logger(report)
     gen = torch.Generator(device=dev)
 
-    # -- P2: the passthrough, bit-equal -------------------------------------
+    # -- P2: the passthrough and its design before, bit-equal ---------------
+    on_card = dev.type == "cuda"
     for name, shape, bs in widerow.PASS_CASES:
         x = torch.randn(shape, generator=gen.manual_seed(4), device=dev)
-        out = widerow.passthrough(x, bs)
-        check(torch.equal(out, widerow.passthrough_plain(x)), f"P2 {name}: not bit-equal to plain")
-    line(f"P2 passthrough vs plain: bit-equal on {len(widerow.PASS_CASES)} operands")
+        ref = widerow.passthrough_plain(x)
+        check(torch.equal(widerow.passthrough(x, bs), ref), f"P2 {name}: not bit-equal to plain")
+        if on_card:
+            check(torch.equal(widerow.passthrough_v1(x, bs), ref),
+                  f"P2 {name}: the design before is not bit-equal to plain")
+    line(f"P2 passthrough vs plain: bit-equal on {len(widerow.PASS_CASES)} operands"
+         + (", the design before too" if on_card else ""))
 
     # -- P1: the matmuls at each case's shape, one CTA and one per SM -------
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else 1
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count if on_card else 1
     mm_err, mm_abs = {}, {p: 0.0 for p in mxu.PRECISIONS}
     for name, M, K_, N, prec, cl in PROBE_MATMUL_CASES:
         a, b = mxu.operands(M, K_, N, cl, device=dev)
@@ -3269,6 +3411,11 @@ def probes_phase(dev, report, scene):
         check(bool(torch.isfinite(out).all()), f"P1 {name}: non-finite output")
         check(torch.equal(many, out.expand_as(many)), f"P1 {name}: one CTA per SM differs from one CTA")
         e = {"plain": rel_l2(out, ref), "fp64": rel_l2(out, ref64)}
+        if on_card:
+            old = mxu.matmul_v1(a, b, 1, prec, cl)
+            e["v1"], e["v1_plain"] = rel_l2(out, old), rel_l2(old, ref)
+            check(e["v1"] <= MATMUL_REL_L2, f"P1 {name}: rel L2 {e['v1']:.3e} against the design "
+                                            f"before > {MATMUL_REL_L2}")
         mm_err[name] = e
         mm_abs[prec] = max(mm_abs[prec], float((out - ref).abs().max()))
         check(e["plain"] <= MATMUL_REL_L2, f"P1 {name}: rel L2 {e['plain']:.3e} against plain "
@@ -3277,8 +3424,11 @@ def probes_phase(dev, report, scene):
             check(e["fp64"] <= MATMUL_FP64_REL_L2[prec], f"P1 {name}: rel L2 {e['fp64']:.3e} "
                                                          f"against float64 > {MATMUL_FP64_REL_L2[prec]}")
         del many
-    line("P1 matmuls vs plain (rel L2) and float64: "
-         + "; ".join(f"{n}: {e['plain']:.2e} / {e['fp64']:.2e}" for n, e in mm_err.items()))
+    line("P1 matmuls (rel L2) vs plain / float64 / the design before: "
+         + "; ".join(f"{n}: {e['plain']:.2e} / {e['fp64']:.2e} / {e.get('v1', float('nan')):.2e}"
+                     for n, e in mm_err.items()))
+    if on_card:
+        mxu_code(report, line)
 
     # -- P1: the roll, bit-equal --------------------------------------------
     roll_abs = 0.0
@@ -3288,6 +3438,7 @@ def probes_phase(dev, report, scene):
         roll_abs = max(roll_abs, float((out - ref).abs().max()))
         check(torch.equal(out, ref), f"P1 {name}: not bit-equal to plain")
     line(f"P1 roll vs plain: bit-equal on {len(PROBE_ROLL_CASES)} cases (2 trips)")
+    report["on_threshold"] = on_threshold_report(dev, line)
 
     # -- P3: the stages at the bisect's shapes, then at frame 0's -----------
     bv, br = (torch.from_numpy(t).to(dev)
@@ -3333,8 +3484,12 @@ def probes_phase(dev, report, scene):
          + ", ".join(f"{r['stage']} {r['ms']:.4f} ({r['delta_ms']:+.4f})" for r in st_rows[:-1])
          + f"; K9 backward kernels {bwd}")
     check(all(n > 0 for n in counts.values()), f"probes: a probe kernel was not launched {counts}")
-    check(dev.type != "cuda" or bwd is not None, "P3: no device time for K9's backward kernels")
+    check(off_path_launches() == 0, "probes' run: a design before was launched")
+    check(dev.type != "cuda" or (bwd is not None and (bwd["total"] is not None
+                                                      or bwd.get("queued_ms") is not None)),
+          "P3: no device time for K9's backward kernels")
     check(all(np.isfinite(r["one_cta"]["ns_per_op"]) for r in mm_rows), "P1: a time is not finite")
+    turns = probe_turns(dev, report, line) if on_card else {}
 
     # -- the kernels' entries ------------------------------------------------
     def case_row(prec):

@@ -8,35 +8,67 @@
 // product needs the last one's corner, so nothing is hoisted out of the
 // loop, and (1e-30 of the corner being far below half an ulp of every
 // element) aa stays a, so the output is a @ b. b is [K, N], or [N, K]
-// with contract_last (a @ b^T).
-// Precisions, as a TPU's map onto this card:
-//   HIGHEST -> FP32 SIMT: each thread a 4x4 (2x4) block of fmaf chains;
-//   DEFAULT -> one TF32 pass on the tensor cores
-//              (mma.sync.aligned.m16n8k8 tf32, operands rounded by
-//              cvt.rna.tf32.f32);
-//   HIGH    -> 3xTF32: a = big + small (both TF32), the product
+// with contract_last (a @ b^T). Precisions, as a TPU's map onto this card:
+//   HIGHEST -> FP32 SIMT (the tensor cores have no FP32 mode);
+//   DEFAULT -> one TF32 pass on the tensor cores, operands rounded by
+//              cvt.rna.tf32.f32 (the tensor cores would truncate them);
+//   HIGH    -> 3xTF32: x = big + small (both TF32), the product
 //              small*big + big*small + big*big (bf16_3x's counterpart).
-// Each k-tile of 32 (8 where K is 8) is summed into a fresh partial that is
-// then added to the float32 accumulator, so long contractions (K 4096) do
-// not lose a chain of K roundings (or the tensor cores' truncating adds)
-// against the plain versions. Operands whose tiles fit in 200 KB of shared
-// memory ([128,128]@[128,16], [16,128]@[128,256], [256,8]@[8,256]) are
-// copied there once a launch, as the TPU kernel holds them in VMEM, and
-// each product's aa += ... is applied to them in place; larger ones stream
-// from L2 through a ring of 4 shared-memory stages by cp.async (16 bytes a
-// copy), three k-tiles in flight while one is multiplied, the running
-// shift added to each staged element of a. TF32 operands are rounded as
-// the mma fragments are read (3xTF32 splits them there). M, N and K are
-// padded with zeros to the tile inside the kernel (N 3 and 16 to 16, K 8
-// stays 8); the padding never reaches the output.
-// One CTA of 256 threads computes a whole product, tile by tile, as the TPU
-// kernel is one program on one core: that gives a per-SM rate. Launched
-// with one CTA per SM on replicated operands (a [ctas, M, K], b and out
-// likewise), the same code gives the chip's rate.
+// Each k-tile of 32 is summed into a fresh partial that is then added to
+// the float32 accumulator, so long contractions (K 4096) do not lose a
+// chain of K roundings (or the tensor cores' truncating adds) against the
+// plain versions. One CTA computes a whole product, tile by tile, as the
+// TPU kernel is one program on one core: that gives a per-SM rate.
+// Launched with one CTA per SM on replicated operands (a [ctas, M, K], b
+// and out likewise), the same code gives the chip's rate.
+//
+// The design (`probes_matmul`, `wgmma_matmul_kernel` / `simt_matmul_kernel`):
+// a CTA of two warpgroups takes output tiles of 128 rows x BN columns
+// (BN 8, 16 or 128: the smallest of them that holds N, N = 3 in 8). Its
+// operands' k-tiles of 32 floats are one 128-byte row each in shared
+// memory, K-major, in the 128-byte swizzle (16-byte chunk c of row r at
+// r * 128 + (c ^ r % 8) * 16), the layout a `wgmma` descriptor reads (SBO
+// 1024 bytes, a k8 step +32 bytes on its start address). While the
+// tensor cores (or the FMA pipe) take k-tile kt, every thread adds the
+// chain's shift to a's elements of k-tile kt + 1 (held in registers),
+// rounds them to TF32 (3xTF32: splits them into big and small),
+// stores them into the other of two stages, and then issues the loads of
+// the k-tile due in those registers next (two register sets on the tensor
+// cores, k-tiles kt + 2 and kt + 3 in flight; one for FP32, whose blocks
+// take the registers), predicated loads only, so none waits for its data
+// before that store. b [K, N] (no contract_last) goes in
+// transposed, each warp on 4 k and a lane a column, since TF32 `wgmma`
+// takes K-major operands only. A `fence.proxy.async` makes those stores
+// visible to `wgmma`. TF32 and 3xTF32: each warpgroup runs
+// `wgmma.mma_async m64nBNk8` on its 64 rows, 4 k-steps a k-tile (3
+// `wgmma`s a step for 3xTF32) into a partial of BN / 2 registers (scale-d
+// 0 on the k-tile's first), folded into the accumulator when it is done.
+// FP32: each thread a block of 8 rows x BN / 16 columns (rows 8 ty.., the
+// columns tx + 16 j), reading 4 k at a time as 16-byte chunks of both
+// operands' rows (16 FMAs a chunk read). M 16 (and N > 16) runs as the
+// transposed product out^T = b^T a^T, so the 64-row tiles fill; the
+// padding (rows, columns, and k past K, all zeros) never reaches the
+// output. K % 4 == 0. Nothing stays resident between products: a and b
+// come from L2 again for every one.
 // Bound: operations, 2 M K N a product at the per-SM peak of the type
 // (FP32 67 TFLOP/s, TF32 495 TFLOP/s dense, over 132 SMs; 3xTF32 three TF32
-// passes); streamed operands stay in L2 (at most 4.25 MB) and each of
-// their tiles is staged through shared memory again for every product.
+// passes). What binds first on one SM is its feed from L2: at [512]^3 a
+// CTA's 16 output tiles re-read a and b, 8 MB a product (a 32 KB k-tile
+// for every 1 M multiply-adds), and the loads of a k-tile, not the
+// `wgmma`s, set the k-loop's pace (PERF.md); FP32 is bound by its FMA
+// and shared-memory pipes.
+//
+// The design before (`probes_matmul_v1`, `matmul_kernel`): one CTA of 256
+// threads, TF32 and 3xTF32 on `mma.sync.m16n8k8`, FP32 as 4x4 fmaf blocks
+// a thread; operands whose tiles fit in 200 KB of shared memory
+// ([128,128]@[128,16], [16,128]@[128,256], [256,8]@[8,256]) copied there
+// once a launch, as the TPU kernel holds them in VMEM, each product's
+// aa += ... applied to them in place; larger ones streamed from L2 through
+// a ring of 4 shared-memory stages by cp.async (16 bytes a copy), three
+// k-tiles in flight while one is multiplied, the running shift added to
+// each staged element of a; TF32 operands rounded as the mma fragments are
+// read; M, N and K padded with zeros to the tile inside the kernel (N 3
+// and 16 to 16, K 8 stays 8). Kept for `chip_smoke.py`'s comparisons.
 //
 // Roll. n trips of 8 steps of m = roll(x, s, axis); x = where(m > x, m,
 // x * 0.999999f) on a [R, L] float32 array (L a power of two, R too for a
@@ -477,7 +509,7 @@ static int dispatch_tile(const float* a, const float* b, float* out, int M, int 
 // a [ctas, M, K], b [ctas, K, N] (or [ctas, N, K] with contract_last), out
 // [ctas, M, N]: one CTA per copy. Returns the cudaError_t of the launch, or
 // -1 for an unknown precision.
-extern "C" int probes_matmul(const void* a, const void* b, void* out, int M, int K, int N,
+extern "C" int probes_matmul_v1(const void* a, const void* b, void* out, int M, int K, int N,
                              int contract_last, int prec, int n_ops, int ctas,
                              void* cuda_stream) {
   const float* A = (const float*)a;
@@ -488,6 +520,431 @@ extern "C" int probes_matmul(const void* a, const void* b, void* out, int M, int
     case PREC_HIGHEST: return dispatch_tile<PREC_HIGHEST>(A, B, O, M, K, N, contract_last, n_ops, ctas, st);
     case PREC_DEFAULT: return dispatch_tile<PREC_DEFAULT>(A, B, O, M, K, N, contract_last, n_ops, ctas, st);
     case PREC_HIGH: return dispatch_tile<PREC_HIGH>(A, B, O, M, K, N, contract_last, n_ops, ctas, st);
+    default: return -1;
+  }
+}
+
+// ---- the design: wgmma (TF32, 3xTF32) and an 8x8-a-thread SIMT (FP32) ----
+
+#define WG_THREADS 256  // two warpgroups
+#define WG_BM 128       // output rows a tile: 64 a warpgroup
+#define WG_ROW 128      // bytes of a staged row: a k-tile of 32 floats
+
+// The byte offset of 16-byte chunk c of row r in a 128-byte-swizzled tile
+// (its base 1024-byte aligned).
+__device__ __forceinline__ uint32_t sw128(int r, int c) { return r * WG_ROW + ((c ^ (r & 7)) << 4); }
+
+__device__ __forceinline__ void sts128(uint32_t addr, float4 v) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(v.x), "f"(v.y),
+               "f"(v.z), "f"(v.w)
+               : "memory");
+}
+__device__ __forceinline__ float4 lds128(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ float4 tf32x4(float4 v) {
+  return make_float4(to_tf32(v.x), to_tf32(v.y), to_tf32(v.z), to_tf32(v.w));
+}
+
+// A wgmma shared-memory descriptor: K-major, 128-byte swizzle, 8-row
+// groups 1024 bytes apart (SBO), the leading offset unused (a k-tile is
+// one swizzle row wide).
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// the generic-proxy stores of a stage become visible to wgmma (async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// keeps the compiler from moving accumulator registers across a wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// part (+)= A B on one m64n8k8 TF32 step, operands in shared memory.
+__device__ __forceinline__ void wgmma_n8(float (&d)[4], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {%0, %1, %2, %3}, %4, %5, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// part (+)= A B on one m64n16k8 TF32 step, operands in shared memory.
+__device__ __forceinline__ void wgmma_n16(float (&d)[8], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// part (+)= A B on one m64n128k8 TF32 step, operands in shared memory.
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_step(float (&d)[BN / 2], uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (BN == 8) wgmma_n8(d, da, db, scale_d);
+  else if constexpr (BN == 16) wgmma_n16(d, da, db, scale_d);
+  else wgmma_n128(d, da, db, scale_d);
+}
+
+// One operand of the product as the tile loop reads it: rows (the
+// product's M or N) of K floats, K-major (element (r, k) at p[r ld + k]:
+// a, and b with contract_last) or not (at p[k ld + r]: b [K, N]); a's
+// elements get the chain's shift.
+struct Operand {
+  const float* p;
+  int rows, ld, kmajor, shifted;
+};
+
+// The (row, 16-byte chunk) of a tile of R rows that item j of this thread
+// loads and stores: K-major, 8 threads a row, a float4 each; else a warp
+// a chunk (4 k), a lane a row.
+__device__ __forceinline__ void item(int kmajor, int j, int& r, int& c) {
+  if (kmajor) {
+    const int i = threadIdx.x + WG_THREADS * j;
+    r = i >> 3, c = i & 7;
+  } else {
+    r = (threadIdx.x & 31) + 32 * j, c = threadIdx.x >> 5;
+  }
+}
+
+template <int R>
+struct Staged {
+  static constexpr int N = R >= 32 ? R / 32 : 1;  // float4 items a thread
+  float4 v[N];
+
+  // k-tile k0 of rows row0.. into registers, zeros past the operand's rows
+  // and K: predicated loads only, so none waits for its data before
+  // `store` needs it
+  __device__ __forceinline__ void load(const Operand& o, int row0, int k0, int K) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      int r, c;
+      item(o.kmajor, j, r, c);
+      const int row = row0 + r, k = k0 + 4 * c;
+      const bool live = r < R && row < o.rows;
+      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (o.kmajor) {
+        if (live && k < K) x = __ldg(reinterpret_cast<const float4*>(o.p + (long long)row * o.ld + k));
+      } else {
+        const float* q = o.p + (long long)k * o.ld + row;
+        if (live && k < K) x.x = __ldg(q);
+        if (live && k + 1 < K) x.y = __ldg(q + o.ld);
+        if (live && k + 2 < K) x.z = __ldg(q + 2 * o.ld);
+        if (live && k + 3 < K) x.w = __ldg(q + 3 * o.ld);
+      }
+      v[j] = x;
+    }
+  }
+
+  // into the stage's tile at `big` (and `small`), a's elements plus the
+  // chain's shift (a is K-major: a float4 is all inside K or all past
+  // it): as they are (FP32), rounded to TF32, or split into TF32 big and
+  // small
+  template <int PREC>
+  __device__ __forceinline__ void store(const Operand& o, int row0, int k0, int K, float shift,
+                                        uint32_t big, uint32_t small) const {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      int r, c;
+      item(o.kmajor, j, r, c);
+      if (r >= R) continue;
+      float4 x = v[j];
+      if (o.shifted && row0 + r < o.rows && k0 + 4 * c < K)
+        x = make_float4(x.x + shift, x.y + shift, x.z + shift, x.w + shift);
+      const uint32_t at = sw128(r, c);
+      if constexpr (PREC == PREC_HIGHEST) {
+        sts128(big + at, x);
+      } else {
+        const float4 b = tf32x4(x);
+        sts128(big + at, b);
+        if constexpr (PREC == PREC_HIGH)
+          sts128(small + at, tf32x4(make_float4(x.x - b.x, x.y - b.y, x.z - b.z, x.w - b.w)));
+      }
+    }
+  }
+};
+
+// The shared memory of a stage: [A big | B big] (+ [A small | B small]
+// for 3xTF32), each tile 1024-byte aligned.
+template <int PREC, int BN>
+struct Layout {
+  static constexpr int A = WG_BM * WG_ROW, B = BN * WG_ROW;
+  static constexpr int SPLIT = PREC == PREC_HIGH ? 2 : 1;
+  static constexpr int STAGE = SPLIT * (A + B);
+  static constexpr int BYTES = 2 * STAGE + 1024;  // + the base's alignment
+  static_assert(B % 1024 == 0, "tiles 1024-byte aligned");
+};
+
+// FP32: part += a k-tile's first `chunks` chunks of 4 k, each thread its
+// 8 x TN block (rows 8 ty + i, columns tx + 16 j).
+template <int BN>
+__device__ __forceinline__ void simt_ktile(uint32_t sa, uint32_t sb, int chunks,
+                                           float (&part)[8 * (BN / 16)]) {
+  constexpr int TN = BN / 16;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  for (int c = 0; c < chunks; ++c) {
+    float4 bv[TN];
+#pragma unroll
+    for (int j = 0; j < TN; ++j) bv[j] = lds128(sb + sw128(tx + 16 * j, c));
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 av = lds128(sa + sw128(ty * 8 + i, c));
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        float& p = part[i * TN + j];
+        p = fmaf(av.x, bv[j].x, p);
+        p = fmaf(av.y, bv[j].y, p);
+        p = fmaf(av.z, bv[j].z, p);
+        p = fmaf(av.w, bv[j].w, p);
+      }
+    }
+  }
+}
+
+// out index of the product's element (r, c): out^T's when transposed
+__device__ __forceinline__ long long out_at(int r, int c, int Mp, int Np, int trans) {
+  return trans ? (long long)c * Mp + r : (long long)r * Np + c;
+}
+
+// One output tile (rows row0.. of A, columns col0.. of B): the k-tiles
+// through two register-staged stages, each summed into a fresh partial.
+template <int PREC, int BN>
+__device__ __forceinline__ void gemm_tile(uint32_t smem, const Operand& A, const Operand& B, int K,
+                                          int row0, int col0, float shift, float* __restrict__ out,
+                                          int trans, bool store, float* corner) {
+  using L = Layout<PREC, BN>;
+  constexpr bool TC = PREC != PREC_HIGHEST;
+  constexpr int NACC = TC ? BN / 2 : 8 * (BN / 16);
+  float acc[NACC], part[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc[i] = 0.0f, part[i] = 0.0f;
+  const int nk = (K + 31) / 32;
+  const int wg = threadIdx.x >> 7;
+  if constexpr (TC) {
+    // two register sets: while the tensor cores take k-tile kt, k-tile
+    // kt + 1 goes from one set into the other stage and k-tile kt + 3's
+    // loads are issued into that set right after; k-tile kt + 2's are on
+    // their way in the other set
+    Staged<WG_BM> ra0, ra1;
+    Staged<BN> rb0, rb1;
+    auto put = [&](auto& sa, auto& sb, int kt) {
+      const uint32_t base = smem + (kt & 1) * L::STAGE;
+      sa.template store<PREC>(A, row0, kt * 32, K, shift, base, base + L::A + L::B);
+      sb.template store<PREC>(B, col0, kt * 32, K, shift, base + L::A, base + 2 * L::A + L::B);
+    };
+    auto fetch = [&](auto& sa, auto& sb, int kt) {
+      sa.load(A, row0, kt * 32, K);
+      sb.load(B, col0, kt * 32, K);
+    };
+    auto iter = [&](int kt, auto& sa, auto& sb) {
+      const uint32_t base = smem + (kt & 1) * L::STAGE;
+      const int steps = min(4, (K - kt * 32 + 7) / 8);
+      const uint64_t a_big = gmma_desc(base + wg * 64 * WG_ROW), b_big = gmma_desc(base + L::A);
+      const uint64_t a_small = gmma_desc(base + L::A + L::B + wg * 64 * WG_ROW);
+      const uint64_t b_small = gmma_desc(base + 2 * L::A + L::B);
+      fence_regs(part);
+      wgmma_fence();
+      for (int s = 0; s < steps; ++s) {
+        const uint64_t o = 2 * s;  // +32 bytes on the start address
+        if constexpr (PREC == PREC_HIGH) {
+          wgmma_step<BN>(part, a_small + o, b_big + o, s > 0);
+          wgmma_step<BN>(part, a_big + o, b_small + o, 1);
+          wgmma_step<BN>(part, a_big + o, b_big + o, 1);
+        } else {
+          wgmma_step<BN>(part, a_big + o, b_big + o, s > 0);
+        }
+      }
+      wgmma_commit();
+      if (kt + 1 < nk) {
+        put(sa, sb, kt + 1);
+        fence_proxy_async();
+      }
+      if (kt + 3 < nk) fetch(sa, sb, kt + 3);
+      wgmma_wait0();
+      fence_regs(part);
+#pragma unroll
+      for (int i = 0; i < NACC; ++i) acc[i] += part[i];
+      __syncthreads();
+    };
+    fetch(ra0, rb0, 0);
+    put(ra0, rb0, 0);
+    if (nk > 1) fetch(ra1, rb1, 1);
+    if (nk > 2) fetch(ra0, rb0, 2);
+    fence_proxy_async();
+    __syncthreads();
+    for (int kt = 0; kt < nk; kt += 2) {
+      iter(kt, ra1, rb1);
+      if (kt + 1 < nk) iter(kt + 1, ra0, rb0);
+    }
+  } else {
+    // one register set (the FP32 blocks take the registers): k-tile kt + 1
+    // goes into the other stage after the FMAs of k-tile kt, and k-tile
+    // kt + 2's loads are issued right after
+    Staged<WG_BM> ra;
+    Staged<BN> rb;
+    auto put = [&](int kt) {
+      const uint32_t base = smem + (kt & 1) * L::STAGE;
+      ra.template store<PREC>(A, row0, kt * 32, K, shift, base, base + L::A + L::B);
+      rb.template store<PREC>(B, col0, kt * 32, K, shift, base + L::A, base + 2 * L::A + L::B);
+    };
+    auto fetch = [&](int kt) {
+      ra.load(A, row0, kt * 32, K);
+      rb.load(B, col0, kt * 32, K);
+    };
+    fetch(0);
+    put(0);
+    if (nk > 1) fetch(1);
+    __syncthreads();
+    for (int kt = 0; kt < nk; ++kt) {
+      const uint32_t base = smem + (kt & 1) * L::STAGE;
+      simt_ktile<BN>(base, base + L::A, min(8, (K - kt * 32 + 3) / 4), part);
+#pragma unroll
+      for (int i = 0; i < NACC; ++i) acc[i] += part[i], part[i] = 0.0f;
+      if (kt + 1 < nk) put(kt + 1);
+      if (kt + 2 < nk) fetch(kt + 2);
+      __syncthreads();
+    }
+  }
+  // the product's (0, 0): thread 0's first accumulator in both layouts
+  if (row0 == 0 && col0 == 0 && threadIdx.x == 0) *corner = acc[0];
+  if (!store) return;
+  const int Mp = A.rows, Np = B.rows;
+  if constexpr (TC) {
+    // wgmma's accumulator: register 4 j + e of a warpgroup's thread t holds
+    // row 16 (t / 32) + (t % 32) / 4 + 8 (e / 2), column 8 j + 2 (t % 4) + e % 2
+    const int t = threadIdx.x & 127;
+    const int r = row0 + wg * 64 + (t >> 5) * 16 + ((t & 31) >> 2);
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) {
+      const int rr = r + 8 * ((i >> 1) & 1), cc = col0 + 8 * (i >> 2) + 2 * (t & 3) + (i & 1);
+      if (rr < Mp && cc < Np) out[out_at(rr, cc, Mp, Np, trans)] = acc[i];
+    }
+  } else {
+    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < BN / 16; ++j) {
+        const int rr = row0 + ty * 8 + i, cc = col0 + tx + 16 * j;
+        if (rr < Mp && cc < Np) out[out_at(rr, cc, Mp, Np, trans)] = acc[i * (BN / 16) + j];
+      }
+  }
+}
+
+// n_ops chained products a @ b on one CTA per copy of the operands (the
+// kernel's name tells the tensor-core instantiations from the SIMT ones).
+template <int PREC, int BN>
+__device__ __forceinline__ void matmul_chain(const float* __restrict__ a, const float* __restrict__ b,
+                                             float* __restrict__ out, int M, int K, int N,
+                                             int contract_last, int trans, int n_ops) {
+  extern __shared__ float4 smem4[];
+  __shared__ float corner;
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem4);
+  const uint32_t smem = (raw + 1023) & ~1023u;
+  const long long cta = blockIdx.x;  // its own copy of the operands
+  a += cta * M * K;
+  b += cta * K * N;
+  out += cta * M * N;
+  const Operand oa{a, M, K, 1, 1}, ob{b, N, contract_last ? K : N, contract_last, 0};
+  const Operand& A = trans ? ob : oa;
+  const Operand& B = trans ? oa : ob;
+  const int tiles_n = (B.rows + BN - 1) / BN;
+  const int tiles = (A.rows + WG_BM - 1) / WG_BM * tiles_n;
+  float shift = 0.0f;
+  for (int op = 0; op < n_ops; ++op) {
+    for (int t = 0; t < tiles; ++t)
+      gemm_tile<PREC, BN>(smem, A, B, K, t / tiles_n * WG_BM, t % tiles_n * BN, shift, out, trans,
+                          op == n_ops - 1, &corner);
+    __syncthreads();
+    // aa += out[0][0] * 1e-30, as one running shift of a's staged elements;
+    // the next write of `corner` comes after the next product's first
+    // barrier, so every thread has read it
+    shift += corner * MX_CHAIN;
+  }
+}
+
+template <int PREC, int BN>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+wgmma_matmul_kernel(const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ out,
+                    int M, int K, int N, int contract_last, int trans, int n_ops) {
+  matmul_chain<PREC, BN>(a, b, out, M, K, N, contract_last, trans, n_ops);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+simt_matmul_kernel(const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ out,
+                   int M, int K, int N, int contract_last, int trans, int n_ops) {
+  matmul_chain<PREC_HIGHEST, BN>(a, b, out, M, K, N, contract_last, trans, n_ops);
+}
+
+template <int PREC, int BN>
+static int launch_chain(const float* a, const float* b, float* out, int M, int K, int N,
+                        int contract_last, int trans, int n_ops, int ctas, cudaStream_t st) {
+  auto kernel = [] {
+    if constexpr (PREC == PREC_HIGHEST) return simt_matmul_kernel<BN>;
+    else return wgmma_matmul_kernel<PREC, BN>;
+  }();
+  const int smem = Layout<PREC, BN>::BYTES;
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<ctas, WG_THREADS, smem, st>>>(a, b, out, M, K, N, contract_last, trans, n_ops);
+  return (int)cudaGetLastError();
+}
+
+template <int PREC>
+static int dispatch_bn(const float* a, const float* b, float* out, int M, int K, int N,
+                       int contract_last, int trans, int bn, int n_ops, int ctas, cudaStream_t st) {
+  switch (bn) {
+    case 8:
+      if constexpr (PREC == PREC_HIGHEST) return -1;
+      else return launch_chain<PREC, 8>(a, b, out, M, K, N, contract_last, trans, n_ops, ctas, st);
+    case 16: return launch_chain<PREC, 16>(a, b, out, M, K, N, contract_last, trans, n_ops, ctas, st);
+    case 128: return launch_chain<PREC, 128>(a, b, out, M, K, N, contract_last, trans, n_ops, ctas, st);
+    default: return -1;
+  }
+}
+
+// a [ctas, M, K], b [ctas, K, N] (or [ctas, N, K] with contract_last), out
+// [ctas, M, N]: one CTA per copy. trans runs the product as out^T = b^T
+// a^T; bn is the tile's columns (8 TF32 only, 16, 128), K % 4 == 0 (the
+// plan of `probes/mxu.py::plan`). Returns the cudaError_t of the launch, or
+// -1 for a precision, bn or K the kernel does not take.
+extern "C" int probes_matmul(const void* a, const void* b, void* out, int M, int K, int N,
+                             int contract_last, int prec, int trans, int bn, int n_ops, int ctas,
+                             void* cuda_stream) {
+  const float* A = (const float*)a;
+  const float* B = (const float*)b;
+  float* O = (float*)out;
+  cudaStream_t st = (cudaStream_t)cuda_stream;
+  if (K % 4) return -1;
+  switch (prec) {
+    case PREC_HIGHEST: return dispatch_bn<PREC_HIGHEST>(A, B, O, M, K, N, contract_last, trans, bn, n_ops, ctas, st);
+    case PREC_DEFAULT: return dispatch_bn<PREC_DEFAULT>(A, B, O, M, K, N, contract_last, trans, bn, n_ops, ctas, st);
+    case PREC_HIGH: return dispatch_bn<PREC_HIGH>(A, B, O, M, K, N, contract_last, trans, bn, n_ops, ctas, st);
     default: return -1;
   }
 }

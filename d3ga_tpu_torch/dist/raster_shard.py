@@ -24,8 +24,8 @@ Gaussians sit behind the camera), shards them, and aggregates the
 counters. The selection is integer work: no gradient flows through it.
 
 Not ported: shard_select=False (every rank selects from the full gathered
-set) and use_pallas=False (the XLA `_blend_tiles`) — ROADMAP.md, queue 1,
-item 10.
+set) and use_pallas=False (the XLA `_blend_tiles`): `ROUTES_TODO`, ROADMAP.md's queue
+1 item "Non-champion raster variants".
 """
 
 import torch
@@ -36,6 +36,7 @@ from d3ga_tpu_torch.raster.blend_rec import blend_gather_rec
 from d3ga_tpu_torch.raster.camera import Camera
 from d3ga_tpu_torch.raster.project import project_gaussians, tile_rect
 from d3ga_tpu_torch.raster.tiles import (
+    ROUTES_TODO,
     TILE,
     RasterAux,
     _select_per_tile_depthkey,
@@ -76,9 +77,8 @@ def rasterize_collective(
     device."""
     if not (use_pallas and shard_select):
         raise NotImplementedError(
-            f"use_pallas={use_pallas}, shard_select={shard_select} is not ported: only "
-            "use_pallas=True with shard_select=True (ROADMAP.md, queue 1, item 10: "
-            "'Non-champion raster variants')"
+            f"use_pallas={use_pallas}, shard_select={shard_select}: only use_pallas=True "
+            f"with shard_select=True is ported; the rest is {ROUTES_TODO}"
         )
     if n_shards != dist.get_world_size(group):
         raise ValueError(f"n_shards={n_shards} for a group of {dist.get_world_size(group)}")

@@ -1,8 +1,8 @@
 """Card probes: the port of the JAX package's TPU probes under `tools/`.
 
 - `mxu.py` (P1, tools/mxu_probe.py): matmul rates at the blend's and the
-  compaction's shapes in FP32 SIMT, TF32 and 3xTF32, and a roll + select
-  chain (`csrc/probes_mxu.cu`);
+  compaction's shapes in FP32 SIMT, TF32 and 3xTF32 (`wgmma`), and a roll
+  + select chain (`csrc/probes_mxu.cu`);
 - `widerow.py` (P2, tools/widerow_probe.py): a passthrough over narrow and
   wide rows of the same bytes (`csrc/probes_widerow.cu`), row gathers and
   searches in PyTorch ops;
@@ -266,10 +266,10 @@ def reset_launches():
     """Every probe kernel's launch counter to 0."""
     from d3ga_tpu_torch.probes import fused_bisect, mxu, widerow
 
-    for counts in (mxu.launches, fused_bisect.launches):
+    for counts in (mxu.launches, mxu.v1_launches, fused_bisect.launches):
         for k in counts:
             counts[k] = 0
-    widerow.launches = 0
+    widerow.launches = widerow.v1_launches = 0
 
 
 def cli_device(name):

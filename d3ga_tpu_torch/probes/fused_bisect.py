@@ -125,10 +125,20 @@ def stage(vals, rects, K, C, s):
 
 def backward_split(vals, rects, g, K, C, iters=10):
     """Device ms of K9's backward (`fused.select_blend_bwd`), by kernel:
-    `probes.device_ms` with BWD_KERNELS' names (each runs once a call);
-    None off the card."""
-    return probes.device_ms(lambda: fused.select_blend_bwd(vals, rects, g, K, C), iters,
-                            vals.device, BWD_KERNELS)
+    `probes.device_ms` with BWD_KERNELS' names (each runs once a call).
+    Where the profiler needed more than one attempt to record every call
+    (it drops whole calls now and then) or recorded none, the call is also
+    timed by `probes.queued_ms` ("queued_ms"), and "attempts" says what
+    each profile recorded. None off the card."""
+    if vals.device.type != "cuda":
+        return None
+    fn = lambda: fused.select_blend_bwd(vals, rects, g, K, C)  # noqa: E731
+    d = probes.device_ms(fn, iters, vals.device, BWD_KERNELS)
+    if d is None:
+        d = {"total": None, "attempts": "no call recorded in any profile"}
+    if d["total"] is None or len(d["attempts"]) > 1:
+        d["queued_ms"] = probes.queued_ms(fn, iters, vals.device)
+    return d
 
 
 def bounds(vals, rects, K, C, pairs):

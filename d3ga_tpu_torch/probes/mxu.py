@@ -8,7 +8,10 @@ far below half an ulp of a). a [M, K] runs as one CTA, the TPU kernel's
 one program on one core (a per-SM rate); a stacked [S, M, K] with b
 [S, K, N] runs one CTA per copy (S = the SM count: the chip's rate).
 Precisions map a TPU's onto the card: "highest" FP32 SIMT, "default" one
-TF32 pass on the tensor cores, "high" 3xTF32 (`csrc/probes_mxu.cu`).
+TF32 pass on the tensor cores (`wgmma`), "high" 3xTF32 (`csrc/probes_mxu.cu`;
+`plan` picks the tile and whether the product runs transposed).
+`matmul_v1` is the design before (`mma.sync`, 4x4 FP32 blocks), launched
+only by chip_smoke.py's comparisons.
 
 `roll(x, n, shifts, axis)` runs n trips of 8 steps of m = roll(x, s, axis);
 x = where(m > x, m, x * 0.999999) (np.roll's direction) on [R, L] float32,
@@ -24,8 +27,8 @@ the kernel).
 
 prints one JSON line for the matmul cases (ns/op and real TFLOP/s on one
 CTA and on one CTA per SM, the bound at the per-SM peak, cuBLAS's time for
-one product) and one for the roll cases, each with the card's name and
-power limit.
+one product and for the stacked product of the per-SM launch) and one for
+the roll cases, each with the card's name and power limit.
 """
 
 import argparse
@@ -74,6 +77,11 @@ ROLL_CASES = (
 
 # one per launch of a kernel (never for the plain versions)
 launches = {"highest": 0, "default": 0, "high": 0, "roll": 0}
+# one per launch of the matmul's design before (chip_smoke.py's comparisons only)
+v1_launches = {"highest": 0, "default": 0, "high": 0}
+# the new design's output tile: 128 rows (two warpgroups of 64) x BN columns
+TILE_M = 128
+TILE_NS = (8, 16, 128)  # BN; 8 only on the tensor cores (TF32, 3xTF32)
 
 
 @contextlib.contextmanager
@@ -137,11 +145,12 @@ def roll_plain(x, n, shifts, axis):
 def _kernels():
     lib = cuda_build.load("probes_mxu")
     p, i = ctypes.c_void_p, ctypes.c_int
-    mm, rl = lib.probes_matmul, lib.probes_roll
-    mm.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+    mm, rl, v1 = lib.probes_matmul, lib.probes_roll, lib.probes_matmul_v1
+    mm.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, p]
+    v1.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
     rl.argtypes = [p, p, i, i, i, i, p, p]
-    mm.restype = rl.restype = ctypes.c_int
-    return mm, rl
+    mm.restype = rl.restype = v1.restype = ctypes.c_int
+    return mm, rl, v1
 
 
 def _shapes(a, b, contract_last):
@@ -156,28 +165,76 @@ def _shapes(a, b, contract_last):
     return (a.shape[0] if a.ndim == 3 else 1), M, K, N
 
 
-def matmul(a, b, n, precision="highest", contract_last=False):
-    """n trips of the chain (module docstring) in one launch; returns the
-    last product [.., M, N]. CPU tensors take `matmul_plain`."""
+def plan(M, K, N, precision):
+    """The new design's launch plan for a product [M, K] @ [K, N]: {"trans":
+    whether it runs as out^T = b^T a^T (M <= 16 < N: the 64-row tiles fill
+    with N's rows), "rows"/"cols": the product's sides as the kernel takes
+    them, "bn": the tile's columns (the smallest of TILE_NS that holds
+    them; 16 at least for FP32), "tiles": the output tiles a product,
+    "k_tiles": k-tiles of 32 a tile}."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r} (one of {tuple(PRECISIONS)})")
+    if K % 4:
+        raise ValueError(f"matmul: K {K} is not a multiple of 4 (the kernel reads 4 k at once)")
+    trans = M <= 16 < N
+    rows, cols = (N, M) if trans else (M, N)
+    sizes = TILE_NS if precision != "highest" else TILE_NS[1:]
+    bn = next((t for t in sizes if cols <= t), sizes[-1])
+    return {"trans": trans, "rows": rows, "cols": cols, "bn": bn,
+            "tiles": -(-rows // TILE_M) * -(-cols // bn), "k_tiles": -(-K // 32)}
+
+
+def _launch(a, b, n, precision, contract_last, name):
+    """Checks the operands; None on the CPU, else (a, b, out, copies, M,
+    K, N) for a launch."""
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r} (one of {tuple(PRECISIONS)})")
     copies, M, K, N = _shapes(a, b, contract_last)
     if a.device.type == "cpu":
-        return matmul_plain(a, b, n, precision, contract_last)
+        return None
     if a.device.type != "cuda" or b.device != a.device:
-        raise ValueError(f"matmul: operands on {a.device} and {b.device}")
+        raise ValueError(f"{name}: operands on {a.device} and {b.device}")
     if a.dtype != torch.float32 or b.dtype != torch.float32:
-        raise TypeError("matmul: operands must be float32")
+        raise TypeError(f"{name}: operands must be float32")
     if n < 1:
-        raise ValueError(f"matmul: n={n} trips")
+        raise ValueError(f"{name}: n={n} trips")
     a, b = a.contiguous(), b.contiguous()
     out = torch.empty(a.shape[:-2] + (M, N), dtype=torch.float32, device=a.device)
+    return a, b, out, copies, M, K, N
+
+
+def matmul(a, b, n, precision="highest", contract_last=False):
+    """n trips of the chain (module docstring) in one launch; returns the
+    last product [.., M, N]. CPU tensors take `matmul_plain`."""
+    run = _launch(a, b, n, precision, contract_last, "matmul")
+    if run is None:
+        plan(a.shape[-2], a.shape[-1], b.shape[-2] if contract_last else b.shape[-1], precision)
+        return matmul_plain(a, b, n, precision, contract_last)
+    a, b, out, copies, M, K, N = run
+    p = plan(M, K, N, precision)
     err = _kernels()[0](a.data_ptr(), b.data_ptr(), out.data_ptr(), M, K, N, int(contract_last),
-                        PRECISIONS[precision], n * UNROLL, copies,
+                        PRECISIONS[precision], int(p["trans"]), p["bn"], n * UNROLL, copies,
                         cuda_build.stream_handle(a.device))
     if err != 0:
         raise RuntimeError(f"matmul: kernel launch failed (error {err})")
     launches[precision] += 1
+    return out
+
+
+def matmul_v1(a, b, n, precision="highest", contract_last=False):
+    """`matmul` on the design before (`probes_matmul_v1`: mma.sync, 4x4 FP32
+    blocks, operands resident in shared memory where they fit). CUDA
+    tensors only: chip_smoke.py holds and times the design against it."""
+    run = _launch(a, b, n, precision, contract_last, "matmul_v1")
+    if run is None:
+        raise ValueError("matmul_v1: the design before runs on CUDA tensors only")
+    a, b, out, copies, M, K, N = run
+    err = _kernels()[2](a.data_ptr(), b.data_ptr(), out.data_ptr(), M, K, N, int(contract_last),
+                        PRECISIONS[precision], n * UNROLL, copies,
+                        cuda_build.stream_handle(a.device))
+    if err != 0:
+        raise RuntimeError(f"matmul_v1: kernel launch failed (error {err})")
+    v1_launches[precision] += 1
     return out
 
 
@@ -233,8 +290,10 @@ def matmul_bound_ns(M, K, N, precision, sms=1):
 
 def run_matmul(device="cuda", cases=CASES, target_ms=20.0, trips=None):
     """One row a case: ns/op and real TFLOP/s on one CTA and on one CTA per
-    SM with replicated operands, the one-CTA bound, and cuBLAS's ms for
-    one product (torch.matmul at the case's TF32 setting)."""
+    SM with replicated operands, the one-CTA bound, the new design's plan,
+    and cuBLAS's ms for one product (torch.matmul at the case's TF32
+    setting) and for the per-SM launch's stacked product (torch.bmm of the
+    [SMs, M, K] operands: the like-for-like yardstick of its rate)."""
     device = torch.device(device)
     sms = (torch.cuda.get_device_properties(device).multi_processor_count
            if device.type == "cuda" else 1)
@@ -244,16 +303,18 @@ def run_matmul(device="cuda", cases=CASES, target_ms=20.0, trips=None):
         flops = 2 * M * K * N
         one = probes.slope(lambda n: matmul(a, b, n, prec, cl), device, target_ms, trips)
         row = {"case": name, "M": M, "K": K, "N": N, "precision": prec, "contract_last": cl,
+               "plan": plan(M, K, N, prec),
                "one_cta": dict(one, tflops=flops / one["ns_per_op"] / 1e3),
                "bound_ns": matmul_bound_ns(M, K, N, prec)}
         ar, br = a.expand(sms, -1, -1).contiguous(), b.expand(sms, -1, -1).contiguous()
         many = probes.slope(lambda n: matmul(ar, br, n, prec, cl), device, target_ms, trips)
         row["per_sm"] = dict(many, ctas=sms, tflops=sms * flops / many["ns_per_op"] / 1e3)
-        del ar, br
-        bt = b.t() if cl else b
+        bt, brt = (b.t(), br.transpose(1, 2)) if cl else (b, br)
         with _fp32_matmul(allow_tf32=prec == "default"):
             row["library_ms"] = probes.time_ms(lambda: torch.matmul(a, bt), 20, device)
-        row["library"] = "torch.matmul, TF32 " + ("on" if prec == "default" else "off")
+            row["library_per_sm_ms"] = probes.time_ms(lambda: torch.bmm(ar, brt), 20, device)
+        row["library"] = "torch.matmul / torch.bmm, TF32 " + ("on" if prec == "default" else "off")
+        del ar, br, brt
         rows.append(row)
     return rows
 

@@ -12,17 +12,22 @@ wide rows:
   G  torch.searchsorted, 2,689 queries in 2.16 M sorted keys
   H  a binary search of the same queries, 23 steps of gathers
 
-`passthrough(x, bs)` is o = x * 1.000001 (`csrc/probes_widerow.cu`), one
-CUDA block a tile of `bs` leading entries as the TPU grid's blocks; its
-plain version `passthrough_plain` is the same multiply in PyTorch, and
-the kernel's output is bit-equal to it. E-H are PyTorch ops, as they were
-XLA ops in the TPU tool: no kernel of their own.
+`passthrough(x, bs)` is o = x * 1.000001 (`csrc/probes_widerow.cu`): a
+flat walk of 16-byte loads on a grid sized to the card (`bs`, the TPU
+grid's block of leading entries, is checked and reported, no unit of the
+card); its plain version `passthrough_plain` is the same multiply in
+PyTorch, and the kernel's output is bit-equal to it. `passthrough_v1` is
+the design before (one CUDA block a tile of `bs` leading entries), launched
+only by chip_smoke.py's comparisons. E-H are PyTorch ops, as they were XLA
+ops in the TPU tool: no kernel of their own.
 
     python3 -m d3ga_tpu_torch.probes.widerow [--iters 20] [--device cuda]
 
 prints one JSON line (with the card's name and power limit): each case's
 ms a call (CUDA events, the mean of `iters` calls), its bytes and bytes
-bound, and for A-D the plain version's and one torch.mul's ms.
+bound, and for A-D the plain version's and one torch.mul's ms, and the
+kernel's and torch.mul's ms with the calls queued behind a spin
+(`probes.queued_ms`: no host launch cost).
 """
 
 import argparse
@@ -52,6 +57,8 @@ PASS_CASES = (
 
 # one per launch of the kernel (never for the plain version)
 launches = 0
+# one per launch of the design before (chip_smoke.py's comparisons only)
+v1_launches = 0
 
 
 def passthrough_plain(x):
@@ -60,38 +67,63 @@ def passthrough_plain(x):
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = cuda_build.load("probes_widerow").probes_passthrough
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _kernels():
+    lib = cuda_build.load("probes_widerow")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    new, v1 = lib.probes_passthrough, lib.probes_passthrough_v1
+    new.argtypes = [p, p, ll, i, p]
+    v1.argtypes = [p, p, ll, i, i, p]
+    new.restype = v1.restype = ctypes.c_int
+    return new, v1
+
+
+def _check(x, bs, name):
+    """The operand as a launch takes it (contiguous), None on the CPU."""
+    if x.ndim < 2 or bs < 1 or x.shape[0] % bs:
+        raise ValueError(f"{name}: x {tuple(x.shape)} with bs {bs}: expected [L0, ..., W] "
+                         "with L0 a multiple of bs")
+    if x.device.type == "cpu":
+        return None
+    if x.device.type != "cuda" or x.dtype != torch.float32:
+        raise ValueError(f"{name}: x must be float32 on CUDA or the CPU, not {x.dtype} on "
+                         f"{x.device}")
+    if x.shape[-1] % 4:
+        raise ValueError(f"{name}: row width {x.shape[-1]} is not a multiple of 4")
+    return x.contiguous()
 
 
 def passthrough(x, bs):
-    """x * 1.000001 over x [L0, ..., W] float32, one CUDA block a tile of bs
-    leading entries. CPU tensors take `passthrough_plain`."""
+    """x * 1.000001 over x [L0, ..., W] float32 (L0 a multiple of the TPU
+    block's bs leading entries), a flat walk on a grid sized to the card.
+    CPU tensors take `passthrough_plain`."""
     global launches
-    if x.ndim < 2 or bs < 1 or x.shape[0] % bs:
-        raise ValueError(f"passthrough: x {tuple(x.shape)} with bs {bs}: expected [L0, ..., W] "
-                         "with L0 a multiple of bs")
-    if x.device.type == "cpu":
+    xc = _check(x, bs, "passthrough")
+    if xc is None:
         return passthrough_plain(x)
-    if x.device.type != "cuda" or x.dtype != torch.float32:
-        raise ValueError(f"passthrough: x must be float32 on CUDA or the CPU, not {x.dtype} on "
-                         f"{x.device}")
-    width = x.shape[-1]
-    if width % 4:
-        raise ValueError(f"passthrough: row width {width} is not a multiple of 4")
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    rows = x.numel() // width
-    tile_rows = bs * (rows // x.shape[0])
-    err = _kernel()(x.data_ptr(), out.data_ptr(), rows, width, tile_rows,
-                    cuda_build.stream_handle(x.device))
+    out = torch.empty_like(xc)
+    err = _kernels()[0](xc.data_ptr(), out.data_ptr(), xc.numel(), xc.shape[-1],
+                        cuda_build.stream_handle(xc.device))
     if err != 0:
         raise RuntimeError(f"passthrough: kernel launch failed (error {err})")
     launches += 1
+    return out
+
+
+def passthrough_v1(x, bs):
+    """`passthrough` on the design before: one CUDA block a tile of bs
+    leading entries. CUDA tensors only (chip_smoke.py's comparisons)."""
+    global v1_launches
+    xc = _check(x, bs, "passthrough_v1")
+    if xc is None:
+        raise ValueError("passthrough_v1: the design before runs on CUDA tensors only")
+    out = torch.empty_like(xc)
+    width = xc.shape[-1]
+    rows = xc.numel() // width
+    err = _kernels()[1](xc.data_ptr(), out.data_ptr(), rows, width, bs * (rows // xc.shape[0]),
+                        cuda_build.stream_handle(xc.device))
+    if err != 0:
+        raise RuntimeError(f"passthrough_v1: kernel launch failed (error {err})")
+    v1_launches += 1
     return out
 
 
@@ -143,6 +175,10 @@ def run(device="cuda", iters=20, scale=1):
             "ms": probes.time_ms(lambda: passthrough(x, bs), iters, device),
             "plain_ms": probes.time_ms(lambda: passthrough_plain(x), iters, device),
             "library_ms": probes.time_ms(lambda: torch.mul(x, SCALE), iters, device),
+            # the same calls queued behind a spin: device time without the
+            # host's launch cost, which back-to-back calls of C and D expose
+            "queued_ms": probes.queued_ms(lambda: passthrough(x, bs), iters, device),
+            "library_queued_ms": probes.queued_ms(lambda: torch.mul(x, SCALE), iters, device),
             "bound_ms": bytes_bound_ms(nbytes),
         })
         del x

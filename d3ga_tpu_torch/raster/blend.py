@@ -45,6 +45,7 @@ import functools
 
 import torch
 
+from d3ga_tpu_torch.ops.fexp import fexp
 from d3ga_tpu_torch.raster.blend_ct import split_power
 from d3ga_tpu_torch.train.losses import full_float32
 from d3ga_tpu_torch.utils import cuda_build
@@ -97,14 +98,30 @@ def _pixel_basis(device):
     return torch.stack([torch.ones_like(dx), dx, dy, dx * dx, dy * dy, dx * dy], -1)
 
 
-def _forward_chunk(coeffs, opacs, basis, U):
+# the relative distance from a threshold within which the plain forward
+# takes XLA-CPU's exp (some 60 float32 ulps; the two exps differ by one)
+EXP_NEAR = 4e-6
+
+
+def _forward_chunk(coeffs, opacs, basis, U, split=True):
     """`_forward_body`'s intermediates for a chunk of tiles: coeffs
     [B, K, 8], opacs [B, 1, K]. The power is rounded as the JAX kernel's
-    bf16 hi/lo split rounds it (`blend_ct.split_power`), so that a slot on
-    the alpha >= 1/255 threshold is decided as there."""
-    power = split_power(basis, coeffs[..., :6])  # [B, 256, K]
+    bf16 hi/lo split rounds it (`blend_ct.split_power`; split=False: as
+    one float32 product, K9's JAX kernels' `dot_general`), and where
+    opacity * exp(power) lies within EXP_NEAR of 1/255 or 0.99 its exp as
+    XLA-CPU's (`ops/fexp.py`, far slower than torch.exp, which is within
+    an ulp of it), so that a slot on those thresholds is decided as there."""
+    if split:
+        power = split_power(basis, coeffs[..., :6])  # [B, 256, K]
+    else:
+        power = torch.einsum("pc,bkc->bpk", basis, coeffs[..., :6])
     e = torch.exp(power)
     raw = opacs * e
+    near = ((raw - ALPHA_SKIP).abs() <= EXP_NEAR * ALPHA_SKIP) | ((raw - ALPHA_MAX).abs()
+                                                                  <= EXP_NEAR * ALPHA_MAX)
+    if bool(near.any()):
+        e[near] = fexp(power[near])
+        raw = opacs * e
     alpha = torch.minimum(raw, torch.tensor(ALPHA_MAX, device=raw.device))
     use = (power <= 0.0) & (alpha >= ALPHA_SKIP)
     alpha = torch.where(use, alpha, 0.0)
@@ -141,11 +158,12 @@ def blend_tiles_coeffs_plain(coeffs, colors, opacs, tile_chunk=256, count_pairs=
     return (out, pairs) if count_pairs else out
 
 
-def blend_tiles_coeffs_bwd_plain(coeffs, colors, opacs, g, tile_chunk=256):
+def blend_tiles_coeffs_bwd_plain(coeffs, colors, opacs, g, tile_chunk=256, split=True):
     """Plain PyTorch version of K8's backward, `_backward_body` written out
     in float32: the cotangent g [T, 256, C+1] of the forward's output to
     (dcoeffs [T, K, 8] with the padding's 0, dcolors [T, K, C], dopacs
-    [T, 1, K])."""
+    [T, 1, K]). `split`: the power's rounding (`_forward_chunk`; K9's plain
+    backward takes split=False, as its JAX kernel)."""
     T, K, _ = coeffs.shape
     C = colors.shape[-1]
     dev = coeffs.device
@@ -155,7 +173,7 @@ def blend_tiles_coeffs_bwd_plain(coeffs, colors, opacs, g, tile_chunk=256):
     with full_float32():
         for c0 in range(0, T, tile_chunk):
             sl = slice(c0, c0 + tile_chunk)
-            f = _forward_chunk(coeffs[sl], opacs[sl], basis, U)
+            f = _forward_chunk(coeffs[sl], opacs[sl], basis, U, split)
             g_rgb, g_tbg = g[sl, :, :C], g[sl, :, C:]
             w, accept, alpha = f["w"], f["accept"], f["alpha"]
             dw = torch.einsum("bpc,bkc->bpk", g_rgb, colors[sl])

@@ -65,6 +65,7 @@ import functools
 import torch
 import torch.nn.functional as Fn
 
+from d3ga_tpu_torch.ops.flog import fma32
 from d3ga_tpu_torch.raster import blend
 from d3ga_tpu_torch.utils import cuda_build
 
@@ -149,11 +150,24 @@ def _select(rects, K):
     return lanes, m.sum(-1).to(torch.int32)
 
 
-def _tile_inputs(rec, rects, K, C):
-    """K8's inputs for a chunk of blocks: rec [nb, kb, 16] records-major.
-    Returns (coeffs [nb*64, Kk, 8], colors [nb*64, Kk, C], opacs
-    [nb*64, 1, Kk], the slots' records [nb, 64, Kk, 16] (0 past each
-    tile's count), lanes, hit mask, counts)."""
+def _bwd_coeffs(x, y, A, B, Cc):
+    """K9's tile-local falloff coefficients [..., 8] (`blend.falloff_coeffs`'
+    function) rounded as XLA-CPU rounds `attic/pallas_fused.py::
+    _coeffs_from_rec` inside the JAX backward kernel, whose alpha tests
+    they decide on the 1/255 threshold: A x^2 + C y^2, A x + B y and
+    C y + B x each contracted into one fma (its forward kernel fuses them
+    otherwise: B y + A x there, C y + B x not at all)."""
+    z = torch.zeros_like(A)
+    return torch.stack([-0.5 * fma32(A * x, x, Cc * y * y) - B * x * y, fma32(A, x, B * y),
+                        fma32(Cc, y, B * x), -0.5 * A, -0.5 * Cc, -B, z, z], -1)
+
+
+def _tile_inputs(rec, rects, K, C, backward=False):
+    """K8's inputs for a chunk of blocks: rec [nb, kb, 16] records-major
+    (with `backward`, the coefficients rounded as K9's JAX backward rounds
+    them, `_bwd_coeffs`). Returns (coeffs [nb*64, Kk, 8], colors
+    [nb*64, Kk, C], opacs [nb*64, 1, Kk], the slots' records [nb, 64, Kk,
+    16] (0 past each tile's count), lanes, hit mask, counts)."""
     nb, kb, _ = rec.shape
     lanes, counts = _select(rects, K)
     hit = lanes < kb
@@ -162,8 +176,12 @@ def _tile_inputs(rec, rects, K, C):
     slot = torch.gather(rec, 1, idx).reshape(nb, TB, Kk, NCH)
     slot = torch.where(hit[..., None], slot, 0.0)
     sx, sy = _tile_origins(rec.device)
-    xy = torch.stack([slot[..., 0] - sx[:, None], slot[..., 1] - sy[:, None]], -1)
-    coeffs = blend.falloff_coeffs(xy, slot[..., 2:5]).reshape(nb * TB, Kk, 8)
+    x, y = slot[..., 0] - sx[:, None], slot[..., 1] - sy[:, None]
+    if backward:
+        coeffs = _bwd_coeffs(x, y, slot[..., 2], slot[..., 3], slot[..., 4])
+    else:
+        coeffs = blend.falloff_coeffs(torch.stack([x, y], -1), slot[..., 2:5])
+    coeffs = coeffs.reshape(nb * TB, Kk, 8)
     colors = slot[..., 6 : 6 + C].reshape(nb * TB, Kk, C)
     opacs = slot[..., 5].reshape(nb * TB, 1, Kk)
     return coeffs, colors, opacs, slot, lanes, hit, counts
@@ -199,10 +217,11 @@ def select_blend_bwd_plain(vals, rects, g, K, C, block_chunk=BLOCK_CHUNK):
     out = []
     for b0 in range(0, NB, block_chunk):
         sl = slice(b0, b0 + block_chunk)
-        coeffs, colors, opacs, slot, lanes, hit, _ = _tile_inputs(vals[sl], rects[sl], K, C)
+        coeffs, colors, opacs, slot, lanes, hit, _ = _tile_inputs(vals[sl], rects[sl], K, C,
+                                                                  backward=True)
         nb, Kk = slot.shape[0], slot.shape[2]
         dco, dcol, dop = blend.blend_tiles_coeffs_bwd_plain(
-            coeffs, colors, opacs, g[sl].reshape(nb * TB, NPIX, C + 1))
+            coeffs, colors, opacs, g[sl].reshape(nb * TB, NPIX, C + 1), split=False)
         d0, d1, d2, d3, d4, d5 = dco.reshape(nb, TB, Kk, 8)[..., :6].unbind(-1)
         sx, sy = _tile_origins(vals.device)
         x, y = slot[..., 0] - sx[:, None], slot[..., 1] - sy[:, None]

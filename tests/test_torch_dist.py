@@ -421,6 +421,6 @@ def test_unported_options_raise():
     _, tcam = cameras(32, 32)
     x = torch.zeros(4, 3)
     for kw in (dict(use_pallas=False, shard_select=True), dict(use_pallas=True)):
-        with pytest.raises(NotImplementedError, match="queue 1, item 10"):
+        with pytest.raises(NotImplementedError, match="Non-champion raster variants"):
             t_rasterize_collective(x, tcam, torch.ones(3), None, 1, cov3d=torch.zeros(4, 6),
                                    opacities=torch.ones(4, 1), colors=torch.ones(4, 3), **kw)

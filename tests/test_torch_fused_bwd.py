@@ -8,7 +8,7 @@ each row of their tile, inside the alpha threshold op * exp(power) >=
 
 On the CPU the plain backward is held against the JAX package's two
 kernels in interpret mode: `attic/pallas_fused.py::_run_backward` (v1) on
-every case but the one on the threshold (the cases of one C go as the
+every case, the one on the threshold too (the cases of one C go as the
 blocks of one call), and `attic/pallas_fused2.py::_run_backward` (v2) on
 the counts case, whose compaction is v2's own. Both are compiled at
 XLA's default level (at level 0 v2's interpret run takes ~9 s a block at
@@ -18,8 +18,11 @@ this K, at the default 0.15 s). Tolerance, as test_torch_fused.py's:
 another order (matmuls over the basis and the triangular ones matrix),
 and the alpha >= 1/255 and T < 1e-4 tests flip where a pixel lies on
 them. On the threshold case, whose alpha tests decide by rounding, the
-plain backward is held to its structure only; the card holds the kernel
-there bit for bit against itself with the band cull off.
+plain backward agrees with v1 because it rounds as v1's backward does:
+its tile-local coefficients as XLA-CPU contracts them there
+(`fused._bwd_coeffs`), its power as one float32 product, and exp(power)
+near the thresholds as XLA-CPU's (`ops/fexp.py`). The card holds the
+kernel there bit for bit against itself with the band cull off.
 
 The CUDA kernels run only on the card: the test marked `cuda` runs
 chip_smoke.py's K9 edge checks and skips without a GPU.
@@ -41,7 +44,7 @@ from test_torch_raster_bwd import flip_close
 CASES = {c[0]: c for c in chip_smoke.k9_edge_cases(torch.device("cpu"))}
 K = chip_smoke.K9_EDGE_K
 COUNTS = "counts 0/1/255/256/300, rects that miss the tile"
-JAX_CASES = [n for n in CASES if n != chip_smoke.K9_ON_THRESHOLD]
+JAX_CASES = list(CASES)
 
 _PLAIN = {}
 
@@ -83,15 +86,15 @@ def jax_v1():
 
 def test_cases_cover_the_edges():
     """The counts case's first row holds 0, 1, 255, 256 and 300 (> K);
-    every C of {1, 3, 6, 8}; the named kinds are JAX-held but the case on
-    the threshold."""
+    every C of {1, 3, 6, 8}; every named kind is JAX-held, the case on the
+    threshold too."""
     _, _, rects, _, _ = CASES[COUNTS]
     _, counts = fused._select(rects, K)
     assert counts[0, :5].tolist() == [0, 1, 255, 256, 300]
     assert {c[4] for c in CASES.values()} == {1, 3, 6, 8}
     for kind in ("third slot", "raw >= 0.99", "opacity 0", "inside the band edges", "2 blocks"):
         assert any(kind in n for n in JAX_CASES), kind
-    assert set(CASES) - set(JAX_CASES) == {chip_smoke.K9_ON_THRESHOLD}
+    assert chip_smoke.K9_ON_THRESHOLD in JAX_CASES and set(JAX_CASES) == set(CASES)
 
 
 @pytest.mark.parametrize("name", JAX_CASES)

@@ -25,8 +25,11 @@ records in another order: each channel within 1e-5 of its largest
 |value|. Stage 3 is K9's forward: p999 abs <= 1e-5 and at most 1e-3 of
 elements off by more than 1e-3, as tests/test_torch_fused.py holds K9.
 
-The CUDA kernels run only on the card: the test marked `cuda` holds them
-against the plain versions and skips without a GPU.
+The new matmul design's plan (tile, transposition) is held on the CPU for
+every case of the tool, and the designs before (`matmul_v1`,
+`passthrough_v1`) refuse CPU tensors. The CUDA kernels run only on the
+card: the test marked `cuda` holds them, new and before, against the
+plain versions and skips without a GPU.
 """
 
 import json
@@ -321,6 +324,52 @@ def test_wrappers_check_their_inputs():
         widerow.passthrough(torch.zeros(6, 4), 4)
 
 
+@pytest.mark.parametrize("case", mxu.CASES, ids=[c[0] for c in mxu.CASES])
+def test_matmul_plan(case):
+    """The new design's plan for each of the tool's cases: transposed
+    where M is 16 and N wider (the 64-row tiles fill with N's rows); the
+    tile's columns the smallest of 8 (tensor cores only), 16 and 128 that
+    hold the product's, so N 3 pads to 8 (16 in FP32) and nothing pads
+    past a tile; the tiles and k-tiles of 32 that cover it."""
+    _, M, K, N, prec, _ = case
+    p = mxu.plan(M, K, N, prec)
+    assert p["trans"] == (M == 16)
+    rows, cols = (N, M) if p["trans"] else (M, N)
+    assert (p["rows"], p["cols"]) == (rows, cols) and rows >= mxu.TILE_M // 2
+    assert p["bn"] in mxu.TILE_NS and (p["bn"] != 8 or prec != "highest")
+    assert cols <= p["bn"] or p["bn"] == mxu.TILE_NS[-1]
+    smaller = [t for t in mxu.TILE_NS if t < p["bn"] and (t != 8 or prec != "highest")]
+    assert all(cols > t for t in smaller)
+    assert p["tiles"] == -(-rows // mxu.TILE_M) * -(-cols // p["bn"])
+    assert p["k_tiles"] == -(-K // 32)
+
+
+def test_matmul_plan_refuses():
+    with pytest.raises(ValueError, match="multiple of 4"):
+        mxu.plan(64, 30, 64, "default")
+    with pytest.raises(ValueError, match="multiple of 4"):
+        mxu.matmul(torch.zeros(8, 6), torch.zeros(6, 8), 1, "highest")
+    with pytest.raises(ValueError, match="precision"):
+        mxu.plan(64, 32, 64, "bf16")
+
+
+def test_designs_before_need_the_card():
+    """The designs before (`matmul_v1`, `passthrough_v1`) run on CUDA
+    tensors only, and their counters stay 0 here; their inputs are checked
+    as the new entry points check theirs."""
+    a, b = mxu.operands(32, 32, 16)
+    for prec in mxu.PRECISIONS:
+        with pytest.raises(ValueError, match="CUDA"):
+            mxu.matmul_v1(a, b, 1, prec)
+    with pytest.raises(ValueError, match="contraction"):
+        mxu.matmul_v1(torch.zeros(4, 4), torch.zeros(5, 4), 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        widerow.passthrough_v1(torch.zeros(8, 16), 4)
+    with pytest.raises(ValueError, match="multiple of bs"):
+        widerow.passthrough_v1(torch.zeros(6, 4), 4)
+    assert not any(mxu.v1_launches.values()) and widerow.v1_launches == 0
+
+
 # -- the entry points, end to end on the CPU --------------------------------
 
 def test_entry_points_on_cpu(capsys):
@@ -362,11 +411,13 @@ def test_kernels_match_plain(cuda_device):
         for prec in PRECISION:
             out, ref = mxu.matmul(a, b, TRIPS, prec, cl), mxu.matmul_plain(a, b, TRIPS, prec, cl)
             assert rel_l2(out.cpu(), ref.cpu()) <= 1e-6
+            assert rel_l2(out.cpu(), mxu.matmul_v1(a, b, TRIPS, prec, cl).cpu()) <= 1e-6
     x = mxu.roll_input(19, 4096, device=cuda_device)
     assert torch.equal(mxu.roll(x, TRIPS, mxu.BIG_SHIFTS, 1),
                        mxu.roll_plain(x, TRIPS, mxu.BIG_SHIFTS, 1))
     x = torch.randn(64, 32, 16, device=cuda_device)
     assert torch.equal(widerow.passthrough(x, 4), widerow.passthrough_plain(x))
+    assert torch.equal(widerow.passthrough_v1(x, 4), widerow.passthrough_plain(x))
     _, _, rec, rr = stage_inputs(2)
     rec, rr = rec.to(cuda_device), rr.to(cuda_device)
     for s in range(2):
