@@ -1167,6 +1167,82 @@ def check_k8_edges(dev, line):
     return n
 
 
+K8_BWD_OUTPUTS = ("coeffs", "colors", "opacs")
+
+
+def k8_cotangent(co, C, seed):
+    """A cotangent [T, 256, C+1] of K8's forward for coeffs co, from `seed`."""
+    g = np.random.default_rng(seed).normal(size=(co.shape[0], 256, C + 1)).astype(np.float32)
+    return torch.from_numpy(g).to(co.device)
+
+
+def k8_bwd_holds(where, args, dev, plain=True):
+    """K8's backward on args = (coeffs, colors, opacs, g): finite; zero in
+    dcoeffs[..., 6:] and in all three outputs for every opacity-0 slot;
+    with `plain`, within K3's tolerances of the plain version where that
+    is not NaN (its dense sums take dalpha exp(power) = 0 x inf at the
+    pixels where exp(power) overflows and the slot is not taken, as the
+    JAX kernel's do: those values are left out on both sides); on the card
+    within K3_REL_L2 of its `_v1` (the same power, so the same pairs: only
+    the sums' order differs) and bit-equal across two launches and to the
+    kernel with its band cull off. Off the card the backward is the plain
+    version, its NaNs zeroed. Returns {"plain": {output: slot_err},
+    "baseline": {output: rel L2}} (what was held)."""
+    out = blend.blend_tiles_coeffs_bwd(*args)
+    dead = args[2][:, 0, :] == 0
+    if dev.type != "cuda":
+        out = tuple(torch.nan_to_num(o, nan=0.0) for o in out)
+    check(all(bool(torch.isfinite(o).all()) for o in out), f"{where}: non-finite cotangents")
+    dco, dcol, dop = out
+    check(bool((dco[..., 6:] == 0).all()), f"{where}: a cotangent in the padding columns")
+    check(bool((dco[dead] == 0).all()) and bool((dcol[dead] == 0).all())
+          and bool((dop[:, 0, :][dead] == 0).all()), f"{where}: an opacity-0 slot has a cotangent")
+    res = {}
+    if plain:
+        ref = blend.blend_tiles_coeffs_bwd_plain(*args)
+        res["plain"] = {n: slot_err(torch.where(r.isnan(), 0.0, a), torch.nan_to_num(r, nan=0.0))
+                        for n, a, r in zip(K8_BWD_OUTPUTS, out, ref)}
+        for n, e in res["plain"].items():
+            check(slot_ok(e), f"{where}: d{n} differs from plain ({e})")
+    if dev.type == "cuda":
+        again = blend.blend_tiles_coeffs_bwd(*args)
+        check(all(torch.equal(bits(a), bits(b)) for a, b in zip(out, again)),
+              f"{where}: two launches differ")
+        no_cull = blend.blend_tiles_coeffs_bwd_stage(*args, len(blend.BWD_STAGES) - 1,
+                                                     design="kernel_no_cull")
+        check(all(torch.equal(bits(a), bits(b)) for a, b in zip(out, no_cull)),
+              f"{where}: the band cull changes the bits")
+        base = blend.blend_tiles_coeffs_bwd_baseline(*args)
+        res["baseline"] = {n: rel_l2(a, b) for n, a, b in zip(K8_BWD_OUTPUTS, out, base)}
+        check(all(e <= K3_REL_L2 for e in res["baseline"].values()),
+              f"{where}: differs from the baseline design ({res['baseline']})")
+    return res
+
+
+def check_k8_bwd_edges(dev, line):
+    """K8's backward on its edge inputs (`k8_edge_cases`), a cotangent from
+    a seed each: `k8_bwd_holds`, the plain version held on every case but
+    K9_ON_THRESHOLD's tiles (whose alpha tests decide by rounding), the
+    `_v1` on every case; prints the largest rel L2 against the `_v1`.
+    Returns the cases held."""
+    n, worst = 0, (-1.0, None, None)
+    for name, co, col, op, C in k8_edge_cases(dev):
+        res = k8_bwd_holds(f"K8 backward edge case {name}",
+                           (co, col, op, k8_cotangent(co, C, 40 + n)), dev,
+                           plain=not name.startswith(K9_ON_THRESHOLD))
+        for out, e in res.get("baseline", {}).items():
+            worst = max(worst, (e, name, out), key=lambda w: w[0])
+        n += 1
+    sync(dev)
+    line(f"K8 backward edge inputs: {n} cases finite, zero in the padding columns and for every "
+         f"opacity-0 slot, within p999 <= {K3_P999_REL} x max|d| / rel_l2 <= {K3_REL_L2} of plain "
+         f"(but the tiles of {K9_ON_THRESHOLD!r})"
+         + (f", within rel_l2 <= {K3_REL_L2} of the baseline design on every case (largest "
+            f"{worst[0]:.3e}: d{worst[2]} of {worst[1]!r}), bit-equal across two launches and to "
+            "the kernel without the band cull" if dev.type == "cuda" else ""))
+    return n
+
+
 def ptxas_usage(log, marker):
     """Registers, shared memory and spills that `-Xptxas -v` reports for
     the entry functions whose mangled names contain `marker`, by name."""
@@ -1262,7 +1338,9 @@ def reset_launch_counts():
     blend_rec.bwd_baseline_launches = blend_rec.img_bwd_baseline_launches = 0
     blend.launches = blend.bwd_launches = fused.launches = fused.bwd_launches = 0
     fused.baseline_launches = fused.fwd_baseline_launches = blend.baseline_launches = 0
-    for counts in (fused.stage_launches, fused.fwd_stage_launches, blend.stage_launches):
+    blend.bwd_baseline_launches = 0
+    for counts in (fused.stage_launches, fused.fwd_stage_launches, blend.stage_launches,
+                   blend.bwd_stage_launches):
         for k in counts:
             counts[k] = 0
     probes.reset_launches()
@@ -1270,12 +1348,11 @@ def reset_launch_counts():
 
 def off_path_launches():
     """Launches, since the counts were reset, of what no path of the port
-    calls: the baseline designs of K1, K2, K3, K4, of K5's and K7's
-    forwards and backwards, of K8's forward, of K9's forward and backward
-    and of the probes P1's matmul and P2's passthrough, and the stage
-    entry points of K2, K3, K8's forward and K9's forward and backward
-    (their cuts, other designs and diagnostic builds). Each main-path
-    window must see 0."""
+    calls: the baseline designs of K1, K2, K3, K4, of K5's, K7's, K8's
+    and K9's forwards and backwards and of the probes P1's matmul and P2's
+    passthrough, and the stage entry points of K2, K3 and K8's and K9's
+    forwards and backwards (their cuts, other designs and diagnostic
+    builds). Each main-path window must see 0."""
     return (extract.baseline_launches + segsum.baseline_launches + blend_ct.baseline_launches
             + blend_ct.fwd_baseline_launches + sum(blend_ct.stage_launches.values())
             + sum(blend_ct.fwd_stage_launches.values()) + blend_rec.fwd_baseline_launches
@@ -1283,7 +1360,8 @@ def off_path_launches():
             + blend_rec.img_bwd_baseline_launches + fused.baseline_launches
             + sum(fused.stage_launches.values()) + fused.fwd_baseline_launches
             + sum(fused.fwd_stage_launches.values()) + blend.baseline_launches
-            + sum(blend.stage_launches.values()) + sum(mxu.v1_launches.values())
+            + sum(blend.stage_launches.values()) + blend.bwd_baseline_launches
+            + sum(blend.bwd_stage_launches.values()) + sum(mxu.v1_launches.values())
             + widerow.v1_launches)
 
 
@@ -2844,15 +2922,64 @@ def k8_forward_designs(dev, report, line, bench_args, frame_args):
     return res
 
 
+def k8_backward_designs(dev, report, line, bench_args, frame_args):
+    """K8's backward at the stage bench's shapes (bench_args = (coeffs,
+    colors, opacs, g), C 3) and on frame 0's K9 tile inputs (frame_args,
+    C 6): `k8_bwd_holds` at both; on the card the baseline design and the
+    kernel in turns at both, the stage cuts in turns at frame 0 (device ms
+    of blend_coeffs_bwd_kernel alone), ptxas' registers at both C. Returns
+    the results (turns None off the card)."""
+    res = dict(holds={}, turns=None, stages=None, ptxas=None)
+    wheres = {"stage bench": bench_args, "frame 0": frame_args}
+    for where, args in wheres.items():
+        h = res["holds"][where] = k8_bwd_holds(f"K8 backward ({where})", args, dev)
+        line(f"K8 backward ({where}: T={args[0].shape[0]}, K={args[0].shape[1]}, "
+             f"C={args[1].shape[-1]}) vs plain: " + ", ".join(
+                 f"d{n} rel_l2={e['rel_l2']:.3e} p999_abs={e['p999_abs']:.3e} (max {e['scale']:.3e})"
+                 for n, e in h["plain"].items())
+             + ("; vs the baseline design rel_l2 " + ", ".join(
+                 f"d{n}={e:.3e}" for n, e in h["baseline"].items()) if "baseline" in h else ""))
+    if dev.type != "cuda":
+        return res
+    res["turns"] = {}
+    for where, args in wheres.items():
+        res["turns"][where] = in_turns({
+            "baseline": lambda args=args: blend.blend_tiles_coeffs_bwd_baseline(*args),
+            "kernel": lambda args=args: blend.blend_tiles_coeffs_bwd(*args)}, 20, dev)
+        line(f"K8 backward in turns ({where}): {turns_summary(res['turns'][where])}")
+    whole = len(blend.BWD_STAGES) - 1
+    for st in range(whole):
+        check(all(bool(torch.isfinite(o).all())
+                  for o in blend.blend_tiles_coeffs_bwd_stage(*frame_args, st)),
+              f"K8 backward stage {st}: non-finite output")
+    res["stages"] = in_turns({
+        f"stage{st}": (lambda st=st: blend.blend_tiles_coeffs_bwd_stage(*frame_args, st))
+        for st in range(len(blend.BWD_STAGES))}, 20, dev, kernel="blend_coeffs_bwd_kernel")
+    ms = [res["stages"][f"stage{st}"]["ms"] for st in range(len(blend.BWD_STAGES))]
+    line("K8 backward stages at frame 0 (device ms a call of blend_coeffs_bwd_kernel; delta): "
+         + ", ".join(f"{st} {nm} {m:.5f} ({m - (ms[st - 1] if st else 0.0):+.5f})"
+                     for st, (nm, m) in enumerate(zip(blend.BWD_STAGES, ms))))
+    marks = {}
+    for C in sorted({bench_args[1].shape[-1], frame_args[1].shape[-1]}):
+        # mangled template arguments: <C, STAGE> and, baseline, <C>
+        marks[f"kernel C{C}"] = f"blend_coeffs_bwd_kernelILi{C}ELi4E"
+        marks[f"baseline C{C}"] = f"blend_coeffs_bwd_v1_kernelILi{C}E"
+    res["ptxas"], summary = fwd_ptxas(report, "blend_coeffs", marks)
+    line(f"K8 backward ptxas (registers, static smem bytes, spill stores): {summary}")
+    return res
+
+
 def fused_phase(dev, report, scene):
     """K9 (the fused select + blend) forward and backward against its plain
     versions through both input layouts, on frame 0's Gaussians at the
     default block cap; `rasterize_tiled_fused` against `rasterize_tiled`'s
     topk funnel; the training step with `raster_backend: fused`, one
     step's gradients kernels vs plain, then 5 steps with K9 and its
-    backward launched once a step; K8 forward and backward against their
-    plain versions at the stage bench's shapes, then the stage bench, its
-    JSON in run_out/bench_stages.json. Returns the K8 and K9 entries."""
+    backward launched once a step; K8's forward and backward on their edge
+    inputs, at the stage bench's shapes and on frame 0's K9 tile inputs
+    (against plain and their baseline designs, timed in turns), then the
+    stage bench, its JSON in run_out/bench_stages.json. Returns the K8
+    and K9 entries."""
     line = logger(report)
     means, cov3d, opac, colors = scene["gauss"]
     cam, C = scene["camera"], scene["C"]
@@ -2880,6 +3007,7 @@ def fused_phase(dev, report, scene):
     k9_edges = check_k9_edges(dev, line)
     k9f_edges = check_k9_fwd_edges(dev, line)
     k8_edges = check_k8_edges(dev, line)
+    k8b_edges = check_k8_bwd_edges(dev, line)
     k9, k9b = {}, {}
     for variant, (v, r) in layouts.items():
         fn = fused.fused_select_blend if variant == 1 else fused.fused_select_blend2
@@ -3076,27 +3204,25 @@ def fused_phase(dev, report, scene):
         ref8, pairs8 = blend.blend_tiles_coeffs_plain(co, col, op, count_pairs=True)
         g8 = torch.randn(out8.shape, generator=torch.Generator(device=dev).manual_seed(10),
                          device=dev)
-        d8 = blend.blend_tiles_coeffs_bwd(co, col, op, g8)
-        d8_ref = blend.blend_tiles_coeffs_bwd_plain(co, col, op, g8)
         sync(dev)
-        check(bool(torch.isfinite(out8).all()) and all(bool(torch.isfinite(d).all()) for d in d8),
-              "K8: non-finite output")
+        check(bool(torch.isfinite(out8).all()), "K8: non-finite output")
         k8 = image_err(out8, ref8)
-        k8b = {n: slot_err(a, b) for n, a, b in zip(("coeffs", "colors", "opacs"), d8, d8_ref)}
         line(f"K8 blend_tiles_coeffs vs plain (T={T8}, K={K8K}, C={col.shape[-1]}): forward "
              f"p999_abs={k8['p999_abs']:.3e} frac={k8['flip_frac']:.3e} "
-             f"max_abs={k8['max_abs']:.3e}; backward rel_l2 "
-             + ", ".join(f"d{n}={e['rel_l2']:.3e}" for n, e in k8b.items()))
+             f"max_abs={k8['max_abs']:.3e}")
         check(image_ok(k8), f"K8 forward: outside p999 <= {P999_MAX} / flips <= {FLIP_MAX}")
-        check(all(e["rel_l2"] <= K3_REL_L2 for e in k8b.values()),
-              f"K8 backward: a cotangent off by rel L2 > {K3_REL_L2}")
         f_co, f_col, f_op, *_ = fused._tile_inputs(vals, rects, K, C)
-        k8f = k8_forward_designs(dev, report, line, (co, col, op),
-                                 (f_co.contiguous(), f_col.contiguous(), f_op.contiguous()))
-        del f_co, f_col, f_op
+        f_args = (f_co.contiguous(), f_col.contiguous(), f_op.contiguous())
+        k8f = k8_forward_designs(dev, report, line, (co, col, op), f_args)
+        k8bf = k8_backward_designs(dev, report, line, (co, col, op, g8),
+                                   (*f_args, k8_cotangent(f_args[0], C, 11)))
+        k8b = k8bf["holds"]["stage bench"]["plain"]
+        del f_co, f_col, f_op, f_args
         k8_t = measure(lambda: blend.blend_tiles_coeffs(co, col, op), 20, dev)
         k8_plain_t = measure(lambda: blend.blend_tiles_coeffs_plain(co, col, op), 3, dev, warmup=1)
-        k8b_t = measure(lambda: blend.blend_tiles_coeffs_bwd(co, col, op, g8), 20, dev)
+        # on the card K8's backward is timed once, in turns with its `_v1`
+        k8b_t = (None if k8bf["turns"] else
+                 measure(lambda: blend.blend_tiles_coeffs_bwd(co, col, op, g8), 20, dev))
         k8b_plain_t = measure(lambda: blend.blend_tiles_coeffs_bwd_plain(co, col, op, g8), 3, dev,
                               warmup=1)
     C8 = col.shape[-1]
@@ -3114,7 +3240,7 @@ def fused_phase(dev, report, scene):
          f"{k8_bound[2]['bytes'] * 1e3:.5f} operations {k8_bound[2]['operations'] * 1e3:.5f}, "
          f"backward bytes {k8b_bound[2]['bytes'] * 1e3:.5f} operations "
          f"{k8b_bound[2]['operations'] * 1e3:.5f}")
-    del out8, ref8, g8, d8, d8_ref
+    del out8, ref8, g8
 
     # -- the stage bench: K8's main path -------------------------------------
     sync(dev)
@@ -3159,8 +3285,14 @@ def fused_phase(dev, report, scene):
             "replaces": "d3ga_tpu/raster/pallas_blend.py:264",
             "launches": k8_launches["blend_tiles_coeffs_bwd"],
             "max_abs_err": max(e["max_abs"] for e in k8b.values()),
-            "ms": k8b_t["ms"], "plain_ms": k8b_plain_t["ms"], "bound_ms": k8b_bound[0],
+            "ms": k8bf["turns"]["stage bench"]["kernel"]["ms"] if k8bf["turns"] else k8b_t["ms"],
+            "plain_ms": k8b_plain_t["ms"], "bound_ms": k8b_bound[0],
             "bound_by": k8b_bound[1], "library_ms": None,
+            "baseline_ms": k8bf["turns"] and k8bf["turns"]["stage bench"]["baseline"]["ms"],
+            "designs_ms": k8bf["turns"] and {w: {d: v["ms"] for d, v in t.items()}
+                                             for w, t in k8bf["turns"].items()},
+            "stages_ms": k8bf["stages"] and [k8bf["stages"][f"stage{st}"]["ms"]
+                                             for st in range(len(blend.BWD_STAGES))],
         },
         {
             "name": "fused_select_blend", "route": "cuda",
@@ -3192,7 +3324,8 @@ def fused_phase(dev, report, scene):
         },
     ]
     timings = {"blend_tiles_coeffs": {"kernel": k8_t, "plain": k8_plain_t},
-               "blend_tiles_coeffs_bwd": {"kernel": k8b_t, "plain": k8b_plain_t},
+               "blend_tiles_coeffs_bwd": {"plain": k8b_plain_t, **({"kernel": k8b_t} if k8b_t
+                                                                    else {})},
                "fused_select_blend": {"kernel": k9_t, "plain": k9_plain_t},
                "fused_select_blend_bwd": {"kernel": k9b_t, "plain": k9b_plain_t}}
     for k in kernels:
@@ -3204,7 +3337,8 @@ def fused_phase(dev, report, scene):
     report.update(
         k9=k9, k9b=k9b, k9_pairs=pairs, k9_work=work9, k9_edges=k9_edges, k9b_base=k9b_base,
         k9b_px=k9b_px, k9b_turns=k9b_turns, k9b_split=k9b_split, k9b_stages=k9b_stages,
-        k9b_ptxas=k9b_ptxas, k9f_edges=k9f_edges, k8_edges=k8_edges, k9f=k9f, k8f=k8f,
+        k9b_ptxas=k9b_ptxas, k9f_edges=k9f_edges, k8_edges=k8_edges, k8b_edges=k8b_edges,
+        k9f=k9f, k8f=k8f, k8bf=k8bf,
         k8_work=work8, k9_blocks=NB, k9_kb=kb, fused_vs_topk=fe, aux_fused=a_f,
         aux_topk=a_t, fused_terms_rel=term_err, fused_grad_rel_l2=leaf_err, fused_step_ms=step_ms,
         fused_launches=k9_launches, fused_profiled=fused_prof, k8=k8, k8b=k8b, k8_pairs=pairs8,

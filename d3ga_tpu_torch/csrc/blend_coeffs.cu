@@ -28,11 +28,23 @@
 // blend_coeffs_v1_kernel, launched by d3ga_blend_coeffs_v1 (chip_smoke.py
 // only); d3ga_blend_coeffs_stage launches the kernel with its band cull
 // off at every C and, at K8_STAGE_C only, cut at coeff_walk_fwd.cuh's
-// stages or with 1, 2 or 4 slots a batch. Backward: one block of 256
-// threads per tile, one thread per pixel (coeff_walk.cuh's
-// coeff_walk_bwd). Every tile owns its K slots, so the backward writes
-// its rows of d(coeffs, colors, opacs) directly: no atomics, no second
-// pass.
+// stages or with 1, 2 or 4 slots a batch. Backward
+// (blend_coeffs_bwd_kernel): one block of 128 threads per tile,
+// coeff_walk_bwd.cuh's walk (K9's backward's: two pixels a thread, the
+// band cull, per-slot sums by a warp reduce-scatter; that header says why)
+// with this file's staging (CoeffStage, the forward's: K8 has no slot
+// count, and its opacity-0 padding has no band, so a chunk of it is
+// skipped by one block vote), the forward's power (cf_power: the
+// backward takes the pairs the forward took) and a direct-row epilogue
+// (CoeffGradRows). Every tile owns its K slots, so each chunk's rows of
+// d(coeffs) (columns 6-7 zero), d(opacs) and d(colors) are built in
+// shared memory and written straight to the outputs as 16-byte stores: no
+// atomics, no second pass. The design before (256 threads, one a pixel,
+// coeff_walk.cuh's coeff_walk_bwd, each slot's row stored by one thread)
+// stays as blend_coeffs_bwd_v1_kernel, launched by
+// d3ga_blend_coeffs_bwd_v1 (chip_smoke.py only); d3ga_blend_coeffs_bwd_stage
+// launches the kernel with its band cull off at every C and, at
+// K8_STAGE_C only, cut at coeff_walk_bwd.cuh's stages.
 //
 // The band cull's bound (k8_bands). No centre or conic is given, so the
 // bands come from the polynomial. On row dy, power is a quadratic in dx
@@ -114,14 +126,16 @@ __device__ __forceinline__ unsigned k8_bands(const float (&c)[6], float op) {
 
 // Stages slot base + r of the tile: its six coefficients (two 16-byte
 // loads with vec), opacity and C colours, and its bands (every band
-// without cull), as one CB_ROW row.
+// without cull), as one CB_ROW row; the forward's (CfShared) and the
+// backward's (CbShared: no geometry, GEO is not read).
 template <int C, int P>
 struct CoeffStage {
   const float* coeffs;  // the tile's [K, 8]
   const float* colors;  // [K, C]
   const float* opacs;   // [K]
   bool vec, cull;
-  __device__ __forceinline__ void operator()(int base, int m, int r, CfShared<P>& s) const {
+  template <bool GEO, class Sh>
+  __device__ __forceinline__ void rows(int base, int m, int r, Sh& s) const {
     const long long k = base + r;
     float c[6];
     if (vec) {
@@ -185,12 +199,79 @@ blend_coeffs_v1_kernel(const float* __restrict__ coeffs, const float* __restrict
   o[C] = T;
 }
 
-template <int C>
-__global__ void __launch_bounds__(CW_NPIX)
+// The backward's epilogue (coeff_walk_bwd_px's Epi): each chunk's three
+// outputs built in shared memory out (CB_CHUNK * (9 + C) floats: the [m, 8]
+// coefficient rows, columns 6-7 zero, then the [m] opacities, then the
+// [m, C] colours) and each written to the tile's rows as one contiguous
+// run (16-byte stores with vec); a stage cut's value to the tile's first
+// coefficient floats.
+template <int C, int P>
+struct CoeffGradRows {
+  float* dcoeffs;  // the tile's [K, 8]
+  float* dcolors;  // [K, C]
+  float* dopacs;   // [K]
+  float* out;
+  bool vec;
+  template <class Sh>
+  __device__ __forceinline__ void row(int r, const float (&d)[7 + C], const Sh&) const {
+    float4* o = reinterpret_cast<float4*>(out + r * 8);
+    o[0] = make_float4(d[0], d[1], d[2], d[3]);
+    o[1] = make_float4(d[4], d[5], 0.0f, 0.0f);
+    out[8 * CB_CHUNK + r] = d[6];
+#pragma unroll
+    for (int c = 0; c < C; ++c) out[9 * CB_CHUNK + r * C + c] = d[7 + c];
+  }
+  __device__ __forceinline__ void store(int base, int m, int t) const {
+    cb_store<cb_threads<P>>(dcoeffs + (long long)base * 8, out, m * 8, vec, t);
+    cb_store<cb_threads<P>>(dopacs + base, out + 8 * CB_CHUNK, m, vec, t);
+    cb_store<cb_threads<P>>(dcolors + (long long)base * C, out + 9 * CB_CHUNK, m * C, vec, t);
+  }
+  __device__ __forceinline__ void zeros(int from, int n, int t) const {
+    cb_store<cb_threads<P>>(dcoeffs + (long long)from * 8, nullptr, (n - from) * 8, vec, t);
+    cb_store<cb_threads<P>>(dopacs + from, nullptr, n - from, vec, t);
+    cb_store<cb_threads<P>>(dcolors + (long long)from * C, nullptr, (n - from) * C, vec, t);
+  }
+  __device__ __forceinline__ void fold(int t, int n, float v) const {
+    if (t < n * 8) dcoeffs[t] = v;
+  }
+};
+
+// The backward: coeff_walk_bwd_px at CB_P pixels a thread with K8's
+// staging (CoeffStage), cf_power and the direct-row epilogue
+// (CoeffGradRows). vec: coeffs 16-byte aligned; ovec: the three outputs
+// 16-byte aligned and K % 4 == 0; cull: the band cull on.
+template <int C, int STAGE = 4>
+__global__ void __launch_bounds__(cb_threads<CB_P>)
 blend_coeffs_bwd_kernel(const float* __restrict__ coeffs, const float* __restrict__ colors,
                         const float* __restrict__ opacs, const float* __restrict__ g, int K,
-                        float* __restrict__ dcoeffs, float* __restrict__ dcolors,
-                        float* __restrict__ dopacs) {
+                        int vec, int ovec, int cull, float* __restrict__ dcoeffs,
+                        float* __restrict__ dcolors, float* __restrict__ dopacs) {
+  constexpr int P = CB_P;
+  __shared__ __align__(16) float out[CB_CHUNK * (9 + C)];
+  const long long t = blockIdx.x;
+  const int p = threadIdx.x;
+  float gc[P][C], g_tbg[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const float* gp = g + (t * CW_NPIX + cb_pixel<P>(p, j)) * (C + 1);
+#pragma unroll
+    for (int c = 0; c < C; ++c) gc[j][c] = gp[c];
+    g_tbg[j] = gp[C];
+  }
+  const CoeffStage<C, P> stage{coeffs + t * K * 8, colors + t * K * C, opacs + t * K, vec != 0,
+                               cull != 0};
+  const CoeffGradRows<C, P> epi{dcoeffs + t * K * 8, dcolors + t * K * C, dopacs + t * K, out,
+                                ovec != 0};
+  coeff_walk_bwd_px<C, P, STAGE, CfPower>(K, stage, gc, g_tbg, epi);
+}
+
+// The backward's design before: one thread a pixel, coeff_walk_bwd.
+template <int C>
+__global__ void __launch_bounds__(CW_NPIX)
+blend_coeffs_bwd_v1_kernel(const float* __restrict__ coeffs, const float* __restrict__ colors,
+                           const float* __restrict__ opacs, const float* __restrict__ g, int K,
+                           float* __restrict__ dcoeffs, float* __restrict__ dcolors,
+                           float* __restrict__ dopacs) {
   const long long t = blockIdx.x;
   const int p = threadIdx.x;
   const CoeffRows<C> rows{coeffs + t * K * 8, colors + t * K * C, opacs + t * K};
@@ -279,20 +360,79 @@ extern "C" int d3ga_blend_coeffs_stage(const void* coeffs, const void* colors, c
   return -1;
 }
 
+template <int C, int STAGE>
+static int launch_bwd(const float* co, const float* col, const float* op, const float* g, int T,
+                      int K, int cull, float* dco, float* dcol, float* dop, cudaStream_t s) {
+  const int vec = (reinterpret_cast<uintptr_t>(co) & 15) == 0;
+  const uintptr_t outs = reinterpret_cast<uintptr_t>(dco) | reinterpret_cast<uintptr_t>(dcol) |
+                         reinterpret_cast<uintptr_t>(dop);
+  const int ovec = K % 4 == 0 && (outs & 15) == 0;
+  blend_coeffs_bwd_kernel<C, STAGE><<<T, cb_threads<CB_P>, 0, s>>>(co, col, op, g, K, vec, ovec,
+                                                                  cull, dco, dcol, dop);
+  return (int)cudaGetLastError();
+}
+
+// design 1: the kernel; 2: the kernel with the band cull off (stage 4, at
+// every C); at K8_STAGE_C only, design 1 cut at coeff_walk_bwd.cuh's
+// stages 0-3.
+template <int C>
+static int launch_bwd_stage(const float* co, const float* col, const float* op, const float* g,
+                            int T, int K, float* dco, float* dcol, float* dop, int design,
+                            int stage, cudaStream_t s) {
+  if (stage == 4 && (design == 1 || design == 2))
+    return launch_bwd<C, 4>(co, col, op, g, T, K, design == 1, dco, dcol, dop, s);
+  if constexpr (C == K8_STAGE_C) {
+    if (design == 1) {
+      switch (stage) {
+        case 0: return launch_bwd<C, 0>(co, col, op, g, T, K, 1, dco, dcol, dop, s);
+        case 1: return launch_bwd<C, 1>(co, col, op, g, T, K, 1, dco, dcol, dop, s);
+        case 2: return launch_bwd<C, 2>(co, col, op, g, T, K, 1, dco, dcol, dop, s);
+        case 3: return launch_bwd<C, 3>(co, col, op, g, T, K, 1, dco, dcol, dop, s);
+        default: break;
+      }
+    }
+  }
+  return -1;
+}
+
+#define K8_BWD_ARGS                  \
+  K8_ARGS;                           \
+  const float* gg = (const float*)g; \
+  float* dco = (float*)dcoeffs;      \
+  float* dcol = (float*)dcolors;     \
+  float* dop = (float*)dopacs
+
 extern "C" int d3ga_blend_coeffs_bwd(const void* coeffs, const void* colors, const void* opacs,
                                      const void* g, int T, int K, int C, void* dcoeffs,
                                      void* dcolors, void* dopacs, void* cuda_stream) {
-  const float* co = (const float*)coeffs;
-  const float* col = (const float*)colors;
-  const float* op = (const float*)opacs;
-  const float* gg = (const float*)g;
-  float* dco = (float*)dcoeffs;
-  float* dcol = (float*)dcolors;
-  float* dop = (float*)dopacs;
-  cudaStream_t s = (cudaStream_t)cuda_stream;
+  K8_BWD_ARGS;
+#define BWD(CC) return launch_bwd<CC, 4>(co, col, op, gg, T, K, 1, dco, dcol, dop, s)
+  CW_SWITCH_C(C, BWD)
+#undef BWD
+  return -1;
+}
+
+// The backward's design before (blend_coeffs_bwd_v1_kernel).
+extern "C" int d3ga_blend_coeffs_bwd_v1(const void* coeffs, const void* colors, const void* opacs,
+                                        const void* g, int T, int K, int C, void* dcoeffs,
+                                        void* dcolors, void* dopacs, void* cuda_stream) {
+  K8_BWD_ARGS;
 #define BWD(CC) \
-  blend_coeffs_bwd_kernel<CC><<<T, CW_NPIX, 0, s>>>(co, col, op, gg, K, dco, dcol, dop)
+  blend_coeffs_bwd_v1_kernel<CC><<<T, CW_NPIX, 0, s>>>(co, col, op, gg, K, dco, dcol, dop)
   CW_SWITCH_C(C, BWD)
 #undef BWD
   return (int)cudaGetLastError();
+}
+
+// One (design, stage) of launch_bwd_stage; -1 where it is not built.
+extern "C" int d3ga_blend_coeffs_bwd_stage(const void* coeffs, const void* colors,
+                                           const void* opacs, const void* g, int T, int K, int C,
+                                           void* dcoeffs, void* dcolors, void* dopacs, int design,
+                                           int stage, void* cuda_stream) {
+  K8_BWD_ARGS;
+#define BWD(CC) \
+  return launch_bwd_stage<CC>(co, col, op, gg, T, K, dco, dcol, dop, design, stage, s)
+  CW_SWITCH_C(C, BWD)
+#undef BWD
+  return -1;
 }

@@ -3,10 +3,10 @@
 // precomputed [T, K, 8]) and K9 (fused.cu, the rows made from each tile's
 // compacted candidate records). coeff_walk_fwd is walked by both forwards'
 // `_v1`s (blend_coeffs_v1_kernel, fused_kernel_v1, whose STAGE cuts are
-// probe P3), coeff_walk_bwd by K8's backward and K9's backward baseline
-// (fused_bwd_kernel_v1). K8's and K9's forwards walk with
-// coeff_walk_fwd.cuh, bit for bit what coeff_walk_fwd computes, and K9's
-// backward with coeff_walk_bwd.cuh. The semantics are those
+// probe P3), coeff_walk_bwd by both backwards' (blend_coeffs_bwd_v1_kernel,
+// fused_bwd_kernel_v1). K8's and K9's forwards walk with
+// coeff_walk_fwd.cuh, bit for bit what coeff_walk_fwd computes, and their
+// backwards with coeff_walk_bwd.cuh. The semantics are those
 // of the JAX package's
 // pallas_blend.py::_forward_body / _backward_body, which
 // attic/pallas_fused.py and attic/pallas_fused2.py repeat after their

@@ -1,41 +1,65 @@
-// K9's backward walk (fused.cu::fused_bwd_kernel): the recompute-forward
-// VJP of one 16x16 tile over its compacted candidate records, several
-// pixels a thread. It computes what coeff_walk.cuh::coeff_walk_bwd
-// computes, pixel for pixel: the falloff polynomial in tile-local pixels,
-// alpha = min(0.99, raw) with raw = opacity * exp(power), used only where
-// power <= 0 and raw >= 1/255, the walk stopping before the slot where
-// T * (1 - alpha) < 1e-4, dpower = dalpha raw and dopacity = dalpha
-// exp(power) only where raw < 0.99, the same walk 1 (T_bg and S, the total
-// of dw * w over the accepted slots) and the same suffix R = S - prefix in
-// walk 2. Only the order of the per-slot sums over the tile's 256 pixels,
-// and the polynomial's roundings (pinned below), differ.
+// The backward walk of K9 (fused.cu::fused_bwd_kernel) and K8
+// (blend_coeffs.cu::blend_coeffs_bwd_kernel): the recompute-forward VJP of
+// one 16x16 tile over its slots' quadratic-falloff rows, several pixels a
+// thread. It computes what coeff_walk.cuh::coeff_walk_bwd computes, pixel
+// for pixel: the falloff polynomial in tile-local pixels, alpha = min(0.99,
+// raw) with raw = opacity * exp(power), used only where power <= 0 and raw
+// >= 1/255, the walk stopping before the slot where T * (1 - alpha) <
+// 1e-4, dpower = dalpha raw and dopacity = dalpha exp(power) only where raw
+// < 0.99, the same walk 1 (T_bg and S, the total of dw * w over the
+// accepted slots) and the same suffix R = S - prefix in walk 2. Only the
+// order of the per-slot sums over the tile's 256 pixels, and the
+// polynomial's roundings (the power policy's), differ.
 //
-// K9's rule is not K2's and K3's (blend_walk_bwd.cuh: exp(power + log
-// opacity), the opacity's cotangent from the constant coefficient's), so
-// this is a copy of K3's structure on K9's arithmetic, not a call into
+// K9's and K8's rule is not K2's and K3's (blend_walk_bwd.cuh: exp(power +
+// log opacity), the opacity's cotangent from the constant coefficient's),
+// so this is a copy of K3's structure on K9's arithmetic, not a call into
 // that header; it shares its constants only (coeff_walk.cuh).
+//
+// coeff_walk_bwd_px takes three policies (its comment gives their calls):
+// - staging: K9's cb_stage (the candidate records made tile-local
+//   coefficients, the ellipse's bands below; in walk 2 the geometry too);
+//   K8's blend_coeffs.cu::CoeffStage (the [K, 8] coefficient rows, the
+//   bands of k8_bands), the forwards' staging;
+// - power: K9's cb_power; K8's coeff_walk_fwd.cuh::cf_power, its
+//   forward's and its `_v1`'s roundings, so that its backward recomputes
+//   the pairs its forward took (cb_power's order would part from them at
+//   alpha = 1/255);
+// - epilogue: K9's transpose of the coefficients into [n, 6 + C] record
+//   rows (fused.cu::CandGradRows); K8's three outputs written directly
+//   (blend_coeffs.cu::CoeffGradRows). Each builds a chunk's rows in shared
+//   memory and writes each output as one contiguous run of 16-byte stores
+//   (cb_store; scalar where a tile's rows are not 16-byte aligned), as it
+//   does the zeros of the slots past the walk.
+// K9's staging, power and epilogue are the expressions they were before
+// the walk took policies, so its bits did not move (blend_digests.py).
 //
 // Design, as K3's (blend_walk_bwd.cuh says why), where coeff_walk_bwd
 // (one thread a pixel, 8 warps a tile, every slot evaluated at every
 // pixel, 7 + C five-step butterflies a slot a warp, each slot's row
 // written by one thread in scalar stores) spends its time:
-// - P pixels a thread (CB_P; 1 and 4 are built too, for timing): a tile
-//   is CW_NPIX / P threads, warp w on the rows of the 2-row bands
-//   P w .. P w + P - 1 (cb_pixel). chip_smoke.py times the backward (this
-//   kernel and the route kernel) at 1, 2 and 4 pixels a thread in turns:
-//   on an NVIDIA H100 80GB HBM3 at 700 W, at frame 0 of its scene, 0.288,
-//   0.286 and 0.351 ms (the design before 0.436). At 1 the 8 warps a tile
-//   make up for ptxas' spills (80 registers); at 4 two warps a tile leave
-//   too few warps: 447 tiles hold a slot, 187 of them K, about 1.4 full
-//   tiles an SM.
+// - P pixels a thread (CB_P; K9's stage entry point builds 1 and 4 too,
+//   for timing): a tile is CW_NPIX / P threads, warp w on the rows of the
+//   2-row bands P w .. P w + P - 1 (cb_pixel). chip_smoke.py times K9's
+//   backward (this kernel and the route kernel) at 1, 2 and 4 pixels a
+//   thread in turns: on an NVIDIA H100 80GB HBM3 at 700 W, at frame 0 of
+//   its scene, 0.288, 0.286 and 0.351 ms (the design before 0.436). At 1
+//   the 8 warps a tile make up for ptxas' spills (80 registers); at 4 two
+//   warps a tile leave too few warps: 447 tiles hold a slot, 187 of them
+//   K, about 1.4 full tiles an SM.
 // - Band culling. Staging marks the 2-row bands of the tile where the
-//   slot's raw can reach 1/255 (cb_stage); a warp skips a slot none of its
-//   bands can take, which gives the bits the walk gives without the cull
-//   (held bit for bit against the same kernel with the cull off).
+//   slot's raw can reach 1/255; a warp skips a slot none of its bands can
+//   take, which gives the bits the walk gives without the cull (held bit
+//   for bit against the same kernel with the cull off). After staging,
+//   one block vote (the barrier staging needs anyway) skips a chunk no
+//   warp can take a slot of: K8's opacity-0 padding, whose bands are none.
 // - A staged slot is a 16-byte-aligned row of CB_ROW floats (c0..c5, the
 //   opacity, C colours, the band mask in the last float); a warp reads the
 //   band word, then, where it can take the slot, the row in broadcast
-//   16-byte loads.
+//   16-byte loads. CB_ROW = 20 floats is an odd number of 16-byte words,
+//   so the staging's 16-byte stores and the epilogue's 16-byte reads of
+//   the warps' partials, one row a thread, meet no bank conflict (a
+//   quarter warp's 8 rows start 5 words apart: 8 distinct 4-bank groups).
 // - Per slot each thread adds its own pixels' 7 + C contributions, then
 //   the warp sums them by a reduce-scatter: the values sit in S = 16 slots
 //   (32 where 7 + C > 16) in bit-reversed order, each halving step
@@ -43,12 +67,8 @@
 //   at C 6 take 7 + 4 + 2 + 1 + 1 = 15 shuffles where the butterflies take
 //   65. A slot no lane of the warp accepted costs no shuffle. The warps'
 //   partials are added in warp order: deterministic, no atomics.
-// - Walk 2 keeps each staged slot's tile-local geometry in shared memory,
-//   so the epilogue (the coefficients' transpose) reads no row again; the
-//   chunk's [n, 6 + C] cotangent rows are built in shared memory and
-//   written as one contiguous run of 16-byte stores (scalar where the
-//   tile's rows are not 16-byte aligned), as are the zeros of the slots
-//   past the walk.
+// - Walk 2 keeps what the epilogue needs in shared memory (K9: each
+//   staged slot's tile-local geometry), so the epilogue reads no row again.
 //
 // The cull's bound. raw = opacity * exp(power) >= 1/255 needs power >=
 // -log(255 opacity), i.e. Q = A dx^2 + 2 B dx dy + C dy^2 <= r2 =
@@ -67,16 +87,18 @@
 // So r2 is widened by 1% and by CB_R2_SLACK = 1e-3 (over 200 times the
 // first two items), and the extent by a quarter pixel: K3's margins, which
 // cover K9's rounding. Every band where the conic is not clearly positive
-// definite or a value is not finite.
+// definite or a value is not finite. (K8's bound from its coefficients
+// alone is blend_coeffs.cu's.)
 //
 // Stage cuts: the STAGE template parameter (default 4, the whole walk)
 // stops the work early; each cut folds what it computed into one value a
-// thread, written to the tile's first rows, so that no stage is dead code:
-//   0  selection (the caller's) and both walks' staging
+// thread, given to the epilogue's fold (the tile's first output floats),
+// so that no stage is dead code:
+//   0  selection (K9's, the caller's) and both walks' staging
 //   1  + walk 1's arithmetic
 //   2  + walk 2's per-pixel arithmetic, without the per-slot sums
 //   3  + the per-slot sums (reduce-scatter, the warps' partials)
-//   4  + the epilogue and the rows' stores: K9's backward itself
+//   4  + the epilogue and the rows' stores: the backward itself
 // Stages 0-1 do no walk-2 arithmetic, so no pixel stops and they stage
 // every chunk of both walks.
 
@@ -84,7 +106,7 @@
 
 #include "coeff_walk.cuh"
 
-#define CB_P 2                 // K9's backward pixels a thread: 128 threads, 4 warps a tile
+#define CB_P 2                 // the backward's pixels a thread: 128 threads, 4 warps a tile
 #define CB_CHUNK 64            // slots a chunk (a 64-bit hit mask a warp)
 #define CB_ROW 20              // floats a staged row (16-byte multiple)
 #define CB_BAND 19             // the row's float that holds the band mask
@@ -181,7 +203,7 @@ struct CbShared {
   unsigned long long hit[cb_warps<P>];                      // slots some lane accepted
 };
 
-// Stage the chunk's slot t (thread t < n): candidate s_sel[base + t] of
+// K9's staging: the chunk's slot t (thread t < n), candidate s_sel[base + t] of
 // the block's records vb (16 floats each) as its six tile-local falloff
 // coefficients (the JAX kernels' _coeffs_from_rec), its opacity and C
 // colours, and the bands it can reach (all without cull), into s.rec[t];
@@ -306,23 +328,39 @@ __device__ __forceinline__ void cb_store(float* __restrict__ dst, const float* s
   for (int e = e0 + t; e < n; e += THREADS) dst[e] = src ? src[e] : 0.0f;
 }
 
+// The power policy of K9's backward: cb_power's roundings.
+struct CbPower {
+  template <int P>
+  __device__ __forceinline__ static void eval(const float (&rc)[7], float fx, const float (&fy)[P],
+                                              float (&pw)[P], float (&e)[P]) {
+    cb_power<P>(rc, fx, fy, pw, e);
+  }
+};
+
 // The backward of one tile by the calling block of cb_threads<P> threads
-// over its n selected slots (candidates s_sel[0..n) of the block's records
-// vb): thread t's pixels' cotangents gc[j] (colours) and g_tbg[j] (T_bg)
-// in; the tile's n slot rows [n, 6 + C] of (x, y, A, B, C, opacity,
-// colours) cotangents out to tdrec (zeros past the walk). vec: vb's rows
-// and tdrec are 16-byte aligned; cull: the warps skip the slots their
-// bands cannot take (the same bits either way). out: CB_CHUNK * (6 + C)
-// floats of 16-byte-aligned shared memory.
-template <int C, int P = CB_P, int STAGE = 4>
-__device__ __forceinline__ void coeff_walk_bwd_px(const float* __restrict__ vb, bool vec,
-                                                  bool cull, const int* s_sel, int n, float sx,
-                                                  float sy, const float (&gc)[P][C],
-                                                  const float (&g_tbg)[P],
-                                                  float* __restrict__ tdrec, float* out) {
+// over its n slots: thread t's pixels' cotangents gc[j] (colours) and
+// g_tbg[j] (T_bg) in; each slot's 7 + C sums (the six coefficients', the
+// opacity's, the C colours') out through the epilogue. The three
+// policies:
+// - stage.template rows<GEO>(base, m, r, s), called by thread r for each
+//   r < m: slot base + r's row into s.rec[r] (c0..c5, the opacity, C
+//   colours, the band word in CB_BAND; every band without cull) and, with
+//   GEO (walk 2), what the epilogue reads of it into s.geo;
+// - Power::template eval<P>(rc, fx, fy, pw, e): the falloff power at the
+//   thread's P pixels, and its exp;
+// - epi.row(r, d, s): thread r < m puts slot base + r's sums d into the
+//   chunk's output rows (in shared memory); epi.store(base, m, t), after a
+//   barrier, writes them out; epi.zeros(from, n, t) writes the zeros of
+//   the slots [from, n) past the walk; epi.fold(t, n, v) takes a stage
+//   cut's value.
+// After staging, one block vote skips a chunk whose slots no warp's bands
+// can take (no slot of it would be walked): the same bits.
+template <int C, int P, int STAGE, class Power, class Stage, class Epi>
+__device__ __forceinline__ void coeff_walk_bwd_px(int n, const Stage& stage,
+                                                  const float (&gc)[P][C],
+                                                  const float (&g_tbg)[P], const Epi& epi) {
   constexpr int NV = 7 + C;  // per slot: the six coefficients', the opacity's, the colours'
   constexpr int S = cb_slots<NV>;
-  constexpr int CR = 6 + C;
   static_assert(7 + C < CB_BAND && NV <= CB_ROW, "C above 10");
   static_assert(P == 1 || P == 2 || P == 4, "1, 2 or 4 pixels a thread");
   __shared__ CbShared<C, P> s;
@@ -347,16 +385,17 @@ __device__ __forceinline__ void coeff_walk_bwd_px(const float* __restrict__ vb, 
   for (int base = 0; base < n; base += CB_CHUNK) {
     const int m = min(CB_CHUNK, n - base);
     __syncthreads();  // the previous chunk has been read
-    cb_stage<C, P, false>(vb, vec, cull, s_sel, base, m, sx, sy, s, t);
-    __syncthreads();
+    if (t < m) stage.template rows<false>(base, m, t, s);
+    // some warp's bands can take a slot of the chunk
+    const bool any = __syncthreads_or(t < m && __float_as_uint(s.rec[t][CB_BAND]) != 0u);
     if constexpr (STAGE == 0) {
       if (t < m) fold += s.rec[t][0] + s.rec[t][6];
-    } else {
+    } else if (any) {
       for (int k = 0; k < m; ++k) {
         if (cb_all(done)) break;
         float rc[7], col[C], pw[P], e[P];
         if (!cb_slot<C, P>(s, k, warp, rc, col)) continue;  // no pixel of the warp can take it
-        cb_power(rc, fx, fy, pw, e);
+        Power::template eval<P>(rc, fx, fy, pw, e);
 #pragma unroll
         for (int j = 0; j < P; ++j) {
           const float raw = rc[6] * e[j];
@@ -395,15 +434,15 @@ __device__ __forceinline__ void coeff_walk_bwd_px(const float* __restrict__ vb, 
   for (int base = 0; base < n; base += CB_CHUNK) {
     const int m = min(CB_CHUNK, n - base);
     __syncthreads();  // the previous chunk's rows have been read and stored
-    cb_stage<C, P, true>(vb, vec, cull, s_sel, base, m, sx, sy, s, t);
-    __syncthreads();
+    if (t < m) stage.template rows<true>(base, m, t, s);
+    const bool any = __syncthreads_or(t < m && __float_as_uint(s.rec[t][CB_BAND]) != 0u);
     unsigned long long hits = 0;  // warp-uniform: slots some lane of this warp accepted
     if constexpr (STAGE >= 2) {
-      for (int k = 0; k < m; ++k) {
+      for (int k = 0; any && k < m; ++k) {
         if (__all_sync(CW_FULL_MASK, cb_all(done))) break;
         float rc[7], col[C], pw[P], e[P];
         if (!cb_slot<C, P>(s, k, warp, rc, col)) continue;  // warp-uniform: none can take it
-        cb_power(rc, fx, fy, pw, e);
+        Power::template eval<P>(rc, fx, fy, pw, e);
         float a[S];
 #pragma unroll
         for (int i = 0; i < S; ++i) a[i] = 0.0f;
@@ -483,31 +522,20 @@ __device__ __forceinline__ void coeff_walk_bwd_px(const float* __restrict__ vb, 
 #pragma unroll
           for (int i = 0; i < NV; ++i) fold += d[i];
         } else {
-          // the transpose of the coefficients (_coeffs_transpose)
-          const float x = s.geo[0][t], y = s.geo[1][t];
-          const float A = s.geo[2][t], B = s.geo[3][t], Cc = s.geo[4][t];
-          float* o = out + t * CR;
-          o[0] = -d[0] * (A * x + B * y) + d[1] * A + d[2] * B;
-          o[1] = -d[0] * (Cc * y + B * x) + d[1] * B + d[2] * Cc;
-          o[2] = -0.5f * d[0] * x * x + d[1] * x - 0.5f * d[3];
-          o[3] = -d[0] * x * y + d[1] * y + d[2] * x - d[5];
-          o[4] = -0.5f * d[0] * y * y + d[2] * y - 0.5f * d[4];
-          o[5] = d[6];
-#pragma unroll
-          for (int c = 0; c < C; ++c) o[6 + c] = d[7 + c];
+          epi.row(t, d, s);
         }
       }
     }
     if constexpr (STAGE == 4) {
       __syncthreads();
-      cb_store<cb_threads<P>>(tdrec + (long long)base * CR, out, m * CR, vec, t);
+      epi.store(base, m, t);
     }
     written = base + m;
     if (__syncthreads_and(cb_all(done))) break;
   }
   if constexpr (STAGE == 4) {
-    cb_store<cb_threads<P>>(tdrec + (long long)written * CR, nullptr, (n - written) * CR, vec, t);
+    epi.zeros(written, n, t);
   } else {
-    if (t < n * CR) tdrec[t] = fold;
+    epi.fold(t, n, fold);
   }
 }

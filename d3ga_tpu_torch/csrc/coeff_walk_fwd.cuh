@@ -108,10 +108,22 @@ __device__ __forceinline__ void cf_power(const float (&rc)[7], float fx, const f
   }
 }
 
+// cf_power as coeff_walk_bwd_px's power policy: K8's backward takes the
+// pairs its forward takes.
+struct CfPower {
+  template <int P>
+  __device__ __forceinline__ static void eval(const float (&rc)[7], float fx, const float (&fy)[P],
+                                              float (&pw)[P], float (&e)[P]) {
+    cf_power<P>(rc, fx, fy, pw, e);
+  }
+};
+
 // Forward of one tile's n slots by the calling block of cb_threads<P>
 // threads: thread t's pixels cb_pixel<P>(t, j) get their colours acc[j]
-// and T_bg T[j]. stage(base, m, r, s) is called by one thread for each
-// r < m to write slot base + r's row (and its band word) into s.rec[r].
+// and T_bg T[j]. stage.template rows<false>(base, m, r, s) is called by
+// one thread for each r < m to write slot base + r's row (and its band
+// word) into s.rec[r]: the staging functors serve this walk and
+// coeff_walk_bwd.cuh's.
 template <int C, int P, int R, int STAGE = 2, class Stage>
 __device__ __forceinline__ void coeff_walk_fwd_px(int n, const Stage& stage, CfShared<P>& s,
                                                   float (&acc)[P][C], float (&T)[P]) {
@@ -138,7 +150,7 @@ __device__ __forceinline__ void coeff_walk_fwd_px(int n, const Stage& stage, CfS
   for (int base = 0; base < n; base += CF_CHUNK) {
     const int m = min(CF_CHUNK, n - base);
     __syncthreads();  // the previous chunk has been read
-    for (int r = t; r < m; r += cb_threads<P>) stage(base, m, r, s);
+    for (int r = t; r < m; r += cb_threads<P>) stage.template rows<false>(base, m, r, s);
     __syncthreads();
     if constexpr (STAGE == 0) {
       if (t < m) fold += s.rec[t][0];

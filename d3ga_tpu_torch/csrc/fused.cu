@@ -285,15 +285,17 @@ fused_kernel_v1(const float* __restrict__ vals, const int* __restrict__ rects, i
 }
 
 // Stages slot base + r of the walk: candidate s_sel[base + r], by K9's
-// backward's staging (tile-local coefficients and the ellipse's bands).
+// backward's staging (tile-local coefficients and the ellipse's bands;
+// with GEO, the backward's walk 2, its geometry too).
 template <int C, int P>
 struct CandStage {
   const float* vb;
   const int* s_sel;
   float sx, sy;
   bool vec, cull;
-  __device__ __forceinline__ void operator()(int base, int m, int r, CfShared<P>& s) const {
-    cb_stage<C, P, false>(vb, vec, cull, s_sel, base, m, sx, sy, s, r);
+  template <bool GEO, class Sh>
+  __device__ __forceinline__ void rows(int base, int m, int r, Sh& s) const {
+    cb_stage<C, P, GEO>(vb, vec, cull, s_sel, base, m, sx, sy, s, r);
   }
 };
 
@@ -364,10 +366,47 @@ fused_bwd_kernel_v1(const float* __restrict__ vals, const int* __restrict__ rect
   });
 }
 
+// The backward's epilogue (coeff_walk_bwd_px's Epi): the transpose of the
+// coefficients (_coeffs_transpose) into the chunk's [m, 6 + C] rows of
+// (x, y, A, B, C, opacity, colours) cotangents in shared memory out, then
+// stored to the tile's rows tdrec [n, 6 + C] as one contiguous run (16-byte
+// stores with vec); a stage cut's value to the tile's first floats.
+template <int C, int P>
+struct CandGradRows {
+  static constexpr int CR = 6 + C;
+  float* tdrec;
+  float* out;
+  bool vec;
+  __device__ __forceinline__ void row(int t, const float (&d)[7 + C],
+                                      const CbShared<C, P>& s) const {
+    const float x = s.geo[0][t], y = s.geo[1][t];
+    const float A = s.geo[2][t], B = s.geo[3][t], Cc = s.geo[4][t];
+    float* o = out + t * CR;
+    o[0] = -d[0] * (A * x + B * y) + d[1] * A + d[2] * B;
+    o[1] = -d[0] * (Cc * y + B * x) + d[1] * B + d[2] * Cc;
+    o[2] = -0.5f * d[0] * x * x + d[1] * x - 0.5f * d[3];
+    o[3] = -d[0] * x * y + d[1] * y + d[2] * x - d[5];
+    o[4] = -0.5f * d[0] * y * y + d[2] * y - 0.5f * d[4];
+    o[5] = d[6];
+#pragma unroll
+    for (int c = 0; c < C; ++c) o[6 + c] = d[7 + c];
+  }
+  __device__ __forceinline__ void store(int base, int m, int t) const {
+    cb_store<cb_threads<P>>(tdrec + (long long)base * CR, out, m * CR, vec, t);
+  }
+  __device__ __forceinline__ void zeros(int from, int n, int t) const {
+    cb_store<cb_threads<P>>(tdrec + (long long)from * CR, nullptr, (n - from) * CR, vec, t);
+  }
+  __device__ __forceinline__ void fold(int t, int n, float v) const {
+    if (t < n * CR) tdrec[t] = v;
+  }
+};
+
 // The backward, kernel 1: the selection, then coeff_walk_bwd_px at P
-// pixels a thread (the header's design). vec: vals and drec 16-byte
-// aligned and K (6 + C) % 4 == 0; cull: the band cull on. Dynamic shared
-// memory: CB_CHUNK * (6 + C) floats of rows, then K lane ids.
+// pixels a thread (the header's design) with K9's staging, cb_power and
+// the transpose epilogue. vec: vals and drec 16-byte aligned and K (6 + C)
+// % 4 == 0; cull: the band cull on. Dynamic shared memory: CB_CHUNK * (6 +
+// C) floats of rows, then K lane ids.
 template <int C, int P = CB_P, int STAGE = 4>
 __global__ void __launch_bounds__(cb_threads<P>)
 fused_bwd_kernel(const float* __restrict__ vals, const int* __restrict__ rects,
@@ -393,9 +432,10 @@ fused_bwd_kernel(const float* __restrict__ vals, const int* __restrict__ rects,
     for (int c = 0; c < C; ++c) gc[j][c] = gp[c];
     g_tbg[j] = gp[C];
   }
-  coeff_walk_bwd_px<C, P, STAGE>(vals + (long long)b * kb * FB_NCH, vec != 0, cull != 0, s_sel, n,
-                                 (float)(tx * CW_TILE), (float)(ty * CW_TILE), gc, g_tbg,
-                                 drec + (long long)bt * K * (6 + C), out);
+  const CandStage<C, P> stage{vals + (long long)b * kb * FB_NCH, s_sel, (float)(tx * CW_TILE),
+                              (float)(ty * CW_TILE), vec != 0, cull != 0};
+  const CandGradRows<C, P> epi{drec + (long long)bt * K * (6 + C), out, vec != 0};
+  coeff_walk_bwd_px<C, P, STAGE, CbPower>(n, stage, gc, g_tbg, epi);
 }
 
 template <int C>

@@ -10,11 +10,18 @@ forward walks with `csrc/coeff_walk_fwd.cuh`, as K9's forward does: two
 pixels a thread, a band cull from the coefficients, batches of 8 listed
 slots, the tile's block written as 16-byte stores, its image its design
 before's to the bit. That design (one thread a pixel, `coeff_walk.cuh`'s
-walk, which the backward still uses) stays as `d3ga_blend_coeffs_v1`,
-reached only by `blend_tiles_coeffs_baseline`; `blend_tiles_coeffs_stage`
-launches one of the `FWD_DESIGNS` (the kernel with the cull off among
-them) or, at C = STAGE_C only, a cut at one of the `FWD_STAGES`, with
-their own counters (chip_smoke.py's comparisons only). Its inputs are
+walk) stays as `d3ga_blend_coeffs_v1`, reached only by
+`blend_tiles_coeffs_baseline`; `blend_tiles_coeffs_stage` launches one of
+the `FWD_DESIGNS` (the kernel with the cull off among them) or, at C =
+STAGE_C only, a cut at one of the `FWD_STAGES`, with their own counters
+(chip_smoke.py's comparisons only). The backward walks with
+`csrc/coeff_walk_bwd.cuh`, as K9's backward does (two pixels a thread,
+the forward's band cull and power, per-slot sums by a warp
+reduce-scatter), and writes its three outputs as 16-byte stores; its
+design before stays as `d3ga_blend_coeffs_bwd_v1`
+(`blend_tiles_coeffs_bwd_baseline`), and `blend_tiles_coeffs_bwd_stage`
+launches one of the `BWD_DESIGNS` or, at C = STAGE_C only, a cut at one
+of the `BWD_STAGES`, with their own counters. Its inputs are
 per-tile gathered slots: coeffs [T, K, 8] from `falloff_coeffs` (six
 used, two padding), colors [T, K, C], opacs [T, 1, K] (0 for dead
 slots); it returns [T, 256, C+1], pixel p = dy * 16 + dx, T_bg last (the
@@ -73,6 +80,16 @@ STAGE_C = 6
 # stage) cut (chip_smoke.py's comparisons only)
 baseline_launches = 0
 stage_launches = {(d, s): 0 for d in FWD_DESIGNS for s in range(len(FWD_STAGES))}
+# the backward's stage cuts (csrc/coeff_walk_bwd.cuh); stage 4 is the kernel
+BWD_STAGES = ("staging", "walk 1", "walk 2 per pixel", "per-slot sums", "stores")
+# the designs the backward's stage entry point launches: the kernel and the
+# kernel with the band cull off; the cuts before stage 4 are built for
+# C = STAGE_C only
+BWD_DESIGNS = {"kernel": 1, "kernel_no_cull": 2}
+# one per launch of the backward's baseline design and of each (design,
+# stage) cut (chip_smoke.py's comparisons only)
+bwd_baseline_launches = 0
+bwd_stage_launches = {(d, s): 0 for d in BWD_DESIGNS for s in range(len(BWD_STAGES))}
 
 
 def falloff_coeffs(xy_local, conic):
@@ -199,9 +216,11 @@ def _kernels():
     lib = cuda_build.load("blend_coeffs")
     p, i = ctypes.c_void_p, ctypes.c_int
     fwd = [p, p, p, i, i, i, p]
+    bwd = [p, p, p, p, i, i, i, p, p, p]
     for name, args in (("d3ga_blend_coeffs", fwd + [p]), ("d3ga_blend_coeffs_v1", fwd + [p]),
                        ("d3ga_blend_coeffs_stage", fwd + [i, i, p]),
-                       ("d3ga_blend_coeffs_bwd", [p, p, p, p, i, i, i, p, p, p, p])):
+                       ("d3ga_blend_coeffs_bwd", bwd + [p]), ("d3ga_blend_coeffs_bwd_v1", bwd + [p]),
+                       ("d3ga_blend_coeffs_bwd_stage", bwd + [i, i, p])):
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = ctypes.c_int
@@ -229,44 +248,57 @@ def _check(name, coeffs, colors, opacs):
 
 def _launch_fwd(coeffs, colors, opacs, name, entry, extra=()):
     """Checks, allocates the output and launches the forward entry point
-    `entry` of csrc/blend_coeffs.cu (with `extra` int arguments); the
-    caller counts the launch."""
+    `entry` of csrc/blend_coeffs.cu (with `extra` int arguments): (out,
+    1 if it launched the kernel else 0), the caller adding the latter to
+    its count."""
     T, K, C = _check(name, coeffs, colors, opacs)
     out = torch.empty((T, NPIX, C + 1), dtype=torch.float32, device=coeffs.device)
     if T == 0:
-        return out
+        return out, 0
     err = getattr(_kernels(), entry)(coeffs.data_ptr(), colors.data_ptr(), opacs.data_ptr(), T,
                                      K, C, out.data_ptr(), *extra,
                                      cuda_build.stream_handle(coeffs.device))
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed (error {err})")
-    return out
+    return out, 1
 
 
 def _launch(coeffs, colors, opacs):
     global launches
-    out = _launch_fwd(coeffs, colors, opacs, "blend_tiles_pallas", "d3ga_blend_coeffs")
-    launches += 1
+    out, n = _launch_fwd(coeffs, colors, opacs, "blend_tiles_pallas", "d3ga_blend_coeffs")
+    launches += n
     return out
+
+
+def _launch_bwd_entry(coeffs, colors, opacs, g, name, entry, extra=(), zero=False):
+    """Checks, allocates the three cotangents (zeroed with `zero`) and
+    launches the backward entry point `entry` of csrc/blend_coeffs.cu
+    (with `extra` int arguments): (grads, 1 if it launched the kernel
+    else 0), the caller adding the latter to its count."""
+    T, K, C = _check(name, coeffs, colors, opacs)
+    if g.dtype != torch.float32 or tuple(g.shape) != (T, NPIX, C + 1) or not g.is_contiguous():
+        raise ValueError(f"{name}: cotangent {g.dtype} {tuple(g.shape)}")
+    if g.device != coeffs.device:
+        raise ValueError(f"{name}: cotangent on another device")
+    dco, dcol, dop = ((torch.zeros_like if zero else torch.empty_like)(t)
+                      for t in (coeffs, colors, opacs))
+    if T == 0 or K == 0:
+        return (dco, dcol, dop), 0
+    err = getattr(_kernels(), entry)(
+        coeffs.data_ptr(), colors.data_ptr(), opacs.data_ptr(), g.data_ptr(), T, K, C,
+        dco.data_ptr(), dcol.data_ptr(), dop.data_ptr(), *extra,
+        cuda_build.stream_handle(coeffs.device))
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed (error {err})")
+    return (dco, dcol, dop), 1
 
 
 def _launch_bwd(coeffs, colors, opacs, g):
     global bwd_launches
-    T, K, C = _check("blend_tiles_pallas_bwd", coeffs, colors, opacs)
-    if g.dtype != torch.float32 or tuple(g.shape) != (T, NPIX, C + 1) or not g.is_contiguous():
-        raise ValueError(f"blend_tiles_pallas_bwd: cotangent {g.dtype} {tuple(g.shape)}")
-    if g.device != coeffs.device:
-        raise ValueError("blend_tiles_pallas_bwd: cotangent on another device")
-    dco, dcol, dop = (torch.empty_like(t) for t in (coeffs, colors, opacs))
-    if T == 0 or K == 0:
-        return dco, dcol, dop
-    err = _kernels().d3ga_blend_coeffs_bwd(
-        coeffs.data_ptr(), colors.data_ptr(), opacs.data_ptr(), g.data_ptr(), T, K, C,
-        dco.data_ptr(), dcol.data_ptr(), dop.data_ptr(), cuda_build.stream_handle(coeffs.device))
-    if err != 0:
-        raise RuntimeError(f"blend_tiles_pallas_bwd: kernel launch failed (error {err})")
-    bwd_launches += 1
-    return dco, dcol, dop
+    grads, n = _launch_bwd_entry(coeffs, colors, opacs, g, "blend_tiles_pallas_bwd",
+                                 "d3ga_blend_coeffs_bwd")
+    bwd_launches += n
+    return grads
 
 
 def blend_tiles_coeffs(coeffs, colors, opacs):
@@ -301,9 +333,9 @@ def blend_tiles_coeffs_baseline(coeffs, colors, opacs):
     `blend_tiles_coeffs`' kernel."""
     global baseline_launches
     _card_only("blend_tiles_coeffs_baseline", coeffs)
-    out = _launch_fwd(coeffs, colors, opacs, "blend_tiles_coeffs_baseline",
-                      "d3ga_blend_coeffs_v1")
-    baseline_launches += 1
+    out, n = _launch_fwd(coeffs, colors, opacs, "blend_tiles_coeffs_baseline",
+                         "d3ga_blend_coeffs_v1")
+    baseline_launches += n
     return out
 
 
@@ -324,10 +356,48 @@ def blend_tiles_coeffs_stage(coeffs, colors, opacs, stage, design="kernel"):
         raise ValueError(f"blend_tiles_coeffs_stage: stage {stage} of {design} is built for "
                          f"C = {STAGE_C} only, not {C}")
     _card_only("blend_tiles_coeffs_stage", coeffs)
-    out = _launch_fwd(coeffs, colors, opacs, "blend_tiles_coeffs_stage",
-                      "d3ga_blend_coeffs_stage", (FWD_DESIGNS[design], stage))
-    stage_launches[design, stage] += 1
+    out, n = _launch_fwd(coeffs, colors, opacs, "blend_tiles_coeffs_stage",
+                         "d3ga_blend_coeffs_stage", (FWD_DESIGNS[design], stage))
+    stage_launches[design, stage] += n
     return out
+
+
+def blend_tiles_coeffs_bwd_baseline(coeffs, colors, opacs, g):
+    """K8's backward in its design before (`d3ga_blend_coeffs_bwd_v1`: one
+    thread a pixel, coeff_walk.cuh's walk, each slot's row stored by one
+    thread) on CUDA tensors: the tolerance reference and the timing
+    baseline of `blend_tiles_coeffs_bwd`' kernel."""
+    global bwd_baseline_launches
+    _card_only("blend_tiles_coeffs_bwd_baseline", coeffs)
+    grads, n = _launch_bwd_entry(coeffs, colors, opacs, g.contiguous(),
+                                 "blend_tiles_coeffs_bwd_baseline", "d3ga_blend_coeffs_bwd_v1")
+    bwd_baseline_launches += n
+    return grads
+
+
+def blend_tiles_coeffs_bwd_stage(coeffs, colors, opacs, g, stage, design="kernel"):
+    """One of BWD_DESIGNS ("kernel": K8's backward; "kernel_no_cull": the
+    same with the band cull off, the same bits) cut after `stage` of
+    BWD_STAGES, on CUDA tensors: (dcoeffs, dcolors, dopacs) of what the cut
+    computed (stage 4 is the whole backward; a cut before it writes one
+    value a thread into the tile's first dcoeffs floats, the outputs zeroed
+    first). Only "kernel" is cut before stage 4; those cuts take
+    C = STAGE_C only."""
+    whole = len(BWD_STAGES) - 1
+    C = colors.shape[-1]
+    if stage not in range(len(BWD_STAGES)) or design not in BWD_DESIGNS:
+        raise ValueError(f"blend_tiles_coeffs_bwd_stage: stage {stage} of design {design!r}")
+    if design != "kernel" and stage != whole:
+        raise ValueError(f"blend_tiles_coeffs_bwd_stage: {design} runs whole (stage {whole}) only")
+    if stage != whole and C != STAGE_C:
+        raise ValueError(f"blend_tiles_coeffs_bwd_stage: stage {stage} of {design} is built for "
+                         f"C = {STAGE_C} only, not {C}")
+    _card_only("blend_tiles_coeffs_bwd_stage", coeffs)
+    grads, n = _launch_bwd_entry(coeffs, colors, opacs, g.contiguous(),
+                                 "blend_tiles_coeffs_bwd_stage", "d3ga_blend_coeffs_bwd_stage",
+                                 (BWD_DESIGNS[design], stage), zero=stage != whole)
+    bwd_stage_launches[design, stage] += n
+    return grads
 
 
 class _BlendTilesCoeffs(torch.autograd.Function):

@@ -299,35 +299,37 @@ def _check(name, records_ext, idx, counts, ntx, nty, C):
 def _launch_fwd(records_ext, idx, counts, ntx, nty, C, name="blend_gather_ct",
                 entry="d3ga_blend_gather_ct", extra=()):
     """Checks, allocates the planar image and launches the K2 entry point
-    `entry` of csrc/blend_ct.cu (with `extra` arguments); the caller
-    counts the launch."""
+    `entry` of csrc/blend_ct.cu (with `extra` arguments): (out, 1 if it
+    launched the kernel else 0), the caller adding the latter to its
+    count."""
     _check(name, records_ext, idx, counts, ntx, nty, C)
     n_ext, CR = records_ext.shape
     T, K = idx.shape
     out = torch.empty((C + 1, nty * TILE, ntx * TILE), dtype=torch.float32,
                       device=records_ext.device)
     if T == 0:
-        return out
+        return out, 0
     err = getattr(_lib(), entry)(
         records_ext.data_ptr(), n_ext, CR, idx.data_ptr(), K, counts.data_ptr(), ntx, nty, C,
         out.data_ptr(), *extra, cuda_build.stream_handle(records_ext.device))
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed (error {err})")
-    return out
+    return out, 1
 
 
 def _launch(records_ext, idx, counts, ntx, nty, C):
     global launches
-    out = _launch_fwd(records_ext, idx, counts, ntx, nty, C)
-    launches += 1
+    out, n = _launch_fwd(records_ext, idx, counts, ntx, nty, C)
+    launches += n
     return out
 
 
 def _launch_bwd(records_ext, idx, counts, g, ntx, nty, C, name="blend_gather_ct_bwd",
                 entry="d3ga_blend_gather_ct_bwd", extra=()):
     """Checks, allocates drec [T, K, CR] and launches the K3 entry point
-    `entry` of csrc/blend_ct_bwd.cu (with `extra` int arguments); the
-    caller counts the launch."""
+    `entry` of csrc/blend_ct_bwd.cu (with `extra` int arguments): (drec,
+    1 if it launched the kernel else 0), the caller adding the latter to
+    its count."""
     _check(name, records_ext, idx, counts, ntx, nty, C)
     if g.dtype != torch.float32 or tuple(g.shape) != (C + 1, nty * TILE, ntx * TILE):
         raise ValueError(f"{name}: cotangent {g.dtype} {tuple(g.shape)}")
@@ -337,19 +339,19 @@ def _launch_bwd(records_ext, idx, counts, g, ntx, nty, C, name="blend_gather_ct_
     T, K = idx.shape
     drec = torch.empty((T, K, CR), dtype=torch.float32, device=records_ext.device)
     if T == 0:
-        return drec
+        return drec, 0
     err = getattr(_bwd_lib(), entry)(
         records_ext.data_ptr(), n_ext, CR, idx.data_ptr(), K, counts.data_ptr(), ntx, nty, C,
         g.data_ptr(), drec.data_ptr(), *extra, cuda_build.stream_handle(records_ext.device))
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed (error {err})")
-    return drec
+    return drec, 1
 
 
 def _launch_k3(records_ext, idx, counts, g, ntx, nty, C):
     global bwd_launches
-    drec = _launch_bwd(records_ext, idx, counts, g, ntx, nty, C)
-    bwd_launches += 1
+    drec, n = _launch_bwd(records_ext, idx, counts, g, ntx, nty, C)
+    bwd_launches += n
     return drec
 
 
@@ -375,9 +377,9 @@ def blend_gather_ct_baseline(records_ext, idx, counts, ntx, nty, C):
     timing baseline of `blend_gather_ct`'s kernel."""
     global fwd_baseline_launches
     _card_only("blend_gather_ct_baseline", records_ext)
-    out = _launch_fwd(records_ext, idx, counts, ntx, nty, C, "blend_gather_ct_baseline",
-                      "d3ga_blend_gather_ct_v1")
-    fwd_baseline_launches += 1
+    out, n = _launch_fwd(records_ext, idx, counts, ntx, nty, C, "blend_gather_ct_baseline",
+                         "d3ga_blend_gather_ct_v1")
+    fwd_baseline_launches += n
     return out
 
 
@@ -402,10 +404,10 @@ def blend_gather_ct_stage(records_ext, idx, counts, ntx, nty, C, stage, design="
     # to the timed calls of the others
     diag = (torch.zeros((idx.shape[0], 3), dtype=torch.int64, device=records_ext.device)
             if design in FWD_DIAG else None)
-    out = _launch_fwd(records_ext, idx, counts, ntx, nty, C, "blend_gather_ct_stage",
-                      "d3ga_blend_gather_ct_stage",
-                      (FWD_DESIGNS[design], stage, None if diag is None else diag.data_ptr()))
-    fwd_stage_launches[design, stage] += 1
+    out, n = _launch_fwd(records_ext, idx, counts, ntx, nty, C, "blend_gather_ct_stage",
+                         "d3ga_blend_gather_ct_stage",
+                         (FWD_DESIGNS[design], stage, None if diag is None else diag.data_ptr()))
+    fwd_stage_launches[design, stage] += n
     return out if diag is None else (out, diag)
 
 
@@ -415,9 +417,9 @@ def blend_gather_ct_bwd_baseline(records_ext, idx, counts, g, ntx, nty, C):
     `blend_gather_ct_bwd`."""
     global baseline_launches
     _card_only("blend_gather_ct_bwd_baseline", records_ext)
-    drec = _launch_bwd(records_ext, idx, counts, g.contiguous(), ntx, nty, C,
-                       "blend_gather_ct_bwd_baseline", "d3ga_blend_gather_ct_bwd_v1")
-    baseline_launches += 1
+    drec, n = _launch_bwd(records_ext, idx, counts, g.contiguous(), ntx, nty, C,
+                          "blend_gather_ct_bwd_baseline", "d3ga_blend_gather_ct_bwd_v1")
+    baseline_launches += n
     return drec
 
 
@@ -437,10 +439,10 @@ def blend_gather_ct_bwd_stage(records_ext, idx, counts, g, ntx, nty, C, stage, d
         raise ValueError(f"blend_gather_ct_bwd_stage: stage {stage} of {design} is built for "
                          f"C = {STAGE_C} only, not {C}")
     _card_only("blend_gather_ct_bwd_stage", records_ext)
-    drec = _launch_bwd(records_ext, idx, counts, g.contiguous(), ntx, nty, C,
-                       "blend_gather_ct_bwd_stage", "d3ga_blend_gather_ct_bwd_stage",
-                       (DESIGNS[design], stage))
-    stage_launches[design, stage] += 1
+    drec, n = _launch_bwd(records_ext, idx, counts, g.contiguous(), ntx, nty, C,
+                          "blend_gather_ct_bwd_stage", "d3ga_blend_gather_ct_bwd_stage",
+                          (DESIGNS[design], stage))
+    stage_launches[design, stage] += n
     return drec
 
 

@@ -146,26 +146,27 @@ def _check(name, records_ext, idx, counts, tile_offset, ntx, C):
 def _launch_fwd(records_ext, idx, counts, tile_offset, ntx, C, name="blend_gather_rec",
                 entry="d3ga_blend_gather_rec"):
     """Launch K5's forward (or, by `entry`, its baseline design) into a
-    new 16-byte-aligned [T_loc, 256, C+1]; the caller counts the launch."""
+    new 16-byte-aligned [T_loc, 256, C+1]: (out, 1 if it launched the
+    kernel else 0), the caller adding the latter to its count."""
     _check(name, records_ext, idx, counts, tile_offset, ntx, C)
     n_ext, CR = records_ext.shape
     T, K = idx.shape
     out = torch.empty((T, NPIX, C + 1), dtype=torch.float32, device=records_ext.device)
     if T == 0:
-        return out
+        return out, 0
     err = getattr(_lib(), entry)(
         records_ext.data_ptr(), n_ext, CR, idx.data_ptr(), T, K, counts.data_ptr(),
         int(tile_offset), ntx, C, out.data_ptr(), cuda_build.stream_handle(records_ext.device),
     )
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed (error {err})")
-    return out
+    return out, 1
 
 
 def _launch(records_ext, idx, counts, tile_offset, ntx, C):
     global launches
-    out = _launch_fwd(records_ext, idx, counts, tile_offset, ntx, C)
-    launches += 1
+    out, n = _launch_fwd(records_ext, idx, counts, tile_offset, ntx, C)
+    launches += n
     return out
 
 
@@ -175,16 +176,17 @@ def blend_gather_rec_baseline(records_ext, idx, counts, tile_offset, ntx, C):
     timing `blend_gather_rec`'s kernel against it."""
     global fwd_baseline_launches
     _card_only("blend_gather_rec_baseline", records_ext)
-    out = _launch_fwd(records_ext, idx, counts, tile_offset, ntx, C, "blend_gather_rec_baseline",
-                      "d3ga_blend_gather_rec_v1")
-    fwd_baseline_launches += 1
+    out, n = _launch_fwd(records_ext, idx, counts, tile_offset, ntx, C,
+                         "blend_gather_rec_baseline", "d3ga_blend_gather_rec_v1")
+    fwd_baseline_launches += n
     return out
 
 
 def _launch_bwd(records_ext, idx, counts, tile_offset, g, ntx, C,
                 name="blend_gather_rec_bwd", entry="d3ga_blend_gather_rec_bwd"):
-    """Launch K5's backward (or, by `entry`, its baseline design); the
-    caller counts the launch."""
+    """Launch K5's backward (or, by `entry`, its baseline design): (drec,
+    1 if it launched the kernel else 0), the caller adding the latter to
+    its count."""
     _check(name, records_ext, idx, counts, tile_offset, ntx, C)
     T, K = idx.shape
     if g.dtype != torch.float32 or tuple(g.shape) != (T, NPIX, C + 1):
@@ -194,7 +196,7 @@ def _launch_bwd(records_ext, idx, counts, tile_offset, g, ntx, C,
     n_ext, CR = records_ext.shape
     drec = torch.empty((T, K, CR), dtype=torch.float32, device=records_ext.device)
     if T == 0:
-        return drec
+        return drec, 0
     err = getattr(_lib(), entry)(
         records_ext.data_ptr(), n_ext, CR, idx.data_ptr(), T, K, counts.data_ptr(),
         int(tile_offset), ntx, C, g.data_ptr(), drec.data_ptr(),
@@ -202,13 +204,13 @@ def _launch_bwd(records_ext, idx, counts, tile_offset, g, ntx, C,
     )
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed (error {err})")
-    return drec
+    return drec, 1
 
 
 def _launch_k5_bwd(records_ext, idx, counts, tile_offset, g, ntx, C):
     global bwd_launches
-    drec = _launch_bwd(records_ext, idx, counts, tile_offset, g, ntx, C)
-    bwd_launches += 1
+    drec, n = _launch_bwd(records_ext, idx, counts, tile_offset, g, ntx, C)
+    bwd_launches += n
     return drec
 
 
@@ -229,9 +231,9 @@ def blend_gather_rec_bwd_baseline(records_ext, idx, counts, tile_offset, g, ntx,
     against `blend_gather_rec_bwd`."""
     global bwd_baseline_launches
     _card_only("blend_gather_rec_bwd_baseline", records_ext)
-    drec = _launch_bwd(records_ext, idx, counts, tile_offset, g.contiguous(), ntx, C,
-                       "blend_gather_rec_bwd_baseline", "d3ga_blend_gather_rec_bwd_v1")
-    bwd_baseline_launches += 1
+    drec, n = _launch_bwd(records_ext, idx, counts, tile_offset, g.contiguous(), ntx, C,
+                          "blend_gather_rec_bwd_baseline", "d3ga_blend_gather_rec_bwd_v1")
+    bwd_baseline_launches += n
     return drec
 
 

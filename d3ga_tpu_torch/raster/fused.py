@@ -245,7 +245,12 @@ def select_blend_bwd_plain(vals, rects, g, K, C, block_chunk=BLOCK_CHUNK):
 
 @functools.lru_cache(maxsize=None)
 def _kernels():
-    lib = cuda_build.load("fused")
+    return bind(cuda_build.load("fused"))
+
+
+def bind(lib):
+    """Declares the entry points' C signatures on `lib`, a loaded build
+    of csrc/fused.cu; returns it."""
     p, i = ctypes.c_void_p, ctypes.c_int
     fwd_args = [p, p, i, i, i, i, p, p]
     bwd_args = [p, p, p, i, i, i, i, p, p, p, p]
@@ -279,26 +284,27 @@ def _check(name, vals, rects, K, C):
 
 def _launch_fwd(vals, rects, K, C, name, entry, extra=()):
     """Checks, allocates the tiles and counts and launches the forward
-    entry point `entry` of csrc/fused.cu (with `extra` int arguments); the
-    caller counts the launch."""
+    entry point `entry` of csrc/fused.cu (with `extra` int arguments):
+    ((tiles, counts), 1 if it launched the kernel else 0), the caller
+    adding the latter to its count."""
     NB, kb = _check(name, vals, rects, K, C)
     dev = vals.device
     tiles = torch.empty((NB, TB, NPIX, C + 1), dtype=torch.float32, device=dev)
     counts = torch.empty((NB, TB), dtype=torch.int32, device=dev)
     if NB == 0:
-        return tiles, counts
+        return (tiles, counts), 0
     err = getattr(_kernels(), entry)(vals.data_ptr(), rects.data_ptr(), NB, kb, K, C,
                                      tiles.data_ptr(), counts.data_ptr(), *extra,
                                      cuda_build.stream_handle(dev))
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed (error {err})")
-    return tiles, counts
+    return (tiles, counts), 1
 
 
 def _launch(vals, rects, K, C):
     global launches
-    out = _launch_fwd(vals, rects, K, C, "select_blend", "d3ga_fused")
-    launches += 1
+    out, n = _launch_fwd(vals, rects, K, C, "select_blend", "d3ga_fused")
+    launches += n
     return out
 
 
@@ -306,8 +312,8 @@ def _launch_bwd(vals, rects, g, K, C, name="select_blend_bwd", entry="d3ga_fused
                 extra=(), zero=False):
     """Checks, allocates d(vals) and the per-tile kernel's scratch (zeroed
     with `zero`), and launches the backward entry point `entry` of
-    csrc/fused.cu (with `extra` int arguments); the caller counts the
-    launch."""
+    csrc/fused.cu (with `extra` int arguments): (dvals, 1 if it launched
+    the kernels else 0), the caller adding the latter to its count."""
     NB, kb = _check(name, vals, rects, K, C)
     dev = vals.device
     if (g.dtype != torch.float32 or tuple(g.shape) != (NB, TB, NPIX, C + 1)
@@ -315,7 +321,7 @@ def _launch_bwd(vals, rects, g, K, C, name="select_blend_bwd", entry="d3ga_fused
         raise ValueError(f"{name}: cotangent {g.dtype} {tuple(g.shape)} on {g.device}")
     dvals = torch.empty_like(vals)
     if NB == 0:
-        return dvals
+        return dvals, 0
     # the per-tile kernel's slot rows, lane ids and live-slot counts
     drec = (torch.zeros if zero else torch.empty)((NB * TB, K, 6 + C), dtype=torch.float32,
                                                   device=dev)
@@ -326,13 +332,13 @@ def _launch_bwd(vals, rects, g, K, C, name="select_blend_bwd", entry="d3ga_fused
         sel.data_ptr(), live.data_ptr(), dvals.data_ptr(), *extra, cuda_build.stream_handle(dev))
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed (error {err})")
-    return dvals
+    return dvals, 1
 
 
 def _launch_k9_bwd(vals, rects, g, K, C):
     global bwd_launches
-    dvals = _launch_bwd(vals, rects, g, K, C)
-    bwd_launches += 1
+    dvals, n = _launch_bwd(vals, rects, g, K, C)
+    bwd_launches += n
     return dvals
 
 
@@ -363,8 +369,8 @@ def select_blend_baseline(vals, rects, K, C):
     kernel. (tiles, counts)."""
     global fwd_baseline_launches
     _card_only("select_blend_baseline", vals)
-    out = _launch_fwd(vals, rects, K, C, "select_blend_baseline", "d3ga_fused_v1")
-    fwd_baseline_launches += 1
+    out, n = _launch_fwd(vals, rects, K, C, "select_blend_baseline", "d3ga_fused_v1")
+    fwd_baseline_launches += n
     return out
 
 
@@ -384,9 +390,9 @@ def select_blend_stage(vals, rects, K, C, stage, design="kernel"):
         raise ValueError(f"select_blend_stage: stage {stage} of {design} is built for "
                          f"C = {STAGE_C} only, not {C}")
     _card_only("select_blend_stage", vals)
-    out = _launch_fwd(vals, rects, K, C, "select_blend_stage", "d3ga_fused_fwd_stage",
-                      (FWD_DESIGNS[design], stage))
-    fwd_stage_launches[design, stage] += 1
+    out, n = _launch_fwd(vals, rects, K, C, "select_blend_stage", "d3ga_fused_fwd_stage",
+                         (FWD_DESIGNS[design], stage))
+    fwd_stage_launches[design, stage] += n
     return out
 
 
@@ -396,9 +402,9 @@ def select_blend_bwd_baseline(vals, rects, g, K, C):
     CUDA tensors, for timing against `select_blend_bwd`."""
     global baseline_launches
     _card_only("select_blend_bwd_baseline", vals)
-    dvals = _launch_bwd(vals, rects, g.contiguous(), K, C, "select_blend_bwd_baseline",
-                        "d3ga_fused_bwd_v1")
-    baseline_launches += 1
+    dvals, n = _launch_bwd(vals, rects, g.contiguous(), K, C, "select_blend_bwd_baseline",
+                           "d3ga_fused_bwd_v1")
+    baseline_launches += n
     return dvals
 
 
@@ -420,10 +426,10 @@ def select_blend_bwd_stage(vals, rects, g, K, C, stage, design="kernel"):
         raise ValueError(f"select_blend_bwd_stage: stage {stage} of {design} is built for "
                          f"C = {STAGE_C} only, not {C}")
     _card_only("select_blend_bwd_stage", vals)
-    dvals = _launch_bwd(vals, rects, g.contiguous(), K, C, "select_blend_bwd_stage",
-                        "d3ga_fused_bwd_stage", (BWD_DESIGNS[design], stage),
-                        zero=stage != whole)
-    stage_launches[design, stage] += 1
+    dvals, n = _launch_bwd(vals, rects, g.contiguous(), K, C, "select_blend_bwd_stage",
+                           "d3ga_fused_bwd_stage", (BWD_DESIGNS[design], stage),
+                           zero=stage != whole)
+    stage_launches[design, stage] += n
     return dvals
 
 
