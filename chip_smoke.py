@@ -51,7 +51,14 @@ at C 6 to their walks at 1, 2 and 4 slots a batch; at full width too
 (frame 0 and the stage bench's shapes), K8 on frame 0's K9 tile inputs
 within the image tolerances of K9's tiles; both are timed in turns
 against their baselines with the batch sizes beside them, cut at three
-stages, with ptxas' registers. K5's and K7's backwards, which walk with K3's walk, are
+stages, with ptxas' registers. K9's route (the backward's second
+kernel, the per-lane sum of the slots' rows) is held bit-equal to its
+design before, to its plain version, across launches and at 2, 4, 8, 16
+and 32 threads a lane on its own edge inputs (`route_edge_cases`), on kernel
+1's scratch of every `k9_edge_cases` case and at frame 0, and timed alone
+in turns by CUDA events behind a spin against its design before and the
+plain path's `scatter_add_`. K5's and K7's backwards, which walk with
+K3's walk, are
 held bit-equal to K3's drec given K3's cotangent in their layouts, on
 K3's edge inputs (`check_rec_bwd_edges`), at K5's four tile offsets and
 at full width, within K3's tolerances of their plain versions and their
@@ -96,15 +103,16 @@ Gaussians, 1024 x 667 pixels, random weights from seed 0):
   threshold (`ON_THRESHOLD_FIXTURE`, a report); the probes' own runs
   (`d3ga_tpu_torch/probes/`: P1's 15 matmul cases on one CTA and on one
   CTA per SM, its 4 roll cases, P2's passthroughs and gathers, P3's
-  stages on frame 0's K9 inputs and K9's backward's two kernels apart),
-  one JSON line each; P1 and P2 timed in turns against their designs
-  before;
+  stages (cuts of K9's forward) on frame 0's K9 inputs and K9's
+  backward's two kernels apart), one JSON line each; P1, P2 and P3 timed
+  in turns against their designs before;
 
 and checks that the kernels carried every frame, step, call and probe.
 
     python3 chip_smoke.py
 
-Prints the card (nvidia-smi name, power limit), the checks, timings, a
+Prints the card (nvidia-smi name, power limit), the checks, timings (a
+profile that recorded fewer calls than it ran on a line of its own), a
 `{"kernels": [...]}` JSON line and, last, `{"ok": true, "device": ...}`.
 Details go to run_out/chip_smoke.json. Exits non-zero, before any
 result line, without a CUDA device or on any failed phase; a failure is
@@ -335,35 +343,38 @@ def sync(dev):
         torch.cuda.synchronize()
 
 
-def in_turns(fns, iters, dev, kernel=None):
+def in_turns(fns, iters, dev, kernel=None, profiler=True):
     """Each of `fns` ({name: fn}) timed twice, in turns: the names in order,
     then in reverse (old, new, new, old), each turn by `probes.device_ms`
     (device ms a call, torch.profiler; with `kernel`, only the launches of
-    the kernels whose name holds it) and `probes.queued_ms` (CUDA events
-    around calls queued behind a spin: every launch of the call). Returns
-    {name: {"device_ms": [two turns], "queued_ms": [two turns], "ms": the
-    mean of the device turns recorded, else of the queued ones}}."""
-    out = {k: {"device_ms": [], "queued_ms": []} for k in fns}
+    the kernels whose name holds it; not with profiler=False) and
+    `probes.queued_ms` (CUDA events around calls queued behind a spin:
+    every launch of the call). Returns {name: {"device_ms": [two turns]
+    (with the profiler), "queued_ms": [two turns], "ms": the mean of the
+    device turns recorded, else of the queued ones}}."""
+    out = {k: {"device_ms": [], "queued_ms": []} if profiler else {"queued_ms": []} for k in fns}
     for k in list(fns) + list(reversed(fns)):
-        if kernel is None:
+        if profiler and kernel is None:
             out[k]["device_ms"].append(device_ms(fns[k], iters, dev))
-        else:
+        elif profiler:
             d = probes.device_ms(fns[k], iters, dev, (kernel,))
             out[k]["device_ms"].append(None if d is None else d[kernel]["ms"])
         out[k]["queued_ms"].append(probes.queued_ms(fns[k], iters, dev))
     for v in out.values():
-        got = [t for t in v["device_ms"] if t is not None] or [
+        got = [t for t in v.get("device_ms", []) if t is not None] or [
             t for t in v["queued_ms"] if t is not None]
         v["ms"] = float(np.mean(got)) if got else None
     return out
 
 
 def turns_summary(turns):
+    def ms(ts):
+        return "/".join("-" if t is None else f"{t:.5f}" for t in ts)
+
     return "; ".join(
-        f"{k} {v['ms']:.5f} ms (device " + "/".join("-" if t is None else f"{t:.5f}"
-                                                     for t in v["device_ms"])
-        + ", queued " + "/".join("-" if t is None else f"{t:.5f}" for t in v["queued_ms"]) + ")"
-        for k, v in turns.items())
+        f"{k} " + ("-" if v["ms"] is None else f"{v['ms']:.5f}") + " ms ("
+        + ", ".join(f"{w} {ms(v[w + '_ms'])}" for w in ("device", "queued") if w + "_ms" in v)
+        + ")" for k, v in turns.items())
 
 
 def folded_launches(callers):
@@ -1069,6 +1080,154 @@ def check_k9_edges(dev, line):
     return n
 
 
+def route_edge_cases(dev):
+    """K9's route's edge inputs, made from seed 19 on `dev`: (name, rects
+    [NB, kb] int32, drec [NB * 64, K, 6 + C] float32, sel [NB * 64, K] and
+    live [NB * 64] int32, K, C), sel and live the selection of the rects
+    (`fused._select`, live = min(count, K)); the rows and ids past each
+    tile's live count hold NaN and -7, which the route must not read.
+    Lanes of 1-tile and 64-tile rects, of rects past the block's edge
+    (clamped to it) and of rect 0; tiles whose count is 0, K and over K,
+    so that some lanes no tile selects; kb 1001, not a multiple of any
+    group size; C 3, whose rows are not 16-byte aligned; K above kb."""
+    rng = np.random.default_rng(19)
+
+    def rect(x0, x1, y0, y1):
+        return (np.asarray(x0, np.int64) | (np.asarray(x1, np.int64) << 8)
+                | (np.asarray(y0, np.int64) << 16) | (np.asarray(y1, np.int64) << 24))
+
+    def small(n, lo=0, hi=8, edge=8, big=3):
+        """n rects of 1 to big x big tiles, corners in [lo, hi), the far
+        edges up to `edge` (past 8: clamped by the route)."""
+        x0, y0 = rng.integers(lo, hi, n), rng.integers(lo, hi, n)
+        return rect(x0, np.minimum(x0 + rng.integers(1, big + 1, n), edge), y0,
+                    np.minimum(y0 + rng.integers(1, big + 1, n), edge))
+
+    def case(name, rects, K, C):
+        NB, kb = rects.shape
+        rects = torch.from_numpy(rects.astype(np.int32))
+        lanes, counts = fused._select(rects, K)
+        Kk = lanes.shape[-1]
+        live = torch.clamp(counts, max=K).reshape(-1)
+        sel = torch.full((NB * fused.TB, K), -7, dtype=torch.int32)
+        sel[:, :Kk] = torch.where(lanes < kb, lanes, -7).reshape(-1, Kk).int()
+        drec = torch.from_numpy(rng.normal(size=(NB * fused.TB, K, 6 + C)).astype(np.float32))
+        drec[torch.arange(K)[None] >= live[:, None]] = float("nan")
+        return (name, *(t.contiguous().to(dev) for t in (rects, drec, sel, live)), K, C)
+
+    cases = []
+    # block 0: 10 lanes of the whole block, 40 of tile (0, 0) (count 50 >
+    # K: 34 of them no tile selects), 6 of tile (7, 7) (count K), 300
+    # small rects off row and column 7, 28 of rect 0; block 1: small rects
+    # in rows 0-3 only, so that rows 4-7 have count 0
+    K = 16
+    b0 = np.concatenate([np.full(10, rect(0, 8, 0, 8)), np.full(40, rect(0, 1, 0, 1)),
+                         np.full(6, rect(7, 8, 7, 8)), small(300, hi=7, edge=7),
+                         np.zeros(28, np.int64)])
+    b1 = np.concatenate([small(300, hi=4, edge=4, big=2), np.zeros(84, np.int64)])
+    cases.append(case("1- and 64-tile rects, counts 0, K and > K, lanes no tile selects",
+                      np.stack([rng.permutation(b0), rng.permutation(b1)]), K, 6))
+    wide = np.concatenate([small(900, edge=12, big=8), np.full(3, rect(0, 8, 0, 8)),
+                           np.zeros(98, np.int64)])
+    cases.append(case("kb 1001, rects past the block's edge", rng.permutation(wide)[None], 64, 6))
+    cases.append(case("C 3 (rows not 16-byte aligned)",
+                      rng.permutation(np.concatenate([small(230, big=5),
+                                                      np.zeros(26, np.int64)]))[None], 32, 3))
+    cases.append(case("K above kb", small(100, big=8)[None], 128, 6))
+    return cases
+
+
+def route_holds(where, rects, drec, sel, live, K, C):
+    """The route on kernel 1's scratch (or `route_edge_cases`' stand-in):
+    the plain version (`fused.route_plain` on CPU copies, which sums in
+    index order) finite and zero past the used channels; on the card the
+    design before bit-equal to it, and every design (at C = STAGE_C the
+    group sizes too) bit-equal to the design before and across two
+    launches. Returns the plain d(vals) on the CPU."""
+    kb = rects.shape[1]
+    ref = fused.route_plain(drec.cpu().reshape(-1, fused.TB, K, 6 + C),
+                            fused.scratch_lanes(sel.cpu(), live.cpu(), kb), kb)
+    check(bool(torch.isfinite(ref).all()) and bool((ref[..., 6 + C:] == 0).all()),
+          f"{where}: the plain route is not finite or not zero past the used channels")
+    if drec.device.type != "cuda":
+        return ref
+    args = (rects, drec, sel, live, K, C)
+    base = fused.route(*args, design="baseline")
+    check(torch.equal(bits(base.cpu()), bits(ref)),
+          f"{where}: the route's design before differs from the plain route")
+    for d in fused.ROUTE_DESIGNS:
+        if d.startswith("kernel_g") and C != fused.STAGE_C:
+            continue
+        out = fused.route(*args, design=d)
+        check(torch.equal(bits(out), bits(base)), f"{where}: route {d} differs from its "
+                                                  "design before")
+        check(torch.equal(bits(out), bits(fused.route(*args, design=d))),
+              f"{where}: two launches of route {d} differ")
+    return ref
+
+
+def check_route_edges(dev, line):
+    """K9's route (`route_holds`) on `route_edge_cases` and, on the card,
+    on every `k9_edge_cases` case from kernel 1's scratch
+    (`fused.select_blend_bwd_tiles`), where the backward's d(vals) must
+    be the route's. Returns the cases held."""
+    n = 0
+    for name, *args in route_edge_cases(dev):
+        route_holds(f"route edge case {name}", *args)
+        n += 1
+    if dev.type == "cuda":
+        for name, vals, rects, g, C in k9_edge_cases(dev):
+            scratch = fused.select_blend_bwd_tiles(vals, rects, g, K9_EDGE_K, C)
+            where = f"route on K9 edge case {name}"
+            route_holds(where, rects, *scratch, K9_EDGE_K, C)
+            check(torch.equal(bits(fused.select_blend_bwd(vals, rects, g, K9_EDGE_K, C)),
+                              bits(fused.route(rects, *scratch, K9_EDGE_K, C))),
+                  f"{where}: the backward's d(vals) is not the route's")
+            n += 1
+    sync(dev)
+    line(f"K9 route edge inputs: {n} cases" + (
+        " (the route's own and K9's), the design before bit-equal to the plain route, every "
+        f"design ({', '.join(fused.ROUTE_DESIGNS)}) bit-equal to it and across launches, the "
+        "backward's d(vals) the route's" if dev.type == "cuda" else ", the plain route"))
+    return n
+
+
+def rect_areas(rects):
+    """Each lane's rect area in tiles, clamped to the block as the route
+    clamps it: int64 [NB, kb]."""
+    r = rects.long()
+    w = (torch.clamp((r >> 8) & 0xFF, max=fused.BLOCK) - (r & 0xFF)).clamp(min=0)
+    h = (torch.clamp((r >> 24) & 0xFF, max=fused.BLOCK) - ((r >> 16) & 0xFF)).clamp(min=0)
+    return w * h
+
+
+def route_work(rects, live, C):
+    """What the route moves and where its time could go: the rect-area
+    histogram of the lanes, the tiles the lanes visit, the warps' largest
+    rects (the design before's warp is 32 lanes; a group's G threads take
+    G tiles a round), Σ live, and the bytes each input read once and
+    d(vals) written once (the live slots' rows and ids, the live counts,
+    the rects, d(vals))."""
+    NB, kb = rects.shape
+    area = rect_areas(rects)
+    edges = (0, 1, 2, 4, 8, 16, 32, 64)
+    hist = {f"{lo + 1}-{hi}" if hi > lo + 1 else str(hi): int(((area > lo) & (area <= hi)).sum())
+            for lo, hi in zip(edges[:-1], edges[1:])}
+    hist = {"0": int((area == 0).sum()), **hist}
+    def warps(lanes):  # [NB, warps, lanes a warp]
+        return torch.nn.functional.pad(area, (0, (-kb) % lanes)).reshape(NB, -1, lanes)
+
+    groups = {G: int((-(-warps(32 // G) // G)).amax(-1).sum()) for G in (2, 4, 8, 16, 32)}
+    n_live = int(live.long().sum())
+    nbytes = (4 * (n_live * (6 + C) + n_live + live.numel() + rects.numel())
+              + 4 * NB * kb * fused.NCH)
+    return {"area_hist": hist, "tiles_visited": int(area.sum()), "lanes": NB * kb,
+            "lanes_with_a_rect": int((area > 0).sum()),
+            "v1_warp_max_tiles": int(warps(32).amax(-1).sum()), "rounds_by_group": groups,
+            "live_slots": n_live,
+            "bytes": nbytes}
+
+
 def k9_fwd_designs(vals, rects, K, C):
     """K9's forward in its other whole designs (the unculled build; at
     fused.STAGE_C the batch sizes) and its baseline design, by name: each
@@ -1339,8 +1498,9 @@ def reset_launch_counts():
     blend.launches = blend.bwd_launches = fused.launches = fused.bwd_launches = 0
     fused.baseline_launches = fused.fwd_baseline_launches = blend.baseline_launches = 0
     blend.bwd_baseline_launches = 0
+    fused.route_launches = fused.tiles_launches = 0
     for counts in (fused.stage_launches, fused.fwd_stage_launches, blend.stage_launches,
-                   blend.bwd_stage_launches):
+                   blend.bwd_stage_launches, fused.route_design_launches):
         for k in counts:
             counts[k] = 0
     probes.reset_launches()
@@ -1349,10 +1509,11 @@ def reset_launch_counts():
 def off_path_launches():
     """Launches, since the counts were reset, of what no path of the port
     calls: the baseline designs of K1, K2, K3, K4, of K5's, K7's, K8's
-    and K9's forwards and backwards and of the probes P1's matmul and P2's
-    passthrough, and the stage entry points of K2, K3 and K8's and K9's
-    forwards and backwards (their cuts, other designs and diagnostic
-    builds). Each main-path window must see 0."""
+    and K9's forwards and backwards and of the probes P1's matmul, P2's
+    passthrough and P3's cuts, the stage entry points of K2, K3 and K8's
+    and K9's forwards and backwards (their cuts, other designs and
+    diagnostic builds), and K9's route and per-tile kernel launched alone.
+    Each main-path window must see 0."""
     return (extract.baseline_launches + segsum.baseline_launches + blend_ct.baseline_launches
             + blend_ct.fwd_baseline_launches + sum(blend_ct.stage_launches.values())
             + sum(blend_ct.fwd_stage_launches.values()) + blend_rec.fwd_baseline_launches
@@ -1362,7 +1523,8 @@ def off_path_launches():
             + sum(fused.fwd_stage_launches.values()) + blend.baseline_launches
             + sum(blend.stage_launches.values()) + blend.bwd_baseline_launches
             + sum(blend.bwd_stage_launches.values()) + sum(mxu.v1_launches.values())
-            + widerow.v1_launches)
+            + widerow.v1_launches + sum(fused_bisect.v1_launches.values())
+            + sum(fused.route_design_launches.values()) + fused.tiles_launches)
 
 
 def blend_bound(work, nbytes, backward=False):
@@ -2969,6 +3131,73 @@ def k8_backward_designs(dev, report, line, bench_args, frame_args):
     return res
 
 
+ROUTE_ITERS = 40  # calls a turn of the route's designs (queued behind a spin)
+
+
+def route_phase(dev, report, line, vals, rects, g, K, C):
+    """K9's route at frame 0 (48 blocks x 4,096 lanes, K 256, C 6), on
+    kernel 1's scratch (off the card a stand-in: the selection's ids and
+    zero rows): `route_holds` and, on the card, the backward's d(vals)
+    the route's; what it moves (`route_work`) and its bound; the plain
+    route's ms (`route_plain`), the plain path's one `scatter_add_` (the
+    library call) and every design of `fused.ROUTE_DESIGNS` in turns, by
+    `probes.queued_ms`; ptxas' registers and spills."""
+    NB, kb = rects.shape
+    on_card = dev.type == "cuda"
+    if on_card:
+        drec, sel, live = fused.select_blend_bwd_tiles(vals, rects, g, K, C)
+    else:
+        lanes, counts = fused._select(rects, K)
+        live = torch.clamp(counts, max=K).reshape(-1).int()
+        sel = torch.where(lanes < kb, lanes, -7).reshape(-1, lanes.shape[-1]).int()
+        sel = torch.nn.functional.pad(sel, (0, K - sel.shape[1]), value=-7).contiguous()
+        drec = torch.zeros((NB * fused.TB, K, 6 + C), device=dev)
+    ref = route_holds("route at frame 0", rects, drec, sel, live, K, C)
+    work = route_work(rects, live, C)
+    times = {"bytes": work["bytes"] / HBM_BYTES_PER_S,
+             "operations": work["live_slots"] * (6 + C) / FP32_OPS_PER_S}
+    by = max(times, key=times.get)
+    out = {"work": work, "bound_ms": times[by] * 1e3, "bound_by": by,
+           "bound_s": times, "max_abs_err": 0.0, "library_ms": None, "turns": None,
+           "ptxas": None}
+    lanes = fused.scratch_lanes(sel, live, kb)
+    d4 = drec.reshape(NB, fused.TB, K, 6 + C)
+    out["plain_ms"] = probes.time_ms(lambda: fused.route_plain(d4, lanes, kb), 3, dev, warmup=1)
+    if on_card:
+        dv = fused.route(rects, drec, sel, live, K, C)
+        check(torch.equal(bits(fused.select_blend_bwd(vals, rects, g, K, C)), bits(dv)),
+              "route at frame 0: the backward's d(vals) is not the route's")
+        out["max_abs_err"] = float((dv.cpu() - ref).abs().max())
+        # the plain path's one library call: scatter_add_ of the masked rows
+        hit = lanes < kb
+        src = torch.where(hit[..., None], d4, 0.0).reshape(NB, -1, 6 + C)
+        idx = torch.where(hit, lanes, kb).reshape(NB, -1, 1).expand(-1, -1, 6 + C)
+        dst = src.new_zeros((NB, kb + 1, 6 + C))
+        out["library_ms"] = probes.queued_ms(lambda: dst.scatter_add_(1, idx, src), ROUTE_ITERS,
+                                             dev)
+        out["turns"] = in_turns({
+            d: (lambda d=d: fused.route(rects, drec, sel, live, K, C, design=d))
+            for d in fused.ROUTE_DESIGNS}, ROUTE_ITERS, dev, profiler=False)
+        logs = report.get("build_logs", {}).get("fused")
+        out["ptxas"] = {"baseline": ptxas_usage(logs, f"fused_route_kernel_v1ILi{C}EE"),
+                        **{f"kernel_g{G}": ptxas_usage(logs, f"fused_route_kernelILi{C}ELi{G}EE")
+                           for G in (2, 4, 8, 16, 32)}}
+        del dv, src, idx, dst
+    line(f"K9 route at frame 0 (NB={NB}, kb={kb}, K={K}, C={C}): lanes by rect area (tiles) "
+         f"{work['area_hist']}, {work['tiles_visited']} tiles visited, {work['live_slots']} live "
+         f"slots; a warp's largest rect summed over warps {work['v1_warp_max_tiles']} (one "
+         f"thread a lane), rounds by group size {work['rounds_by_group']}; bound "
+         f"{out['bound_ms']:.5f} ms ({by}; {work['bytes']} bytes); plain "
+         f"{out['plain_ms']:.4f} ms" + ("" if not on_card else
+         f", library (scatter_add_) {out['library_ms']}, max abs vs plain "
+         f"{out['max_abs_err']:.3e}; in turns (ms a call, queued): "
+         f"{turns_summary(out['turns'])}; ptxas (registers, spill stores): " + "; ".join(
+             f"{d} {u.get('registers')}, {u.get('spill_stores')}"
+             for d, us in out["ptxas"].items() for u in us.values())))
+    del drec, sel, live, lanes, d4
+    return out
+
+
 def fused_phase(dev, report, scene):
     """K9 (the fused select + blend) forward and backward against its plain
     versions through both input layouts, on frame 0's Gaussians at the
@@ -3005,6 +3234,7 @@ def fused_phase(dev, report, scene):
         n_sel = int(torch.zeros(NB, kb + 1, dtype=torch.bool, device=dev)
                     .scatter_(1, lanes.reshape(NB, -1), True)[:, :kb].sum())
     k9_edges = check_k9_edges(dev, line)
+    route_edges = check_route_edges(dev, line)
     k9f_edges = check_k9_fwd_edges(dev, line)
     k8_edges = check_k8_edges(dev, line)
     k8b_edges = check_k8_bwd_edges(dev, line)
@@ -3069,8 +3299,7 @@ def fused_phase(dev, report, scene):
                    for d in ("kernel_p1", "kernel_p4")},
             }
             k9b_turns = in_turns(designs, 20, dev)
-            k9b_split = {d: probes.device_ms(designs[d], 20, dev, fused_bisect.BWD_KERNELS)
-                         for d in ("baseline", "kernel")}
+            k9b_split = fused_bisect.backward_split(*bwd_args, iters=20)
             k9b_stages = in_turns({
                 f"stage{st}": (lambda st=st: fused.select_blend_bwd_stage(*bwd_args, st))
                 for st in range(len(fused.BWD_STAGES))}, 20, dev, kernel="fused_bwd_kernel")
@@ -3078,9 +3307,8 @@ def fused_phase(dev, report, scene):
                  f"a call; kernel_p1/p4: the walk at 1/4 pixels a thread): "
                  f"{turns_summary(k9b_turns)}; p1/p4 vs plain rel_l2 "
                  + ", ".join(f"{e['rel_l2']:.3e}" for e in k9b_px.values()))
-            line("K9 backward by kernel (device ms a launch): " + "; ".join(
-                f"{d} " + ", ".join(f"{k} {v[k]['ms']}" for k in fused_bisect.BWD_KERNELS)
-                for d, v in k9b_split.items() if v is not None))
+            line("K9 backward and its kernels alone (device ms a call, queued behind a "
+                 "spin): " + ", ".join(f"{k} {v}" for k, v in k9b_split.items()))
             ms = [k9b_stages[f"stage{st}"]["ms"] for st in range(len(fused.BWD_STAGES))]
             line("K9 backward per-tile kernel stages (device ms a call of fused_bwd_kernel; "
                  "delta): " + ", ".join(
@@ -3096,6 +3324,7 @@ def fused_phase(dev, report, scene):
             line(f"K9 backward ptxas at C={C} (registers, static smem bytes, spill stores): "
                  + "; ".join(f"{d} {u.get('registers')}, {u.get('smem')}, {u.get('spill_stores')}"
                              for d, us in k9b_ptxas.items() for u in us.values()))
+        k9r = route_phase(dev, report, line, vals, rects, g, K, C)
         k9f = k9_forward_designs(dev, report, line, vals, rects, K, C)
         k9_t = measure(lambda: fused.select_blend(vals, rects, K, C), 20, dev)
         k9_plain_t = measure(lambda: fused.select_blend_plain(vals, rects, K, C), 3, dev,
@@ -3179,7 +3408,8 @@ def fused_phase(dev, report, scene):
     sync(dev)
     step_ms = (time.perf_counter() - t0) * 1e3 / FUSED_STEPS
     k9_launches = {"fused_select_blend": fused.launches,
-                   "fused_select_blend_bwd": fused.bwd_launches}
+                   "fused_select_blend_bwd": fused.bwd_launches,
+                   "fused_route": fused.route_launches}
     line(f"fused backend: {FUSED_STEPS} steps, {step_ms:.3f} ms/step; launches {k9_launches}; "
          "last losses " + ", ".join(f"{k}={float(v):.5f}" for k, v in m.items()
                                     if k.endswith("loss")))
@@ -3187,6 +3417,8 @@ def fused_phase(dev, report, scene):
     expect = [(0,) * 10 + (i + 1, i + 1) for i in range(FUSED_STEPS)]
     check(per_step == expect, f"fused backend: launch counts after each step {per_step}: not K9 "
                               "and its backward once a step, and no other kernel")
+    check(fused.route_launches == FUSED_STEPS,
+          f"fused backend: the route launched {fused.route_launches} times in {FUSED_STEPS} steps")
     check(off_path_launches() == 0,
           "fused backend: a baseline design or a K2/K3 stage cut was launched")
     fused_prof = profile_calls(lambda: step(params, batch, gen, FUSED_STEPS + 1), 3, dev)
@@ -3322,12 +3554,23 @@ def fused_phase(dev, report, scene):
             "stages_ms": k9b_stages and [k9b_stages[f"stage{st}"]["ms"]
                                          for st in range(len(fused.BWD_STAGES))],
         },
+        {
+            "name": "fused_route", "route": "cuda", "source": "d3ga_tpu_torch/csrc/fused.cu",
+            "replaces": "d3ga_tpu/raster/attic/pallas_fused.py:431",
+            "launches": k9_launches["fused_route"], "max_abs_err": k9r["max_abs_err"],
+            "ms": k9r["turns"]["kernel"]["ms"] if k9r["turns"] else k9r["plain_ms"],
+            "plain_ms": k9r["plain_ms"], "bound_ms": k9r["bound_ms"], "bound_by": k9r["bound_by"],
+            "library_ms": k9r["library_ms"],
+            "baseline_ms": k9r["turns"] and k9r["turns"]["baseline"]["ms"],
+            "designs_ms": k9r["turns"] and {d: v["ms"] for d, v in k9r["turns"].items()},
+        },
     ]
     timings = {"blend_tiles_coeffs": {"kernel": k8_t, "plain": k8_plain_t},
                "blend_tiles_coeffs_bwd": {"plain": k8b_plain_t, **({"kernel": k8b_t} if k8b_t
                                                                     else {})},
                "fused_select_blend": {"kernel": k9_t, "plain": k9_plain_t},
-               "fused_select_blend_bwd": {"kernel": k9b_t, "plain": k9b_plain_t}}
+               "fused_select_blend_bwd": {"kernel": k9b_t, "plain": k9b_plain_t},
+               "fused_route": {}}
     for k in kernels:
         t = timings[k["name"]]
         line(f"{k['name']}: ms={k['ms']:.4f} plain_ms={k['plain_ms']:.4f} "
@@ -3336,6 +3579,7 @@ def fused_phase(dev, report, scene):
              + ", ".join(f"{nm}={v['call_ms']:.4f}" for nm, v in t.items()))
     report.update(
         k9=k9, k9b=k9b, k9_pairs=pairs, k9_work=work9, k9_edges=k9_edges, k9b_base=k9b_base,
+        route_edges=route_edges, k9_route=k9r,
         k9b_px=k9b_px, k9b_turns=k9b_turns, k9b_split=k9b_split, k9b_stages=k9b_stages,
         k9b_ptxas=k9b_ptxas, k9f_edges=k9f_edges, k8_edges=k8_edges, k8b_edges=k8b_edges,
         k9f=k9f, k8f=k8f, k8bf=k8bf,
@@ -3358,28 +3602,34 @@ def stage_err(a, b):
 def hold_stages(vals, rects, K, C, where, line):
     """P3's four stages against their plain versions (0-1 exactly, 2 by
     STAGE2_REL, 3 bit-equal to K9's tiles and within the image tolerance
-    of plain); returns each stage's max abs error against plain."""
+    of plain), the cuts of K9's forward and, on the card, those of its
+    design before (`fused_bisect.stage_v1`) alike; returns each of the
+    forward's stages' max abs error against plain."""
     k9_tiles, _ = fused.select_blend(vals, rects, K, C)
-    errs = []
+    designs = {"kernel": fused_bisect.stage}
+    if vals.device.type == "cuda":
+        designs["design before"] = fused_bisect.stage_v1
+    errs = {d: [] for d in designs}
     for s in range(len(fused_bisect.STAGES)):
-        out = fused_bisect.stage(vals, rects, K, C, s)
         ref = fused_bisect.stage_plain(vals, rects, K, C, s)
-        sync(vals.device)
-        check(bool(torch.isfinite(out).all()), f"P3 stage {s} ({where}): non-finite output")
-        errs.append(float((out - ref).abs().max()))
-        if s < 2:
-            check(torch.equal(out, ref), f"P3 stage {s} ({where}): differs from plain")
-        elif s == 2:
-            e = stage_err(out, ref)
-            check(e <= STAGE2_REL, f"P3 stage 2 ({where}): rel {e:.3e} > {STAGE2_REL}")
-        else:
-            check(torch.equal(out, k9_tiles), f"P3 stage 3 ({where}): not K9's tiles to the bit")
-            check(image_ok(image_err(out, ref)), f"P3 stage 3 ({where}): outside the image "
-                                                 "tolerance of plain")
-    line(f"P3 stages vs plain ({where}: NB={vals.shape[0]}, kb={vals.shape[1]}, K={K}, C={C}): "
-         f"0-1 equal, 2 rel <= {STAGE2_REL}, 3 bit-equal to K9; max abs "
-         + ", ".join(f"{e:.3e}" for e in errs))
-    return errs
+        for d, fn in designs.items():
+            out = fn(vals, rects, K, C, s)
+            sync(vals.device)
+            at = f"P3 stage {s} of the {d} ({where})"
+            check(bool(torch.isfinite(out).all()), f"{at}: non-finite output")
+            errs[d].append(float((out - ref).abs().max()))
+            if s < 2:
+                check(torch.equal(out, ref), f"{at}: differs from plain")
+            elif s == 2:
+                e = stage_err(out, ref)
+                check(e <= STAGE2_REL, f"{at}: rel {e:.3e} > {STAGE2_REL}")
+            else:
+                check(torch.equal(out, k9_tiles), f"{at}: not K9's tiles to the bit")
+                check(image_ok(image_err(out, ref)), f"{at}: outside the image tolerance of plain")
+    line(f"P3 stages vs plain ({where}: NB={vals.shape[0]}, kb={vals.shape[1]}, K={K}, C={C}; "
+         f"{' and '.join(designs)}): 0-1 equal, 2 rel <= {STAGE2_REL}, 3 bit-equal to K9; max abs "
+         + "; ".join(f"{d} " + ", ".join(f"{e:.3e}" for e in v) for d, v in errs.items()))
+    return errs["kernel"]
 
 
 PROBE_TURN_MS = 5.0  # the longer timed launch of each of P1's turns (slope)
@@ -3601,9 +3851,12 @@ def probes_phase(dev, report, scene):
         st_rows, pairs = fused_bisect.run(vals, rects, K, C, iters=PROBE_ITERS, g=g)
     sync(dev)
     run_s = time.perf_counter() - t0
+    # P3's backward split launches K9's per-tile kernel and route alone
+    split = {"bwd_tiles": fused.tiles_launches, "route": fused.route_design_launches["kernel"]}
     counts = {**{(k if k == "roll" else f"matmul_{k}"): n for k, n in mxu.launches.items()},
               "passthrough": widerow.launches,
-              **{f"stage{s}": n for s, n in fused_bisect.launches.items()}}
+              **{f"stage{s}": n for s, n in fused_bisect.launches.items()},
+              **(split if on_card else {})}
     lines = [probes.emit("mxu_matmul", dev, mm_rows), probes.emit("mxu_roll", dev, roll_rows),
              probes.emit("widerow", dev, wr_rows),
              probes.emit("fused_bisect", dev, [dict(r, blocks=vals.shape[0], kb=vals.shape[1],
@@ -3613,17 +3866,30 @@ def probes_phase(dev, report, scene):
     bwd = st_rows[-1]["device_ms"]
     check(all(r["ms"] is not None for r in st_rows[:-1]),
           "P3: a stage's launches did not queue behind the spin")
+    check(dev.type != "cuda"
+          or all(bwd[k] is not None for k in ("total", *fused_bisect.BWD_KERNELS)),
+          f"P3: K9's backward or one of its kernels did not queue behind the spin: {bwd}")
     line(f"probes run: {run_s:.1f} s; launches {counts}; K9 forward stages (ms a call, "
          f"{st_rows[0]['clock']}; delta): "
          + ", ".join(f"{r['stage']} {r['ms']:.4f} ({r['delta_ms']:+.4f})" for r in st_rows[:-1])
          + f"; K9 backward kernels {bwd}")
     check(all(n > 0 for n in counts.values()), f"probes: a probe kernel was not launched {counts}")
-    check(off_path_launches() == 0, "probes' run: a design before was launched")
-    check(dev.type != "cuda" or (bwd is not None and (bwd["total"] is not None
-                                                      or bwd.get("queued_ms") is not None)),
-          "P3: no device time for K9's backward kernels")
+    check(off_path_launches() == sum(split.values()),
+          "probes' run: a design before was launched")
     check(all(np.isfinite(r["one_cta"]["ns_per_op"]) for r in mm_rows), "P1: a time is not finite")
     turns = probe_turns(dev, report, line) if on_card else {}
+    # P3: the kernel's cuts against the design before's, in turns
+    p3_turns = None
+    if on_card:
+        with torch.no_grad():
+            p3_turns = [in_turns({
+                "design before": lambda s=s: fused_bisect.stage_v1(vals, rects, K, C, s),
+                "kernel": lambda s=s: fused_bisect.stage(vals, rects, K, C, s)}, PROBE_ITERS, dev,
+                profiler=False) for s in range(len(fused_bisect.STAGES))]
+        line("P3 stages in turns at frame 0 (ms a call, queued; the design before -> the "
+             "kernel's cuts): " + "; ".join(f"{s} {turns_summary(t)}"
+                                            for s, t in enumerate(p3_turns)))
+        report["p3_turns"] = p3_turns
 
     # -- the kernels' entries ------------------------------------------------
     def case_row(prec):
@@ -3668,9 +3934,11 @@ def probes_phase(dev, report, scene):
                                warmup=1)
         kernels.append({
             "name": f"fused_stage{s}", "route": "cuda", "source": "d3ga_tpu_torch/csrc/fused.cu",
-            "replaces": fused_bisect.REPLACES[s], "launches": fused_bisect.launches[s],
-            "max_abs_err": stage_abs[s], "ms": r["ms"], "plain_ms": plain,
+            "replaces": fused_bisect.REPLACES[s], "launches": counts[f"stage{s}"],
+            "max_abs_err": stage_abs[s],
+            "ms": p3_turns[s]["kernel"]["ms"] if p3_turns else r["ms"], "plain_ms": plain,
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "baseline_ms": p3_turns and p3_turns[s]["design before"]["ms"],
         })
     for k in kernels:
         line(f"{k['name']}: ms={k['ms']:.6f} plain_ms={k['plain_ms']:.6f} "
@@ -3716,6 +3984,11 @@ def main():
     print(card, flush=True)
     report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
     dev = torch.device("cuda", 0)
+    say = logger(report)
+    probes.on_short_profile = lambda p: say(
+        f"profiler: a profile at {p['where']} recorded {p['recorded']} of its {p['calls']} calls "
+        f"(attempts {p['attempts']}; the calls each attempt lost {p['lost']})")
+    report["short_profiles"] = probes.SHORT_PROFILES
     try:
         kernels = run(dev, report)
     except Exception as e:  # report, on both streams, then fail the run

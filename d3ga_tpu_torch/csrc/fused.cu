@@ -56,7 +56,8 @@
 //   pixel, coeff_walk.cuh's coeff_walk_fwd, each thread storing its
 //   pixel's C + 1 floats at a (C + 1) x 4-byte stride) stays as
 //   fused_kernel_v1, launched by d3ga_fused_v1 (chip_smoke.py only) and,
-//   cut, by d3ga_fused_stage (P3). d3ga_fused_fwd_stage launches the new
+//   cut, by d3ga_fused_stage (P3's baseline); d3ga_fused_p3 cuts the new
+//   kernel at P3's stages (below). d3ga_fused_fwd_stage launches the new
 //   kernel with its band cull off (the reference for the cull's bits) at
 //   every C and, at FB_STAGE_C only, cut at a stage (coeff_walk_fwd.cuh's
 //   STAGE: 0 selection + staging + stores, 1 + lists, polynomials and
@@ -70,16 +71,34 @@
 //   memory and written [NB * 64, K, 6 + C] as one contiguous run of
 //   16-byte stores a chunk, with the slots' lane ids and the tile's
 //   live-slot count (scratch the wrapper allocates).
-//   Backward, kernel 2 (per block and lane): the 64 tiles of a block share
-//   its candidate lanes. One thread per (block, lane) visits the tiles its
-//   rect covers in tile order, finds its slot by binary search in each
-//   tile's ascending lane list, and sums the slot rows: deterministic, no
-//   atomics, the TPU kernels' order (tile 0 to 63).
+//   Backward, kernel 2 (the route, per block and lane, fused_route_kernel):
+//   the 64 tiles of a block share its candidate lanes. A group of FR_G
+//   threads a lane covers its rect's tiles, G at a time, each finding the
+//   lane's slot by binary search in its tile's ascending lane list, side by
+//   side; the group then adds the found rows in tile order (ty, then tx),
+//   each of four threads one 16-byte quad of the row, and writes the
+//   d(vals) row as four 16-byte stores: deterministic, no atomics, the TPU
+//   kernels' order (tile 0 to 63), and per channel the same chain of adds
+//   as the design before (one thread a lane visiting the tiles one after
+//   another, scalar loads and stores), which stays as
+//   fused_route_kernel_v1 and gives the same bits. d3ga_fused_route
+//   launches either alone on kernel 1's scratch (d3ga_fused_bwd_tiles
+//   launches kernel 1 alone), and at FB_STAGE_C the route at 2, 4, 8, 16
+//   and 32 threads a lane: chip_smoke.py holds their bits and times them in
+//   turns. At frame 0 of its scene (48 blocks x 4,096 lanes, 40,872 of
+//   them with a rect, of 1 to 16 tiles; K 256, C 6) on an NVIDIA H100 80GB
+//   HBM3 at 700 W: 4 threads a lane 0.0105 ms, 2, 8, 16 and 32 threads
+//   0.0146, 0.0135, 0.0274 and 0.0609, the design before 0.0446; hence
+//   FR_G = 4 (a warp's round count is its largest rect's, so larger groups
+//   idle on small rects). Bytes: the live slots' rows and lane ids, the
+//   rects and the live counts in, d(vals) out: 17.5 MB at frame 0, 12.6
+//   MB of it d(vals), a bound of 0.0052 ms (chip_smoke.py counts them).
 //
 // The backward's design before (one thread a pixel, coeff_walk.cuh's
 // coeff_walk_bwd: 8 warps a tile, every slot evaluated at every pixel, 7 +
 // C butterflies a slot a warp, each slot's row stored by one thread) stays
-// as fused_bwd_kernel_v1, launched by d3ga_fused_bwd_v1 only.
+// as fused_bwd_kernel_v1, launched, with the route's design before, by
+// d3ga_fused_bwd_v1 only.
 // d3ga_fused_bwd_stage launches the new kernel with its band cull off (the
 // reference for the cull's bits) at every C, and, at C = FB_STAGE_C (the
 // champion's 6) only, the kernel cut at a stage (the walk's STAGE
@@ -89,14 +108,19 @@
 // the cull and times the designs and the stages in turns.
 //
 // Stage cuts (probe P3, the counterpart of the TPU bisect
-// tools/fused_bisect.py): fused_kernel_v1's STAGE parameter stops the
-// design before early, so each cut runs its code up to its point. STAGE
-// 0 writes 1.0 to every output; 1 runs the selection and writes the tile's
-// count to every pixel and channel; 2 also sums channels [0, C] of the
-// first min(count, K) selected candidates (threads stride the slots, then
-// warp shuffles and the 8 warps' partials in order) and writes that sum
-// plus the count; 3 is the whole design before, K9's tiles to the bit.
-// Only STAGE 3 writes counts.
+// tools/fused_bisect.py): fused_fwd_kernel's CUT parameter stops the
+// forward early, so each cut runs the kernel's own code up to its point
+// and writes its value through cf_store's 16-byte row stores (d3ga_fused_p3).
+// CUT 0 writes 1.0 to every output; 1 runs select_tile_pairs and writes
+// the tile's count to every pixel and channel; 2 also stages the first
+// min(count, K) selected candidates' records (CF_CHUNK a chunk) and sums
+// their channels [0, C] in a fixed order (each warp's rows by shuffles,
+// the warps' partials in order, the chunks in order), writing that sum
+// plus the count; 3 is the kernel, d3ga_fused's tiles to the bit. The
+// design before's cuts (fused_kernel_v1's STAGE, d3ga_fused_stage: the
+// same four meanings on the one-thread-a-pixel design, each thread
+// storing its pixel) stay as P3's baseline. Cuts 1-3 write counts; the
+// design before's only at 3.
 
 #include <cstdint>
 
@@ -108,6 +132,9 @@
 #define FB_TB (FB_BLOCK * FB_BLOCK)
 #define FB_NCH 16
 #define FB_STAGE_C 6  // the C the stage cuts and the pixel and batch variants are built for
+#define FR_THREADS 128  // the route's threads a block
+#define FR_G 4          // the route's threads a lane (chip_smoke.py times 2, 4, 8, 16 and 32)
+#define FR_BATCH 8      // tiles a batch of the route's ordered adds (loads first)
 
 // Candidate j of a block's records.
 __device__ __forceinline__ const float* cand(const float* vb, int j) {
@@ -299,12 +326,59 @@ struct CandStage {
   }
 };
 
+// P3's stage 2 (the header's cuts): the first n selected candidates'
+// records staged through s (CF_CHUNK a chunk, one a thread, 16-byte loads
+// with vec) and their channels [0, C] summed in a fixed order: each
+// warp's 32 rows by cw_warp_sum, the warps' partials in warp order, the
+// chunks in order. Every thread gets the tile's sums.
+template <int C, int P>
+__device__ __forceinline__ void p3_channel_sums(const float* __restrict__ vb, bool vec,
+                                                const int* s_sel, int n, CfShared<P>& s,
+                                                float (&sum)[C + 1]) {
+  __shared__ float s_red[cb_warps<P>][C + 1];
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int c = 0; c <= C; ++c) sum[c] = 0.0f;
+  for (int base = 0; base < n; base += CF_CHUNK) {
+    const int m = min(CF_CHUNK, n - base);
+    __syncthreads();  // the previous chunk's rows and partials have been read
+    for (int r = t; r < m; r += cb_threads<P>) {
+      const float* rec = cand(vb, s_sel[base + r]);
+      float4* row = reinterpret_cast<float4*>(s.rec[r]);
+#pragma unroll
+      for (int i = 0; i < FB_NCH / 4; ++i)
+        row[i] = vec ? reinterpret_cast<const float4*>(rec)[i]
+                     : make_float4(rec[4 * i], rec[4 * i + 1], rec[4 * i + 2], rec[4 * i + 3]);
+    }
+    __syncthreads();
+    for (int r0 = 0; r0 < CF_CHUNK; r0 += cb_threads<P>) {
+      const int r = r0 + t;
+#pragma unroll
+      for (int c = 0; c <= C; ++c) {
+        const float v = cw_warp_sum(r < m ? s.rec[r][c] : 0.0f);
+        if ((t & 31) == 0) s_red[t >> 5][c] = v;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int c = 0; c <= C; ++c) {
+        float chunk = 0.0f;
+#pragma unroll
+        for (int w = 0; w < cb_warps<P>; ++w) chunk += s_red[w][c];
+        sum[c] += chunk;
+      }
+      __syncthreads();  // s_red is rewritten next
+    }
+  }
+}
+
 // The forward: select_tile_pairs, then coeff_walk_fwd_px at P pixels a
 // thread and R slots a batch (coeff_walk_fwd.cuh), the tile's block
 // written by cf_store. vec: vals 16-byte aligned; rvec: rects 8-byte
 // aligned and kb even; cull: the band cull on. Dynamic shared memory: K
-// lane ids. Counts are written at every STAGE.
-template <int C, int P = CB_P, int R = CF_R, int STAGE = 2>
+// lane ids. Counts are written at every STAGE. CUT < 3 stops it at P3's
+// stage CUT (the header's cuts), every cut writing its value through
+// cf_store; counts are written by cuts 1 and 2 too.
+template <int C, int P = CB_P, int R = CF_R, int STAGE = 2, int CUT = 3>
 __global__ void __launch_bounds__(cb_threads<P>)
 fused_fwd_kernel(const float* __restrict__ vals, const int* __restrict__ rects, int kb, int K,
                  int vec, int rvec, int cull, float* __restrict__ out, int* __restrict__ counts) {
@@ -314,14 +388,41 @@ fused_fwd_kernel(const float* __restrict__ vals, const int* __restrict__ rects, 
   const int bt = blockIdx.x;
   const int b = bt / FB_TB, t = bt % FB_TB;
   const int tx = t % FB_BLOCK, ty = t / FB_BLOCK;
-  const int cnt = select_tile_pairs<cb_threads<P>>(rects + (long long)b * kb, kb, tx, ty, K,
-                                                   rvec != 0, s_sel, s_warp);
-  if (threadIdx.x == 0) counts[bt] = cnt;
-  const CandStage<C, P> stage{vals + (long long)b * kb * FB_NCH, s_sel, (float)(tx * CW_TILE),
-                              (float)(ty * CW_TILE), vec != 0, cull != 0};
+  float* o = out + (long long)bt * CW_NPIX * (C + 1);
   float acc[P][C], T[P];
-  coeff_walk_fwd_px<C, P, R, STAGE>(min(cnt, K), stage, s, acc, T);
-  cf_store<C, P>(s, acc, T, out + (long long)bt * CW_NPIX * (C + 1));
+  if constexpr (CUT < 3) {
+    float v[C + 1];
+#pragma unroll
+    for (int c = 0; c <= C; ++c) v[c] = 1.0f;
+    if constexpr (CUT > 0) {
+      const int cnt = select_tile_pairs<cb_threads<P>>(rects + (long long)b * kb, kb, tx, ty, K,
+                                                       rvec != 0, s_sel, s_warp);
+      if (threadIdx.x == 0) counts[bt] = cnt;
+#pragma unroll
+      for (int c = 0; c <= C; ++c) v[c] = (float)cnt;
+      if constexpr (CUT == 2) {
+        float sum[C + 1];
+        p3_channel_sums<C, P>(vals + (long long)b * kb * FB_NCH, vec != 0, s_sel, min(cnt, K),
+                              s, sum);
+#pragma unroll
+        for (int c = 0; c <= C; ++c) v[c] = sum[c] + (float)cnt;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[j][c] = v[c];
+      T[j] = v[C];
+    }
+  } else {
+    const int cnt = select_tile_pairs<cb_threads<P>>(rects + (long long)b * kb, kb, tx, ty, K,
+                                                     rvec != 0, s_sel, s_warp);
+    if (threadIdx.x == 0) counts[bt] = cnt;
+    const CandStage<C, P> stage{vals + (long long)b * kb * FB_NCH, s_sel, (float)(tx * CW_TILE),
+                                (float)(ty * CW_TILE), vec != 0, cull != 0};
+    coeff_walk_fwd_px<C, P, R, STAGE>(min(cnt, K), stage, s, acc, T);
+  }
+  cf_store<C, P>(s, acc, T, o);
 }
 
 // The backward's design before: one thread a pixel, coeff_walk_bwd.
@@ -438,11 +539,15 @@ fused_bwd_kernel(const float* __restrict__ vals, const int* __restrict__ rects,
   coeff_walk_bwd_px<C, P, STAGE, CbPower>(n, stage, gc, g_tbg, epi);
 }
 
+// The route's design before: one thread a (block, lane), visiting its
+// rect's tiles one after another, a binary search in each, scalar loads
+// and stores. Launched by the backward's design before (d3ga_fused_bwd_v1)
+// and by d3ga_fused_route (design 0) only.
 template <int C>
 __global__ void __launch_bounds__(CW_NPIX)
-fused_route_kernel(const int* __restrict__ rects, int kb, int K,
-                   const float* __restrict__ drec, const int* __restrict__ sel,
-                   const int* __restrict__ live, float* __restrict__ dvals) {
+fused_route_kernel_v1(const int* __restrict__ rects, int kb, int K,
+                      const float* __restrict__ drec, const int* __restrict__ sel,
+                      const int* __restrict__ live, float* __restrict__ dvals) {
   const int b = blockIdx.y;
   const int j = blockIdx.x * CW_NPIX + threadIdx.x;
   if (j >= kb) return;
@@ -475,14 +580,120 @@ fused_route_kernel(const int* __restrict__ rects, int kb, int K,
   for (int i = 6 + C; i < FB_NCH; ++i) o[i] = 0.0f;
 }
 
-template <int C, int R, int STAGE>
+// Quad q (floats 4q .. 4q + 3) of slot row `row` of drec [.., 6 + C]: one
+// 16-byte load with vec (rows 16-byte aligned: (6 + C) % 4 == 0 and drec
+// aligned), else scalar loads; 0 past the row's 6 + C floats.
+template <int C>
+__device__ __forceinline__ float4 fr_quad(const float* __restrict__ drec, int row, int q,
+                                          bool vec) {
+  constexpr int CR = 6 + C;
+  const float* p = drec + (long long)row * CR + 4 * q;
+  if constexpr (CR % 4 == 0) {
+    if (vec) return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  float v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = 4 * q + i < CR ? __ldg(p + i) : 0.0f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// The route: each (block b, lane j) gets d(vals)[b, j] = the sum of its
+// slots' rows over the tiles of its rect, in the design before's order
+// (ty, then tx), so every channel is the same chain of float32 adds and
+// d(vals) keeps its bits. G threads a lane (a group, FR_THREADS / G lanes
+// a block). Round by round, thread g of the group takes tile i = G round
+// + g of the rect (ty-then-tx order) and finds j's slot there by binary
+// search in the tile's ascending lane list, so the group's searches run
+// side by side. The group then walks the round's G tiles in order: each
+// tile's slot index comes by shuffle, and quad q of the row (floats 4q ..
+// 4q + 3) is loaded and added by thread q % G where j is there (batches
+// of FR_BATCH tiles, loads first, then the adds in order). The round count
+// is the warp's largest, so the shuffles run converged. The quads' owners
+// write the row as four 16-byte stores (dvals 16-byte aligned).
+template <int C, int G>
+__global__ void __launch_bounds__(FR_THREADS)
+fused_route_kernel(const int* __restrict__ rects, int kb, int K, const float* __restrict__ drec,
+                   const int* __restrict__ sel, const int* __restrict__ live, int vec,
+                   float* __restrict__ dvals) {
+  static_assert(G >= 2 && G <= 32 && (G & (G - 1)) == 0, "G: 2, 4, 8, 16 or 32 threads a lane");
+  constexpr int NQ = (6 + C + 3) / 4;  // quads of a row that hold channels
+  constexpr int QT = G >= 4 ? 1 : 4 / G;  // quads a thread: g, g + G, ...
+  constexpr int NB_ = G < FR_BATCH ? G : FR_BATCH;
+  const int b = blockIdx.y;
+  const int g = threadIdx.x % G;
+  const int j = blockIdx.x * (FR_THREADS / G) + threadIdx.x / G;
+  int xmin = 0, ymin = 0, w = 1, area = 0;
+  if (j < kb) {
+    const int r = __ldg(rects + (long long)b * kb + j);
+    xmin = r & 0xFF;
+    ymin = (r >> 16) & 0xFF;
+    const int xmax = min((r >> 8) & 0xFF, FB_BLOCK), ymax = min((r >> 24) & 0xFF, FB_BLOCK);
+    if (xmax > xmin && ymax > ymin) {
+      w = xmax - xmin;
+      area = w * (ymax - ymin);
+    }
+  }
+  float4 acc[QT];
+#pragma unroll
+  for (int k = 0; k < QT; ++k) acc[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const int rounds = (int)__reduce_max_sync(CW_FULL_MASK, (unsigned)((area + G - 1) / G));
+  for (int rd = 0; rd < rounds; ++rd) {
+    const int i = rd * G + g;
+    int row = -1;  // bt * K + j's slot in tile i's list, where j is there
+    if (i < area) {
+      const int bt = b * FB_TB + (ymin + i / w) * FB_BLOCK + xmin + i % w;
+      const int* st = sel + (long long)bt * K;
+      const int n = __ldg(live + bt);
+      int lo = 0, hi = min(n, j + 1);  // a list of distinct lanes: j's slot is at most j
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (__ldg(st + mid) < j) lo = mid + 1; else hi = mid;
+      }
+      if (lo < n && __ldg(st + lo) == j) row = bt * K + lo;
+    }
+#pragma unroll
+    for (int u0 = 0; u0 < G; u0 += NB_) {
+      int rr[NB_];
+      float4 v[NB_][QT];
+#pragma unroll
+      for (int u = 0; u < NB_; ++u) {
+        rr[u] = __shfl_sync(CW_FULL_MASK, row, u0 + u, G);
+#pragma unroll
+        for (int k = 0; k < QT; ++k) {
+          const int q = g + G * k;
+          v[u][k] = rr[u] >= 0 && q < NQ ? fr_quad<C>(drec, rr[u], q, vec != 0)
+                                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < NB_; ++u) {
+        if (rr[u] >= 0) {
+#pragma unroll
+          for (int k = 0; k < QT; ++k) {
+            acc[k].x += v[u][k].x;
+            acc[k].y += v[u][k].y;
+            acc[k].z += v[u][k].z;
+            acc[k].w += v[u][k].w;
+          }
+        }
+      }
+    }
+  }
+  float4* o = reinterpret_cast<float4*>(dvals + ((long long)b * kb + j) * FB_NCH);
+#pragma unroll
+  for (int k = 0; k < QT; ++k)
+    if (j < kb && g + G * k < FB_NCH / 4) o[g + G * k] = acc[k];
+}
+
+template <int C, int R, int STAGE, int CUT = 3>
 static int launch_fwd(const float* v, const int* r, int NB, int kb, int K, int cull, float* o,
                       int* c, cudaStream_t s) {
   if ((reinterpret_cast<uintptr_t>(o) & 15) != 0) return (int)cudaErrorMisalignedAddress;
   const int vec = (reinterpret_cast<uintptr_t>(v) & 15) == 0;
   const int rvec = kb % 2 == 0 && (reinterpret_cast<uintptr_t>(r) & 7) == 0;
-  fused_fwd_kernel<C, CB_P, R, STAGE><<<NB * FB_TB, cb_threads<CB_P>, (size_t)K * sizeof(int), s>>>(
-      v, r, kb, K, vec, rvec, cull, o, c);
+  fused_fwd_kernel<C, CB_P, R, STAGE, CUT>
+      <<<NB * FB_TB, cb_threads<CB_P>, (size_t)K * sizeof(int), s>>>(v, r, kb, K, vec, rvec, cull,
+                                                                     o, c);
   return (int)cudaGetLastError();
 }
 
@@ -554,6 +765,24 @@ extern "C" int d3ga_fused_stage(const void* vals, const void* rects, int NB, int
   return (int)cudaGetLastError();
 }
 
+// The forward cut at P3's `stage` (0-3, the header's cuts; 3 is d3ga_fused
+// itself); counts is written by stages 1-3.
+extern "C" int d3ga_fused_p3(const void* vals, const void* rects, int NB, int kb, int K, int C,
+                             int stage, void* out, void* counts, void* cuda_stream) {
+  FB_FWD_ARGS;
+#define CUT(CC)                                                            \
+  switch (stage) {                                                         \
+    case 0: return launch_fwd<CC, CF_R, 2, 0>(v, r, NB, kb, K, 1, o, c, s); \
+    case 1: return launch_fwd<CC, CF_R, 2, 1>(v, r, NB, kb, K, 1, o, c, s); \
+    case 2: return launch_fwd<CC, CF_R, 2, 2>(v, r, NB, kb, K, 1, o, c, s); \
+    case 3: return launch_fwd<CC, CF_R, 2>(v, r, NB, kb, K, 1, o, c, s);    \
+    default: return -1;                                                    \
+  }
+  CW_SWITCH_C(C, CUT)
+#undef CUT
+  return -1;
+}
+
 // One (design, stage) of launch_fwd_stage; -1 where it is not built.
 extern "C" int d3ga_fused_fwd_stage(const void* vals, const void* rects, int NB, int kb, int K,
                                     int C, void* out, void* counts, int design, int stage,
@@ -578,17 +807,48 @@ struct BwdArgs {
   cudaStream_t s;
 };
 
-template <int C>
-static int route(const BwdArgs& a) {
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((a.kb + CW_NPIX - 1) / CW_NPIX, a.NB);
-  fused_route_kernel<C><<<grid, CW_NPIX, 0, a.s>>>(a.r, a.kb, a.K, a.dr, a.se, a.li, a.dv);
+// The route (G threads a lane; dvals must be 16-byte aligned), or its
+// design before.
+template <int C, int G>
+static int launch_route(const BwdArgs& a) {
+  if ((reinterpret_cast<uintptr_t>(a.dv) & 15) != 0) return (int)cudaErrorMisalignedAddress;
+  const int vec = (reinterpret_cast<uintptr_t>(a.dr) & 15) == 0;
+  constexpr int lanes = FR_THREADS / G;
+  const dim3 grid((a.kb + lanes - 1) / lanes, a.NB);
+  fused_route_kernel<C, G><<<grid, FR_THREADS, 0, a.s>>>(a.r, a.kb, a.K, a.dr, a.se, a.li, vec,
+                                                         a.dv);
   return (int)cudaGetLastError();
 }
 
+template <int C>
+static int launch_route_v1(const BwdArgs& a) {
+  const dim3 grid((a.kb + CW_NPIX - 1) / CW_NPIX, a.NB);
+  fused_route_kernel_v1<C><<<grid, CW_NPIX, 0, a.s>>>(a.r, a.kb, a.K, a.dr, a.se, a.li, a.dv);
+  return (int)cudaGetLastError();
+}
+
+// design 0: the route's design before; 1: the route (FR_G threads a lane),
+// at every C; at FB_STAGE_C only, 2-6: 2, 4, 8, 16 and 32 threads a lane.
+template <int C>
+static int launch_route_design(const BwdArgs& a, int design) {
+  if (design == 0) return launch_route_v1<C>(a);
+  if (design == 1) return launch_route<C, FR_G>(a);
+  if constexpr (C == FB_STAGE_C) {
+    switch (design) {
+      case 2: return launch_route<C, 2>(a);
+      case 3: return launch_route<C, 4>(a);
+      case 4: return launch_route<C, 8>(a);
+      case 5: return launch_route<C, 16>(a);
+      case 6: return launch_route<C, 32>(a);
+      default: break;
+    }
+  }
+  return -1;
+}
+
+// Kernel 1 (per tile) into the scratch drec, sel, live.
 template <int C, int P, int STAGE>
-static int launch_bwd(const BwdArgs& a, int cull) {
+static int launch_bwd_tiles(const BwdArgs& a, int cull) {
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a.v) | reinterpret_cast<uintptr_t>(a.dr);
   const int vec = (a.K * (6 + C)) % 4 == 0 && (ptrs & 15) == 0;
   const size_t smem = sizeof(float) * CB_CHUNK * (6 + C) + sizeof(int) * a.K;
@@ -600,14 +860,23 @@ static int launch_bwd(const BwdArgs& a, int cull) {
   }
   fused_bwd_kernel<C, P, STAGE><<<a.NB * FB_TB, cb_threads<P>, smem, a.s>>>(
       a.v, a.r, a.g, a.kb, a.K, vec, cull, a.dr, a.se, a.li);
-  return route<C>(a);
+  return (int)cudaGetLastError();
 }
 
+// Kernel 1, then the route.
+template <int C, int P, int STAGE>
+static int launch_bwd(const BwdArgs& a, int cull) {
+  const int e = launch_bwd_tiles<C, P, STAGE>(a, cull);
+  return e != 0 ? e : launch_route<C, FR_G>(a);
+}
+
+// The backward's design before: its kernel 1, then the route's.
 template <int C>
 static int launch_bwd_v1(const BwdArgs& a) {
   fused_bwd_kernel_v1<C><<<a.NB * FB_TB, CW_NPIX, (size_t)a.K * sizeof(int), a.s>>>(
       a.v, a.r, a.g, a.kb, a.K, a.dr, a.se, a.li);
-  return route<C>(a);
+  const cudaError_t e = cudaGetLastError();
+  return e != cudaSuccess ? (int)e : launch_route_v1<C>(a);
 }
 
 // design 1: the kernel; 2: the kernel with the band cull off (stage 4, at
@@ -656,6 +925,31 @@ extern "C" int d3ga_fused_bwd_v1(const void* vals, const void* rects, const void
 #define BWD(CC) return launch_bwd_v1<CC>(a)
   CW_SWITCH_C(C, BWD)
 #undef BWD
+  return -1;
+}
+
+// Kernel 1 alone (the backward's per-tile kernel) into the scratch drec,
+// sel and live; dvals is not written.
+extern "C" int d3ga_fused_bwd_tiles(const void* vals, const void* rects, const void* g, int NB,
+                                    int kb, int K, int C, void* drec, void* sel, void* live,
+                                    void* dvals, void* cuda_stream) {
+  FB_BWD_ARGS;
+#define BWD(CC) return launch_bwd_tiles<CC, CB_P, 4>(a, 1)
+  CW_SWITCH_C(C, BWD)
+#undef BWD
+  return -1;
+}
+
+// The route alone (launch_route_design's `design`) from kernel 1's drec,
+// sel and live into dvals.
+extern "C" int d3ga_fused_route(const void* rects, int NB, int kb, int K, int C,
+                                const void* drec, const void* sel, const void* live,
+                                void* dvals, int design, void* cuda_stream) {
+  BwdArgs a{nullptr, (const int*)rects, nullptr, NB, kb, K, (float*)drec, (int*)sel,
+            (int*)live, (float*)dvals, (cudaStream_t)cuda_stream};
+#define RT(CC) return launch_route_design<CC>(a, design)
+  CW_SWITCH_C(C, RT)
+#undef RT
   return -1;
 }
 

@@ -7,9 +7,11 @@
   wide rows of the same bytes (`csrc/probes_widerow.cu`), row gathers and
   searches in PyTorch ops;
 - `fused_bisect.py` (P3, tools/fused_bisect.py): K9's forward cut at four
-  stages (the STAGE parameter of `csrc/fused.cu::fused_kernel_v1`, K9's
-  forward design before, whose whole build gives K9's tiles) and its
-  backward's two kernels timed apart.
+  stages (the CUT parameter of `csrc/fused.cu::fused_fwd_kernel`, whose
+  whole build is K9's forward; the design before's cuts stay as the
+  baseline) and its backward's two kernels timed apart;
+- `profiler_drops.py`: a bisect of the settings under which torch.profiler
+  drops whole calls (not a kernel probe).
 
 Each module has hand-written kernels with plain PyTorch versions beside
 them (the plain version runs for CPU tensors only; a CUDA tensor launches
@@ -24,10 +26,13 @@ cost. Trip counts are picked per case so the longer launch takes about
 `target_ms`. Single kernels are timed by CUDA events around launches
 queued behind a spin (`queued_ms`), kernels apart by torch.profiler
 (`profiled`, `device_ms`, which `chip_smoke.py` uses too, with the card's
-peak rates and the bound helpers below).
+peak rates and the bound helpers below). A profile that records fewer
+calls than it ran is kept in `SHORT_PROFILES` and handed to
+`on_short_profile` (chip_smoke.py prints it on its own line).
 """
 
 import json
+import os
 import time
 
 import torch
@@ -127,6 +132,13 @@ def slope(launch, device, target_ms=20.0, trips=None):
 MARKER = "spin_kernel"
 QUEUE_SPIN_CYCLES = 20_000_000  # ~10 ms at the 1.98 GHz boost: `queued_ms`'s head start
 PROFILE_ATTEMPTS = 5  # profiles `profiled` takes at most to record every call
+# host ms `profiled` waits between a profile's warm-up and its first timed
+# call: the profiler has lost calls at the start of its window, their
+# host events with their kernels (`profiler_drops.py`)
+PROFILE_LEAD_MS = 10.0
+# the marker cycles a call index of `profiled` (call i's marker spins 1 +
+# PROFILE_TAG (i + 1) cycles), which tell the lost calls apart (`lost_calls`)
+PROFILE_TAG = 20000
 
 
 def device_events(prof, DeviceType):
@@ -155,44 +167,129 @@ def per_call(event, calls):
     return event.self_device_time_total / event.count / 1e3 * n, n
 
 
+# the profiles `profiled` kept that recorded fewer calls than they ran:
+# {"where": its caller outside this module, "calls", "recorded",
+# "attempts", "lost": each attempt's lost call indices}; each is also
+# passed to on_short_profile where it is set
+SHORT_PROFILES = []
+on_short_profile = None
+
+
+def profile_once(fn, calls, device, schedule_steps=True, cpu=True, tag=0, lead_ms=0.0):
+    """One torch.profiler profile (CUDA activity, and CPU activity with
+    `cpu`) of a warm-up call and `calls` calls of fn, call i followed by a
+    marker kernel of 1 + tag (i + 1) cycles (tag > 0 tells the calls
+    apart by their markers' durations). With `schedule_steps` the window
+    is a profiler schedule (warm-up 1, active `calls`) stepped after each
+    call; else one plain `profile()` block, each timed call in a
+    `record_function("call#<i>")` range. The host waits `lead_ms` between
+    the warm-up and the first timed call. Returns (the profile, wall ms a
+    call, the calls it recorded, by its markers)."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler import record_function
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    kw = dict(schedule=schedule(wait=0, warmup=1, active=calls, repeat=1)) if schedule_steps else {}
+    with profile(activities=acts, **kw) as prof:
+        fn()
+        torch.cuda.synchronize(device)
+        if schedule_steps:
+            prof.step()
+        if lead_ms > 0:
+            time.sleep(lead_ms / 1e3)
+        t0 = time.perf_counter()
+        for i in range(calls):
+            if schedule_steps:
+                fn()
+                torch.cuda._sleep(1 + tag * (i + 1))
+            else:
+                with record_function(f"call#{i}"):
+                    fn()
+                    torch.cuda._sleep(1 + tag * (i + 1))
+            if i == calls - 1:  # the last step closes the window: its kernels must be done
+                torch.cuda.synchronize(device)
+                wall = (time.perf_counter() - t0) * 1e3 / calls
+            if schedule_steps:
+                prof.step()
+    return prof, wall, recorded_calls(prof, DeviceType)
+
+
+def marker_durations(prof):
+    """The device durations (us) of a profile's marker kernels, in order of
+    their start."""
+    from torch.autograd import DeviceType
+
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA and MARKER in e.name]
+    return [e.time_range.elapsed_us() for e in sorted(ev, key=lambda e: e.time_range.start)]
+
+
+def lost_calls(durations, calls):
+    """The indices of the calls whose markers a profile lacks, from the
+    recorded markers' durations (call i's marker lasts i + 1 units, the
+    `tag` of `profile_once`): each choice of one missing index is fitted,
+    and failing that the durations are read in units of their median
+    step."""
+    import numpy as np
+
+    d = np.asarray(durations, float)
+    if len(d) >= calls or len(d) == 0:
+        return [] if len(d) >= calls else list(range(calls))
+    if len(d) == calls - 1:
+        fits = []
+        for k in range(calls):
+            e = np.array([i + 1 for i in range(calls) if i != k], float)
+            fits.append((float(((d - d.dot(e) / e.dot(e) * e) ** 2).sum()), k))
+        return [min(fits)[1]]
+    u = np.median(np.diff(np.sort(d))) if len(d) > 1 else d[0]
+    seen = {int(round(x / u)) - 1 for x in d}
+    return sorted(set(range(calls)) - seen)
+
+
+def _caller():
+    """file:line of the nearest frame outside this module."""
+    import traceback
+
+    for fr in reversed(traceback.extract_stack()[:-1]):
+        if fr.filename != __file__:
+            return f"{os.path.basename(fr.filename)}:{fr.lineno}"
+    return "?"
+
+
 def profiled(fn, calls, device):
-    """torch.profiler (CPU and CUDA activity) over `calls` calls of fn,
-    after an unprofiled call and a warm-up call inside the profiler, each
-    call followed by a one-cycle marker kernel. A profile does not always
-    record every launch (it has dropped whole calls' kernels, in windows,
-    and once every call), so it is taken again, up to PROFILE_ATTEMPTS
-    times, until its markers count every call. Returns (the profile, wall
-    ms a call, the calls it recorded) of the attempt that recorded the
-    most calls, and the calls each attempt recorded; None off the card."""
+    """torch.profiler (CPU and CUDA activity, `profile_once`) over `calls`
+    calls of fn, after an unprofiled call and a warm-up call inside the
+    profiler and PROFILE_LEAD_MS of host time, each call followed by a
+    marker kernel (tagged: PROFILE_TAG). A profile does not always record
+    every launch (it has dropped whole calls' kernels and host events, in
+    windows, and once every call; always the window's first calls, more
+    of them late in a long process: `profiler_drops.py`), so it is taken
+    again, up to PROFILE_ATTEMPTS times, until its markers count every
+    call. Returns (the profile, wall ms a call, the calls it recorded) of
+    the attempt that recorded the most calls, and the calls each attempt
+    recorded; None off the card. Where even that one recorded
+    fewer than `calls`, it is kept in SHORT_PROFILES with each attempt's
+    lost call indices (`lost_calls`), and passed to on_short_profile."""
     device = torch.device(device)
     if device.type != "cuda":
         return None
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
-
     fn()
     torch.cuda.synchronize(device)
-    best, attempts = None, []
+    best, attempts, lost = None, [], []
     for _ in range(PROFILE_ATTEMPTS):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=calls, repeat=1)) as prof:
-            fn()
-            torch.cuda.synchronize(device)
-            prof.step()
-            t0 = time.perf_counter()
-            for i in range(calls):
-                fn()
-                torch.cuda._sleep(1)
-                if i == calls - 1:  # the last step closes the window: its kernels must be done
-                    torch.cuda.synchronize(device)
-                    wall = (time.perf_counter() - t0) * 1e3 / calls
-                prof.step()
-        recorded = recorded_calls(prof, DeviceType)
-        attempts.append(recorded)
-        if best is None or recorded > best[2]:
-            best = (prof, wall, recorded)
-        if recorded == calls:
+        run = profile_once(fn, calls, device, tag=PROFILE_TAG, lead_ms=PROFILE_LEAD_MS)
+        attempts.append(run[2])
+        lost.append(lost_calls(marker_durations(run[0]), calls) if run[2] < calls else [])
+        if best is None or run[2] > best[2]:
+            best = run
+        if run[2] == calls:
             break
+    if best[2] < calls:
+        short = {"where": _caller(), "calls": calls, "recorded": best[2], "attempts": attempts,
+                 "lost": lost}
+        SHORT_PROFILES.append(short)
+        if on_short_profile is not None:
+            on_short_profile(short)
     return (*best, attempts)
 
 
@@ -266,7 +363,8 @@ def reset_launches():
     """Every probe kernel's launch counter to 0."""
     from d3ga_tpu_torch.probes import fused_bisect, mxu, widerow
 
-    for counts in (mxu.launches, mxu.v1_launches, fused_bisect.launches):
+    for counts in (mxu.launches, mxu.v1_launches, fused_bisect.launches,
+                   fused_bisect.v1_launches):
         for k in counts:
             counts[k] = 0
     widerow.launches = widerow.v1_launches = 0

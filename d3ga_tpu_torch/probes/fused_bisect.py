@@ -2,20 +2,25 @@
 timed apart (counterpart of tools/fused_bisect.py).
 
 The TPU tool cut K9 v1's body (attic/pallas_fused.py) into four kernels to
-find the stage a compiler refused. Here the cut is the STAGE parameter of
-`csrc/fused.cu::fused_kernel_v1`, K9's forward design before (one thread
-a pixel), so each stage runs that design's own code and stops:
+find the stage a compiler refused. Here the cut is the CUT parameter of
+`csrc/fused.cu::fused_fwd_kernel`, K9's forward (`d3ga_fused_p3`), so each
+stage runs the kernel's own code and stops, writing through its 16-byte
+row stores:
 
   0  writes only: 1.0 to every output
   1  mask + positions: the selection, the tile's count to every pixel
-  2  compaction: the selection, then the sum of channels [0, C] of the
-     first min(count, K) selected candidates, plus the count
-  3  blend: K9's forward tiles (the current kernel's to the bit)
+  2  compaction: the selection, the staging of the first min(count, K)
+     selected candidates' records and the sum of their channels [0, C]
+     (in a fixed order), plus the count
+  3  blend: K9's forward tiles (`d3ga_fused` itself)
 
-The deltas between the stages' device times split that design. K9's
-backward is two launches (`fused_bwd_kernel` per tile, `fused_route_kernel`
-per block and lane); `backward_split` reads each one's device time from
-torch.profiler.
+The deltas between the stages' times split the kernel. The same four cuts
+of K9's forward design before (`fused_kernel_v1<C, STAGE>`, one thread a
+pixel, `d3ga_fused_stage`) stay as P3's baseline, `stage_v1`, on CUDA
+tensors only. K9's backward is two launches (`fused_bwd_kernel` per tile,
+`fused_route_kernel` per block and lane); `backward_split` times each
+alone (`fused.select_blend_bwd_tiles`, `fused.route`) and the whole call,
+by CUDA events around calls queued behind a spin (`probes.queued_ms`).
 
 `stage(vals, rects, K, C, s)` takes K9's records-major inputs (vals
 [NB, kb, 16] float32, rects [NB, kb] int32) and returns [NB, 64, 256,
@@ -31,8 +36,6 @@ candidates, K 256, C 6).
 """
 
 import argparse
-import ctypes
-import functools
 import sys
 
 import numpy as np
@@ -48,8 +51,10 @@ BWD_KERNELS = ("fused_bwd_kernel", "fused_route_kernel")
 REPLACES = ("tools/fused_bisect.py:50", "tools/fused_bisect.py:59", "tools/fused_bisect.py:80",
             "tools/fused_bisect.py:104")
 
-# one per launch of a stage (never for the plain versions)
+# one per launch of a stage (never for the plain versions), and of a
+# stage of the design before
 launches = {s: 0 for s in range(len(STAGES))}
+v1_launches = {s: 0 for s in range(len(STAGES))}
 
 
 def make_inputs(NB, NC, C, seed=0):
@@ -92,13 +97,29 @@ def stage_plain(vals, rects, K, C, s):
     return per_tile[:, :, None, :].expand(shape).contiguous()
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = cuda_build.load("fused").d3ga_fused_stage
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, i, i, i, i, i, p, p, p]
-    fn.restype = ctypes.c_int
-    return fn
+def _launch_stage(vals, rects, K, C, s, entry):
+    """Launches stage s through `entry` of csrc/fused.cu ("d3ga_fused_p3"
+    the kernel's cuts, "d3ga_fused_stage" the design before's): (out, 1 if
+    it launched else 0)."""
+    if s not in launches:
+        raise ValueError(f"stage {s}: one of 0-3")
+    NB, kb = fused._check("stage", vals, rects, K, C)
+    out = torch.empty((NB, fused.TB, fused.NPIX, C + 1), dtype=torch.float32, device=vals.device)
+    counts = torch.empty((NB, fused.TB), dtype=torch.int32, device=vals.device)
+    if NB == 0:
+        return out, 0
+    err = getattr(fused._kernels(), entry)(vals.data_ptr(), rects.data_ptr(), NB, kb, K, C, s,
+                                           out.data_ptr(), counts.data_ptr(),
+                                           cuda_build.stream_handle(vals.device))
+    if err != 0:
+        raise RuntimeError(f"stage {s}: kernel launch failed (error {err})")
+    return out, 1
+
+
+def _launch(vals, rects, K, C, s):
+    out, n = _launch_stage(vals, rects, K, C, s, "d3ga_fused_p3")
+    launches[s] += n
+    return out
 
 
 def stage(vals, rects, K, C, s):
@@ -106,39 +127,38 @@ def stage(vals, rects, K, C, s):
     CPU tensors take `stage_plain`."""
     if s not in launches:
         raise ValueError(f"stage {s}: one of 0-3")
-    NB, kb = fused._check("stage", vals, rects, K, C)
+    fused._check("stage", vals, rects, K, C)
     if vals.device.type == "cpu":
         return stage_plain(vals, rects, K, C, s)
     if vals.device.type != "cuda":
         raise ValueError(f"stage: unsupported device {vals.device}")
-    out = torch.empty((NB, fused.TB, fused.NPIX, C + 1), dtype=torch.float32, device=vals.device)
-    counts = torch.empty((NB, fused.TB), dtype=torch.int32, device=vals.device)
-    if NB == 0:
-        return out
-    err = _kernel()(vals.data_ptr(), rects.data_ptr(), NB, kb, K, C, s, out.data_ptr(),
-                    counts.data_ptr(), cuda_build.stream_handle(vals.device))
-    if err != 0:
-        raise RuntimeError(f"stage {s}: kernel launch failed (error {err})")
-    launches[s] += 1
+    return _launch(vals, rects, K, C, s)
+
+
+def stage_v1(vals, rects, K, C, s):
+    """Stage s of K9's forward design before (`fused_kernel_v1`, the
+    baseline P3's cuts are timed against), on CUDA tensors only."""
+    fused._card_only("stage_v1", vals)
+    out, n = _launch_stage(vals, rects, K, C, s, "d3ga_fused_stage")
+    v1_launches[s] += n
     return out
 
 
 def backward_split(vals, rects, g, K, C, iters=10):
-    """Device ms of K9's backward (`fused.select_blend_bwd`), by kernel:
-    `probes.device_ms` with BWD_KERNELS' names (each runs once a call).
-    Where the profiler needed more than one attempt to record every call
-    (it drops whole calls now and then) or recorded none, the call is also
-    timed by `probes.queued_ms` ("queued_ms"), and "attempts" says what
-    each profile recorded. None off the card."""
+    """Device ms a call of K9's backward (`fused.select_blend_bwd`, "total")
+    and of its two kernels alone (BWD_KERNELS: the per-tile kernel by
+    `fused.select_blend_bwd_tiles`, the route by `fused.route` on that
+    kernel's scratch), each by `probes.queued_ms` (no profiler; None where
+    the launches did not queue behind the spin). None off the card."""
     if vals.device.type != "cuda":
         return None
-    fn = lambda: fused.select_blend_bwd(vals, rects, g, K, C)  # noqa: E731
-    d = probes.device_ms(fn, iters, vals.device, BWD_KERNELS)
-    if d is None:
-        d = {"total": None, "attempts": "no call recorded in any profile"}
-    if d["total"] is None or len(d["attempts"]) > 1:
-        d["queued_ms"] = probes.queued_ms(fn, iters, vals.device)
-    return d
+    scratch = fused.select_blend_bwd_tiles(vals, rects, g, K, C)
+    fns = {"total": lambda: fused.select_blend_bwd(vals, rects, g, K, C),
+           BWD_KERNELS[0]: lambda: fused.select_blend_bwd_tiles(vals, rects, g, K, C),
+           BWD_KERNELS[1]: lambda: fused.route(rects, *scratch, K, C)}
+    out = {k: probes.queued_ms(fn, iters, vals.device) for k, fn in fns.items()}
+    out["clock"] = "device (queued CUDA events)"
+    return out
 
 
 def bounds(vals, rects, K, C, pairs):
@@ -161,9 +181,9 @@ def bounds(vals, rects, K, C, pairs):
 def run(vals, rects, K, C, iters=20, g=None):
     """Rows on these inputs: each stage's ms a call (`probes.queued_ms`:
     device time on the card, the host clock on the CPU: "clock"), the delta
-    from the stage before, its bound; then K9's backward's kernels
-    (`backward_split`) for the cotangent g (seeded normal where None).
-    Returns (rows, the walk's pixel-slot pairs)."""
+    from the stage before, its bound; then K9's backward and its kernels
+    apart (`backward_split`) for the cotangent g (seeded normal where
+    None). Returns (rows, the walk's pixel-slot pairs)."""
     device = vals.device
     _, _, pairs = fused.select_blend_plain(vals, rects, K, C, count_pairs=True)
     rows, prev = [], 0.0

@@ -42,13 +42,19 @@ The backward's per-tile kernel walks a tile with 128 threads of two
 pixels each, skips the slots a warp's rows cannot take (a band cull) and
 sums each slot's cotangents by a warp reduce-scatter
 (`csrc/coeff_walk_bwd.cuh`). Its design before (one thread a pixel,
-`coeff_walk.cuh`'s walk, which K8's backward still uses) stays in
-the source as `d3ga_fused_bwd_v1`, reached only by
-`select_blend_bwd_baseline`; `select_blend_bwd_stage` launches one of
-the `BWD_DESIGNS` whole (the kernel with the band cull off among them,
-the reference for the cull's bits) or, at C = STAGE_C only, the kernel
-cut at one of the `BWD_STAGES`, with its own counters. chip_smoke.py
-uses these entry points to check the culls' bits and to time the designs
+`coeff_walk.cuh`'s walk) stays in the source as `d3ga_fused_bwd_v1`,
+reached only by `select_blend_bwd_baseline`; `select_blend_bwd_stage`
+launches one of the `BWD_DESIGNS` whole (the kernel with the band cull
+off among them, the reference for the cull's bits) or, at C = STAGE_C
+only, the kernel cut at one of the `BWD_STAGES`, with its own counters.
+The backward's second kernel, the route, sums each lane's slot rows over
+its rect's tiles in tile order: a group of ROUTE_GROUP threads a lane
+searches the tiles side by side and adds the rows in the design before's
+order, so d(vals) keeps its bits. `select_blend_bwd_tiles` launches the
+per-tile kernel alone and `route` one of the `ROUTE_DESIGNS` on its
+scratch (the design before, one thread a lane, among them; `route_plain`
+on `scratch_lanes` is the plain version). chip_smoke.py uses these entry
+points to check the culls' and the route's bits and to time the designs
 and the stages in turns; none is on any path of the port.
 
 The plain versions work block by block: per tile the rect mask, the
@@ -80,9 +86,21 @@ MAX_K = 1024  # the kernels keep a tile's K lane ids in shared memory
 BLOCK_CHUNK = 8  # blocks a step of the plain versions: [8 * 64, 256, K] intermediates
 
 # one per launch of the CUDA kernels (never for the plain versions); the
-# backward's two kernels (per tile, then per block and lane) count once
+# backward's two kernels (per tile, then the route, per block and lane)
+# count once in bwd_launches, and the route again in route_launches
 launches = 0
 bwd_launches = 0
+route_launches = 0
+# the route's designs (`route`): its design before, the route at
+# ROUTE_GROUP threads a lane (every C), and at STAGE_C the route at 2, 4,
+# 8, 16 and 32 threads a lane; each has the same bits
+ROUTE_DESIGNS = {"baseline": 0, "kernel": 1, "kernel_g2": 2, "kernel_g4": 3, "kernel_g8": 4,
+                 "kernel_g16": 5, "kernel_g32": 6}
+ROUTE_GROUP = 4
+# one per launch of the route alone and of the per-tile kernel alone
+# (chip_smoke.py's comparisons and P3's timing only)
+route_design_launches = dict.fromkeys(ROUTE_DESIGNS, 0)
+tiles_launches = 0
 # the backward's stage cuts (csrc/coeff_walk_bwd.cuh): each writes what it
 # computed, so the differences of their device times split the per-tile
 # kernel; stage 4 is the kernel
@@ -234,13 +252,31 @@ def select_blend_bwd_plain(vals, rects, g, K, C, block_chunk=BLOCK_CHUNK):
             -0.5 * d0 * y * y + d2 * y - 0.5 * d4,
             dop.reshape(nb, TB, Kk),
         ], -1)
-        drec = torch.cat([drec, dcol.reshape(nb, TB, Kk, C)], -1)
-        drec = torch.where(hit[..., None], drec, 0.0).reshape(nb, TB * Kk, 6 + C)
-        # tile order: slot rows are tile-major, scatter_add_ sums in index order
-        idx = torch.where(hit, lanes, kb).reshape(nb, TB * Kk, 1).expand(-1, -1, 6 + C)
-        dv = vals.new_zeros((nb, kb + 1, 6 + C)).scatter_add_(1, idx, drec)
-        out.append(Fn.pad(dv[:, :kb], (0, NCH - 6 - C)))
+        out.append(route_plain(torch.cat([drec, dcol.reshape(nb, TB, Kk, C)], -1), lanes, kb))
     return torch.cat(out, 0)
+
+
+def route_plain(drec, lanes, kb):
+    """Plain PyTorch version of K9's route (the backward's kernel 2): each
+    slot's row of drec [nb, 64, Kk, 6 + C] added to its lane lanes
+    [nb, 64, Kk] (kb or more: no slot, its row not read), summed in tile
+    order; d(vals) [nb, kb, 16], 0 in the padding channels and for lanes
+    no tile selected."""
+    nb, _, Kk, CR = drec.shape
+    hit = lanes < kb
+    drec = torch.where(hit[..., None], drec, 0.0).reshape(nb, TB * Kk, CR)
+    # tile order: slot rows are tile-major, scatter_add_ sums in index order
+    idx = torch.where(hit, lanes, kb).reshape(nb, TB * Kk, 1).expand(-1, -1, CR)
+    dv = drec.new_zeros((nb, kb + 1, CR)).scatter_add_(1, idx, drec)
+    return Fn.pad(dv[:, :kb], (0, NCH - CR))
+
+
+def scratch_lanes(sel, live, kb):
+    """The backward's kernel-1 scratch sel [NB * 64, K] and live [NB * 64]
+    as `route_plain`'s lanes [NB, 64, K]: kb past each tile's live count."""
+    K = sel.shape[1]
+    keep = torch.arange(K, device=sel.device)[None] < live[:, None]
+    return torch.where(keep, sel, kb).reshape(-1, TB, K)
 
 
 @functools.lru_cache(maxsize=None)
@@ -250,15 +286,23 @@ def _kernels():
 
 def bind(lib):
     """Declares the entry points' C signatures on `lib`, a loaded build
-    of csrc/fused.cu; returns it."""
+    of csrc/fused.cu (another tree's may lack the newer ones); returns
+    it."""
     p, i = ctypes.c_void_p, ctypes.c_int
     fwd_args = [p, p, i, i, i, i, p, p]
     bwd_args = [p, p, p, i, i, i, i, p, p, p, p]
+    cut_args = [p, p, i, i, i, i, i, p, p, p]
     for name, args in (("d3ga_fused", fwd_args + [p]), ("d3ga_fused_v1", fwd_args + [p]),
                        ("d3ga_fused_fwd_stage", fwd_args + [i, i, p]),
+                       ("d3ga_fused_stage", cut_args), ("d3ga_fused_p3", cut_args),
                        ("d3ga_fused_bwd", bwd_args + [p]), ("d3ga_fused_bwd_v1", bwd_args + [p]),
-                       ("d3ga_fused_bwd_stage", bwd_args + [i, i, p])):
-        fn = getattr(lib, name)
+                       ("d3ga_fused_bwd_stage", bwd_args + [i, i, p]),
+                       ("d3ga_fused_bwd_tiles", bwd_args + [p]),
+                       ("d3ga_fused_route", [p, i, i, i, i, p, p, p, p, i, p])):
+        try:
+            fn = getattr(lib, name)
+        except AttributeError:
+            continue
         fn.argtypes = args
         fn.restype = ctypes.c_int
     return lib
@@ -336,9 +380,10 @@ def _launch_bwd(vals, rects, g, K, C, name="select_blend_bwd", entry="d3ga_fused
 
 
 def _launch_k9_bwd(vals, rects, g, K, C):
-    global bwd_launches
+    global bwd_launches, route_launches
     dvals, n = _launch_bwd(vals, rects, g, K, C)
     bwd_launches += n
+    route_launches += n
     return dvals
 
 
@@ -398,8 +443,8 @@ def select_blend_stage(vals, rects, K, C, stage, design="kernel"):
 
 def select_blend_bwd_baseline(vals, rects, g, K, C):
     """K9's backward in its design before (`d3ga_fused_bwd_v1`: one
-    thread a pixel, coeff_walk.cuh's walk, then the same route kernel) on
-    CUDA tensors, for timing against `select_blend_bwd`."""
+    thread a pixel, coeff_walk.cuh's walk, then the route's design before)
+    on CUDA tensors, for timing against `select_blend_bwd`."""
     global baseline_launches
     _card_only("select_blend_bwd_baseline", vals)
     dvals, n = _launch_bwd(vals, rects, g.contiguous(), K, C, "select_blend_bwd_baseline",
@@ -430,6 +475,75 @@ def select_blend_bwd_stage(vals, rects, g, K, C, stage, design="kernel"):
                            "d3ga_fused_bwd_stage", (BWD_DESIGNS[design], stage),
                            zero=stage != whole)
     stage_launches[design, stage] += n
+    return dvals
+
+
+def select_blend_bwd_tiles(vals, rects, g, K, C):
+    """The backward's per-tile kernel alone (`d3ga_fused_bwd_tiles`) on
+    CUDA tensors: its scratch (drec [NB * 64, K, 6 + C] float32, sel
+    [NB * 64, K] int32, live [NB * 64] int32; rows and ids past each
+    tile's live count unwritten), the route's inputs."""
+    global tiles_launches
+    name = "select_blend_bwd_tiles"
+    _card_only(name, vals)
+    NB, kb = _check(name, vals, rects, K, C)
+    dev = vals.device
+    g = g.contiguous()
+    if (g.dtype != torch.float32 or tuple(g.shape) != (NB, TB, NPIX, C + 1)
+            or g.device != dev):
+        raise ValueError(f"{name}: cotangent {g.dtype} {tuple(g.shape)} on {g.device}")
+    drec = torch.empty((NB * TB, K, 6 + C), dtype=torch.float32, device=dev)
+    sel = torch.empty((NB * TB, K), dtype=torch.int32, device=dev)
+    live = torch.empty((NB * TB,), dtype=torch.int32, device=dev)
+    if NB == 0:
+        return drec, sel, live
+    err = _kernels().d3ga_fused_bwd_tiles(
+        vals.data_ptr(), rects.data_ptr(), g.data_ptr(), NB, kb, K, C, drec.data_ptr(),
+        sel.data_ptr(), live.data_ptr(), 0, cuda_build.stream_handle(dev))
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed (error {err})")
+    tiles_launches += 1
+    return drec, sel, live
+
+
+def route(rects, drec, sel, live, K, C, design="kernel"):
+    """K9's route alone (`d3ga_fused_route`), one of ROUTE_DESIGNS, on CUDA
+    tensors: d(vals) [NB, kb, 16] from the per-tile kernel's scratch (drec
+    [NB * 64, K, 6 + C] float32, sel [NB * 64, K] and live [NB * 64]
+    int32, each tile's ids ascending, of lanes whose rects [NB, kb] hold
+    it). The designs other than "kernel" and "baseline" take C = STAGE_C
+    only. `route_plain` on `scratch_lanes` is its plain version."""
+    name = "route"
+    if design not in ROUTE_DESIGNS:
+        raise ValueError(f"{name}: design {design!r}")
+    if design.startswith("kernel_g") and C != STAGE_C:
+        raise ValueError(f"{name}: {design} is built for C = {STAGE_C} only, not {C}")
+    if not 1 <= C <= MAX_C:
+        raise ValueError(f"{name}: C={C} unsupported (1..{MAX_C})")
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"{name}: K={K} unsupported (1..{MAX_K})")
+    _card_only(name, drec)
+    if rects.dtype != torch.int32 or rects.ndim != 2:
+        raise ValueError(f"{name}: rects must be [NB, kb] int32")
+    NB, kb = rects.shape
+    want = {"drec": (drec, torch.float32, (NB * TB, K, 6 + C)),
+            "sel": (sel, torch.int32, (NB * TB, K)), "live": (live, torch.int32, (NB * TB,))}
+    for k, (t, dt, shape) in want.items():
+        if t.dtype != dt or tuple(t.shape) != shape or t.device != drec.device:
+            raise ValueError(f"{name}: {k} {t.dtype} {tuple(t.shape)} on {t.device}: expected "
+                             f"{dt} {shape}")
+    if rects.device != drec.device or not all(
+            t.is_contiguous() for t in (rects, drec, sel, live)):
+        raise ValueError(f"{name}: inputs must be contiguous and on one device")
+    dvals = torch.empty((NB, kb, NCH), dtype=torch.float32, device=drec.device)
+    if NB == 0:
+        return dvals
+    err = _kernels().d3ga_fused_route(rects.data_ptr(), NB, kb, K, C, drec.data_ptr(),
+                                      sel.data_ptr(), live.data_ptr(), dvals.data_ptr(),
+                                      ROUTE_DESIGNS[design], cuda_build.stream_handle(drec.device))
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed (error {err})")
+    route_design_launches[design] += 1
     return dvals
 
 

@@ -1,11 +1,14 @@
 """The blend wrappers' launch counters count launches only.
 
 `chip_smoke.py` reads the counters of `raster/blend.py` (K8),
-`raster/fused.py` (K9), `raster/blend_ct.py` (K2, K3) and
-`raster/blend_rec.py` (K5) to show that a path went through its kernels
-and that no design before ran on it. A wrapper adds to its counter where
-its kernel launches and nowhere else: a call on empty inputs (no tile, or
-K8's backward with no slot) returns its zeros and launches nothing.
+`raster/fused.py` (K9, its route and per-tile kernel alone among them),
+`raster/blend_ct.py` (K2, K3), `raster/blend_rec.py` (K5) and
+`probes/fused_bisect.py` (P3's cuts and their design before) to show that
+a path went through its kernels and that no design before ran on it. A
+wrapper adds to its counter where its kernel launches and nowhere else: a
+call on empty inputs (no tile, or K8's backward with no slot) returns its
+zeros and launches nothing. K9's backward launches the per-tile kernel
+and the route, and counts in both `bwd_launches` and `route_launches`.
 
 The kernel libraries stand in here for a fake whose every entry point
 returns 0 (a launch that succeeded), and the card-only wrappers take CPU
@@ -15,6 +18,7 @@ tensors, so the counting is held without a card.
 import pytest
 import torch
 
+from d3ga_tpu_torch.probes import fused_bisect
 from d3ga_tpu_torch.raster import blend, blend_ct, blend_rec, fused
 from d3ga_tpu_torch.utils import cuda_build
 
@@ -22,10 +26,12 @@ COUNTERS = {
     blend: ("launches", "bwd_launches", "baseline_launches", "stage_launches",
             "bwd_baseline_launches", "bwd_stage_launches"),
     fused: ("launches", "bwd_launches", "fwd_baseline_launches", "fwd_stage_launches",
-            "baseline_launches", "stage_launches"),
+            "baseline_launches", "stage_launches", "route_launches", "route_design_launches",
+            "tiles_launches"),
     blend_ct: ("launches", "bwd_launches", "fwd_baseline_launches", "fwd_stage_launches",
                "baseline_launches", "stage_launches"),
     blend_rec: ("launches", "bwd_launches", "fwd_baseline_launches", "bwd_baseline_launches"),
+    fused_bisect: ("launches", "v1_launches"),
 }
 
 
@@ -45,7 +51,8 @@ def fake_card(monkeypatch):
         for loader in ("_kernels", "_lib", "_bwd_lib"):
             if hasattr(mod, loader):
                 monkeypatch.setattr(mod, loader, lambda: lib)
-        monkeypatch.setattr(mod, "_card_only", lambda name, t: None)
+        if hasattr(mod, "_card_only"):
+            monkeypatch.setattr(mod, "_card_only", lambda name, t: None)
         for name in names:
             v = getattr(mod, name)
             monkeypatch.setattr(mod, name, dict.fromkeys(v, 0) if isinstance(v, dict) else 0)
@@ -76,6 +83,7 @@ def k9_calls(NB):
     vals, rects = torch.zeros((NB, kb, fused.NCH)), torch.zeros((NB, kb), dtype=torch.int32)
     g = torch.zeros((NB, fused.TB, fused.NPIX, C + 1))
     wf, wb = len(fused.FWD_STAGES) - 1, len(fused.BWD_STAGES) - 1
+    drec, sel, live = route_scratch(NB, K, C)
     run = NB > 0
     return [
         (lambda: fused._launch(vals, rects, K, C), "launches", None, run),
@@ -83,11 +91,37 @@ def k9_calls(NB):
          run),
         (lambda: fused.select_blend_stage(vals, rects, K, C, wf), "fwd_stage_launches",
          ("kernel", wf), run),
-        (lambda: fused._launch_k9_bwd(vals, rects, g, K, C), "bwd_launches", None, run),
+        (lambda: fused._launch_k9_bwd(vals, rects, g, K, C), ("bwd_launches", "route_launches"),
+         None, run),
         (lambda: fused.select_blend_bwd_baseline(vals, rects, g, K, C), "baseline_launches", None,
          run),
         (lambda: fused.select_blend_bwd_stage(vals, rects, g, K, C, wb), "stage_launches",
          ("kernel", wb), run),
+        (lambda: fused.select_blend_bwd_tiles(vals, rects, g, K, C), "tiles_launches", None, run),
+    ] + [
+        (lambda d=d: fused.route(rects, drec, sel, live, K, C, design=d), "route_design_launches",
+         d, run) for d in fused.ROUTE_DESIGNS
+    ]
+
+
+def route_scratch(NB, K, C):
+    """The route's inputs of NB blocks (zeros: the fake launches read
+    nothing)."""
+    T = NB * fused.TB
+    return (torch.zeros((T, K, 6 + C)), torch.zeros((T, K), dtype=torch.int32),
+            torch.zeros((T,), dtype=torch.int32))
+
+
+def p3_calls(NB):
+    C, K, kb = 3, 8, 4
+    vals, rects = torch.zeros((NB, kb, fused.NCH)), torch.zeros((NB, kb), dtype=torch.int32)
+    run = NB > 0
+    return [
+        (lambda s=s: fused_bisect._launch(vals, rects, K, C, s), "launches", s, run)
+        for s in range(len(fused_bisect.STAGES))
+    ] + [
+        (lambda s=s: fused_bisect.stage_v1(vals, rects, K, C, s), "v1_launches", s, run)
+        for s in range(len(fused_bisect.STAGES))
     ]
 
 
@@ -140,22 +174,25 @@ CASES = {
     "K2/K3": (blend_ct, lambda: k2_k3_calls(2)),
     "K5, no tile": (blend_rec, lambda: k5_calls(0)),
     "K5": (blend_rec, lambda: k5_calls(2)),
+    "P3, no block": (fused_bisect, lambda: p3_calls(0)),
+    "P3": (fused_bisect, lambda: p3_calls(1)),
 }
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_wrappers_count_launches_only(fake_card, case):
-    """Each wrapper, called once, adds one to its own counter where it
-    launched its kernel and nothing where its inputs were empty; no other
-    counter moves."""
+    """Each wrapper, called once, adds one to its own counter (or
+    counters) where it launched its kernel and nothing where its inputs
+    were empty; no other counter moves."""
     mod, calls = CASES[case]
     for call, name, key, launched in calls():
+        names = name if isinstance(name, tuple) else (name,)
         before = {n: dict(v) if isinstance(v, dict) else v
                   for n in COUNTERS[mod] for v in (getattr(mod, n),)}
         call()
         for n in COUNTERS[mod]:
             now = getattr(mod, n)
             want = before[n]
-            if n == name and launched:
+            if n in names and launched:
                 want = want + 1 if key is None else {**want, key: want[key] + 1}
             assert now == want, (case, name, n)

@@ -421,6 +421,8 @@ def test_kernels_match_plain(cuda_device):
     _, _, rec, rr = stage_inputs(2)
     rec, rr = rec.to(cuda_device), rr.to(cuda_device)
     for s in range(2):
-        assert torch.equal(fused_bisect.stage(rec, rr, BK, BC, s),
-                           fused_bisect.stage_plain(rec, rr, BK, BC, s))
-    assert torch.equal(fused_bisect.stage(rec, rr, BK, BC, 3), fused.select_blend(rec, rr, BK, BC)[0])
+        for stage in (fused_bisect.stage, fused_bisect.stage_v1):
+            assert torch.equal(stage(rec, rr, BK, BC, s),
+                               fused_bisect.stage_plain(rec, rr, BK, BC, s))
+    for stage in (fused_bisect.stage, fused_bisect.stage_v1):
+        assert torch.equal(stage(rec, rr, BK, BC, 3), fused.select_blend(rec, rr, BK, BC)[0])
