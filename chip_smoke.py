@@ -14,7 +14,10 @@ on frame 0's Gaussians, K8 (the blend over precomputed coefficients,
 forward and backward) at the stage bench's shapes, and the card probes
 P1-P3 (the port of the TPU tools mxu_probe, widerow_probe and fused_bisect:
 matmuls in FP32 SIMT, TF32 and 3xTF32, a roll + select chain, a
-passthrough over narrow and wide rows, K9's forward cut at four stages).
+passthrough over narrow and wide rows, K9's forward cut at four stages;
+P1's roll in every design of `mxu.ROLL_DESIGNS`, each bit-equal to plain
+and timed in turns against the design before, with its sync floor,
+registers and cluster occupancy).
 K1 and K4 are also held bit-equal to their plain versions and to their
 baseline designs (the designs before, kept as `*_baseline` entry points
 that no path of the port calls) on edge inputs and on the main path's own
@@ -78,6 +81,14 @@ Gaussians, 1024 x 667 pixels, random weights from seed 0):
   SSIM + regularizers, clipped Adam): one step's loss terms and every
   parameter leaf's gradient with the kernels against the plain versions,
   then 10 steps;
+- capture: the capture configs' training options on the same step
+  (`CAPTURE_CONFIGS`): configs/goliath_axe184.yml's learnable blur, then
+  every option the port added for them at once (blur, the pixel bias, a
+  bg net with the blurred-noise target live, optimizable poses and
+  global rotation / translation through the rebuilt camera, the random
+  VGG stack's term), each with one step's terms and gradients kernels
+  vs plain, every added leaf's gradient finite and nonzero, then 5 steps
+  with K1-K4 once a step, ms/step and a profile;
 - sharded: on a NCCL world of one process (one card; NCCL puts no two
   ranks on one GPU), `rasterize_sharded` on frame 0's Gaussians against
   the single-device `rasterize_tiled`, then bench_scaling.py's banded
@@ -143,9 +154,10 @@ from d3ga_tpu_torch.raster import api, blend, blend_ct, blend_rec, extract, fuse
 from d3ga_tpu_torch.raster.camera import focal2fov, make_camera
 from d3ga_tpu_torch.raster.project import project_gaussians
 from d3ga_tpu_torch.raster.tiles import bin_gaussians, rasterize_tiled
-from d3ga_tpu_torch.train.losses import full_float32
+from d3ga_tpu_torch.train.losses import full_float32, init_vgg19_features
 from d3ga_tpu_torch.train.optim import lr_tree_from_config, make_optimizer
-from d3ga_tpu_torch.train.step import LossWeights, make_train_step, random_bg
+from d3ga_tpu_torch.train.step import (LossWeights, make_train_step, needs_noise, random_bg,
+                                       random_noise)
 from d3ga_tpu_torch.utils import cuda_build
 from d3ga_tpu_torch.utils.tree import tree_leaves
 
@@ -170,6 +182,26 @@ ACTORSHQ_CONFIG = {
     "raster_backend": "pallas_blend", "raster_opts": {"coarse": "dupsort_tile", "dup": 4},
 }
 VARIANT_STEPS = 5  # training steps under those settings, in each blend layout
+# the capture configs' training options (configs/goliath_axe184.yml:
+# use_blur, on bench_train.py's raster configuration), then every option
+# the port added for them at once: blur, the pixel bias, a bg net whose
+# warm-up (enable_bg) is still on (the blurred-noise target live),
+# optimizable poses and global rotation / translation with the capture
+# extrinsics (the camera rebuilt in the graph), the random VGG stack
+# counted from iteration 1 (run at iteration 2)
+CAPTURE_CONFIGS = {
+    "goliath": dict(TRAIN_CONFIG, use_blur=True),
+    "every": dict(TRAIN_CONFIG, use_blur=True, use_pixel_cal=True, use_bg_network=True,
+                  enable_bg=1000, use_opt_smplx=True, image_height=HEIGHT, image_width=WIDTH),
+}
+CAPTURE_ITERATION, CAPTURE_VGG_FROM = 2, 1
+CAPTURE_STEPS = 5  # training steps of each capture config
+# the leaves each config adds, whose gradients must be finite and nonzero
+CAPTURE_LEAVES = {
+    "goliath": ("learnable_blur",),
+    "every": ("learnable_blur", "pixel_cal", "bg_net", "optimizable_poses",
+              "optimizable_rotations", "optimizable_translations"),
+}
 FUSED_CONFIG = {"raster_backend": "fused"}  # the JAX package's fused backend
 FUSED_STEPS = 5  # training steps under it
 BLOCK_CAP = 4096  # rasterize_tiled_fused's default candidates a block
@@ -1510,7 +1542,8 @@ def off_path_launches():
     """Launches, since the counts were reset, of what no path of the port
     calls: the baseline designs of K1, K2, K3, K4, of K5's, K7's, K8's
     and K9's forwards and backwards and of the probes P1's matmul, P2's
-    passthrough and P3's cuts, the stage entry points of K2, K3 and K8's
+    passthrough, roll and P3's cuts, P1's roll designs named other than
+    "kernel" and their sync floors, the stage entry points of K2, K3 and K8's
     and K9's forwards and backwards (their cuts, other designs and
     diagnostic builds), and K9's route and per-tile kernel launched alone.
     Each main-path window must see 0."""
@@ -1523,7 +1556,8 @@ def off_path_launches():
             + sum(fused.fwd_stage_launches.values()) + blend.baseline_launches
             + sum(blend.stage_launches.values()) + blend.bwd_baseline_launches
             + sum(blend.bwd_stage_launches.values()) + sum(mxu.v1_launches.values())
-            + widerow.v1_launches + sum(fused_bisect.v1_launches.values())
+            + sum(mxu.roll_design_launches.values()) + widerow.v1_launches
+            + sum(fused_bisect.v1_launches.values())
             + sum(fused.route_design_launches.values()) + fused.tiles_launches)
 
 
@@ -1555,6 +1589,7 @@ def run(dev, report):
     with torch.no_grad():
         kernels, scene = serve(dev, report)
     kernels = kernels + train(dev, report, scene)
+    capture(dev, report, scene)
     kernels = kernels + sharded(dev, report, scene)
     kernels = kernels + variants(dev, report, scene)
     kernels = kernels + fused_phase(dev, report, scene)
@@ -2387,6 +2422,113 @@ def train(dev, report, scene):
     )
     report["kernels"] = report.get("kernels", []) + kernels
     return kernels
+
+
+def capture(dev, report, scene):
+    """The capture configs' training options at full width (the serving
+    scene, 1024 x 667; `CAPTURE_CONFIGS`): for each config one step's
+    loss terms and every gradient leaf with the kernels against the
+    plain versions (TERM_RTOL, GRAD_REL_L2), every leaf the config adds
+    finite and nonzero, then CAPTURE_STEPS steps with the launch counts
+    reset just before (K1-K4 once a step, no design before), ms/step,
+    and a profile (device busy ms, kernels a step)."""
+    line = logger(report)
+    base = scene["model"]
+    n_frames, lbs_dim = base.n_frames, base.cond_dim
+    hg = torch.Generator().manual_seed(11)
+    batch = dict(scene["batch"], frame_idx=1, camera_idx=1,
+                 cam_rt=scene["camera"].world_view)
+    out = {}
+    for name, config in CAPTURE_CONFIGS.items():
+        model = base._replace(config=dict(base.config, **config))
+        opt = {}
+        if config.get("use_opt_smplx"):
+            opt = {"init_smplx_poses": torch.randn((n_frames, lbs_dim), generator=hg) * 0.1,
+                   "init_smplx_rh": torch.randn((n_frames, 3), generator=hg) * 0.02,
+                   "init_smplx_th": torch.randn((n_frames, 3), generator=hg) * 0.02}
+        params = init_avatar(torch.Generator().manual_seed(0), model, **opt)
+        # off their constant inits, so each option's gradient is exercised
+        with torch.no_grad():
+            for key in ("learnable_blur", "pixel_cal", "bg_net"):
+                for t in tree_leaves(params.get(key)):
+                    t.add_(torch.randn(t.shape, generator=hg).to(dev) * 0.05)
+        vgg = None
+        if name == "every":
+            vgg = init_vgg19_features(torch.Generator().manual_seed(4), allow_random=True,
+                                      device=dev)
+        weights = LossWeights(enable_vgg_from=CAPTURE_VGG_FROM if vgg else 0)
+        tx = make_optimizer(params, lr_tree_from_config(params))
+        step = make_train_step(model, tx, max_per_tile=K, vgg_params=vgg, loss_weights=weights)
+        step_plain = make_train_step(model, tx, max_per_tile=K, vgg_params=vgg,
+                                     loss_weights=weights, plain=True)
+        gen = torch.Generator().manual_seed(12)
+        bg = random_bg(gen, dev)
+        noise = (random_noise(gen, batch["image"].shape, dev)
+                 if needs_noise(params, model.config) else None)
+        it = CAPTURE_ITERATION
+        _, terms_k, _, grads_k = step.loss_and_grads(params, batch, bg, it, noise)
+        _, terms_p, _, grads_p = step_plain.loss_and_grads(params, batch, bg, it, noise)
+        sync(dev)
+        term_err = {k: abs(float(terms_k[k].detach()) - float(v.detach()))
+                    / max(abs(float(v.detach())), 1e-30) for k, v in terms_p.items()}
+        leaf_err = [rel_l2(a, c) for a, c in zip(grads_k, grads_p)]
+        worst = int(np.argmax(leaf_err))
+        # the leaves the config adds: finite and nonzero
+        new = {}
+        for key in CAPTURE_LEAVES[name]:
+            idx = [i for i, t in enumerate(tx.leaves)
+                   if any(t is u for u in tree_leaves(params[key]))]
+            new[key] = max(float(grads_k[i].abs().max()) for i in idx)
+            check(all(bool(torch.isfinite(grads_k[i]).all()) for i in idx),
+                  f"capture {name}: non-finite gradient in {key}")
+        h, w = batch["image"].shape[1:]
+        line(f"capture {name}, one step kernels vs plain ({h} x {w}, iteration {it}): terms "
+             + ", ".join(f"{k} {float(terms_k[k].detach()):.6g} (rel {e:.2e})"
+                         for k, e in term_err.items())
+             + f"; gradients over {len(leaf_err)} leaves rel_l2 max {leaf_err[worst]:.3e} (leaf "
+             f"{worst}, {tuple(grads_p[worst].shape)}), median {float(np.median(leaf_err)):.3e}; "
+             f"new leaves' max |grad| {new}")
+        check(set(terms_k) == set(terms_p), f"capture {name}: the term sets differ")
+        check(all(e <= TERM_RTOL for e in term_err.values()),
+              f"capture {name}: a loss term off by > {TERM_RTOL}: {term_err}")
+        check(all(bool(torch.isfinite(g).all()) for g in grads_k),
+              f"capture {name}: non-finite gradient")
+        check(leaf_err[worst] <= GRAD_REL_L2,
+              f"capture {name}: a gradient leaf off by rel L2 {leaf_err[worst]:.3e} > "
+              f"{GRAD_REL_L2}")
+        check(all(v > 0 for v in new.values()),
+              f"capture {name}: a new leaf's gradient is 0: {new}")
+        check(name != "every" or float(terms_k["vgg_loss"].detach()) > 0,
+              "capture every: the VGG term was not counted")
+        del grads_k, grads_p, step_plain
+
+        # -- CAPTURE_STEPS steps on the kernels -------------------------------
+        step(params, batch, gen, it)  # warm-up
+        sync(dev)
+        reset_launch_counts()
+        finite = torch.ones((), dtype=torch.bool, device=dev)
+        t0 = time.perf_counter()
+        for i in range(CAPTURE_STEPS):
+            _, m = step(params, batch, gen, it + 1 + i)
+            for v in m.values():
+                finite &= torch.isfinite(torch.as_tensor(v, device=dev)).all()
+        sync(dev)
+        step_ms = (time.perf_counter() - t0) * 1e3 / CAPTURE_STEPS
+        counts = (extract.launches, blend_ct.launches, blend_ct.bwd_launches, segsum.launches)
+        check(bool(finite), f"capture {name}: a non-finite loss term")
+        check(counts == (CAPTURE_STEPS,) * 4,
+              f"capture {name}: K1-K4 launches {counts}, not one each a step")
+        check(off_path_launches() == 0, f"capture {name}: a design before was launched")
+        prof = profile_calls(lambda: step(params, batch, gen, it + CAPTURE_STEPS + 1), 3, dev)
+        line(f"capture {name}: {CAPTURE_STEPS} steps, {step_ms:.3f} ms/step; K1-K4 launches "
+             f"{counts} ({report['card']})"
+             + (f"; profiled: {profile_summary(prof, step_ms)}" if prof else ""))
+        out[name] = {"terms": {k: float(v.detach()) for k, v in terms_k.items()},
+                     "terms_rel": term_err, "grad_rel_l2": leaf_err, "new_leaf_max_grad": new,
+                     "step_ms": step_ms, "launches": counts, "profiled": prof}
+        del params, tx, step
+    report["capture"] = out
+    return out
 
 
 def sharded(dev, report, scene):
@@ -3662,6 +3804,77 @@ def mxu_code(report, line):
     report["p1_code"] = {"ptxas": usage, "gmma": gmma}
 
 
+ROLL_CHECK_TRIPS = 2  # trips of each roll design's check
+
+
+def check_roll_designs(dev, line):
+    """P1's roll: every design of `mxu.ROLL_DESIGNS` (on the CPU "kernel"
+    alone, the plain version) bit-equal to `roll_plain` on the four
+    cases, and to itself across two launches. Returns the largest
+    |kernel - plain| of the "kernel" design (0 when it holds)."""
+    designs = mxu.ROLL_DESIGNS if dev.type == "cuda" else ("kernel",)
+    err = 0.0
+    for name, R, L, axis, shifts in PROBE_ROLL_CASES:
+        x = mxu.roll_input(R, L, device=dev)
+        ref = mxu.roll_plain(x, ROLL_CHECK_TRIPS, shifts, axis)
+        for d in designs:
+            out = [mxu.roll(x, ROLL_CHECK_TRIPS, shifts, axis, d) for _ in range(2)]
+            sync(dev)
+            if d == "kernel":
+                err = max(err, float((out[0] - ref).abs().max()))
+            check(torch.equal(bits(out[0]), bits(ref)),
+                  f"P1 roll {name}: design {d} is not bit-equal to plain")
+            check(torch.equal(bits(out[1]), bits(out[0])),
+                  f"P1 roll {name}: design {d} differs across launches")
+    line(f"P1 roll vs plain: designs {', '.join(designs)} (kernel = {mxu.ROLL_KERNEL}) bit-equal "
+         f"on {len(PROBE_ROLL_CASES)} cases ({ROLL_CHECK_TRIPS} trips), across two launches")
+    return err
+
+
+def roll_turns(dev, report, line):
+    """P1's roll designs on the card, each case: every new design in turns
+    against the design before (old, new, new, old) by slope (ns a step:
+    one roll + select of the whole array), each design's sync floor (its
+    barriers alone) by slope, ptxas' registers and the clusters the card
+    holds at once (`mxu.roll_occupancy`). Returns the report's entry."""
+    new = [d for d in mxu.ROLL_G if d != "baseline"]
+    out = {"cases": {}, "kernel": mxu.ROLL_KERNEL}
+    for name, R, L, axis, shifts in PROBE_ROLL_CASES:
+        x = mxu.roll_input(R, L, device=dev)
+
+        def ns(fn):
+            return probes.slope(fn, dev, PROBE_TURN_MS,
+                                mxu.roll_trips(fn, dev, PROBE_TURN_MS))["ns_per_op"]
+
+        case = {"bound_ns": mxu.roll_bound_ns(R, L),
+                "bound_v1_ns": mxu.roll_bound_v1_ns(R, L, axis), "designs": {}}
+        for d in new:
+            t = {"baseline": [], d: []}
+            for k in ("baseline", d, d, "baseline"):
+                t[k].append(ns(lambda n, k=k: mxu.roll(x, n, shifts, axis, k)))
+            case["designs"][d] = {
+                "turns": t, "ns": float(np.mean(t[d])),
+                "baseline_ns": float(np.mean(t["baseline"])),
+                "floor_ns": ns(lambda n, d=d: mxu.roll_floor(x, n, shifts, axis, d)),
+                "occupancy": mxu.roll_occupancy(R, L, axis, d),
+                "threads": mxu.roll_threads(R, L, axis, d)}
+        case["fastest"] = min(new, key=lambda d: case["designs"][d]["ns"])
+        out["cases"][name] = case
+    usage = ptxas_usage(report.get("build_logs", {}).get("probes_mxu"), "roll_")
+    out["ptxas"] = usage
+    line("P1 roll in turns, ns a step (the design before -> design; its sync floor; occupancy) "
+         "and the card-wide bound: " + "; ".join(
+             f"{n}: " + ", ".join(f"{d} {v['baseline_ns']:.2f} -> {v['ns']:.2f} "
+                                  f"(floor {v['floor_ns']:.2f}, occ {v['occupancy']})"
+                                  for d, v in c["designs"].items())
+             + f", bound {c['bound_ns']:.3f} (before {c['bound_v1_ns']:.3f}), fastest "
+             f"{c['fastest']}" for n, c in out["cases"].items()))
+    line("P1 roll ptxas (registers/spill stores): " + ", ".join(
+        f"{k}: {u.get('registers')}/{u.get('spill_stores')}" for k, u in usage.items()))
+    report["roll_turns"] = out
+    return out
+
+
 def probe_turns(dev, report, line):
     """P1's and P2's designs against their designs before, in turns (old,
     new, new, old): P1 by slope (ms an op) on one CTA and on one CTA per
@@ -3814,14 +4027,8 @@ def probes_phase(dev, report, scene):
     if on_card:
         mxu_code(report, line)
 
-    # -- P1: the roll, bit-equal --------------------------------------------
-    roll_abs = 0.0
-    for name, R, L, axis, shifts in PROBE_ROLL_CASES:
-        x = mxu.roll_input(R, L, device=dev)
-        out, ref = mxu.roll(x, 2, shifts, axis), mxu.roll_plain(x, 2, shifts, axis)
-        roll_abs = max(roll_abs, float((out - ref).abs().max()))
-        check(torch.equal(out, ref), f"P1 {name}: not bit-equal to plain")
-    line(f"P1 roll vs plain: bit-equal on {len(PROBE_ROLL_CASES)} cases (2 trips)")
+    # -- P1: the roll, every design bit-equal -------------------------------
+    roll_abs = check_roll_designs(dev, line)
     report["on_threshold"] = on_threshold_report(dev, line)
 
     # -- P3: the stages at the bisect's shapes, then at frame 0's -----------
@@ -3878,6 +4085,7 @@ def probes_phase(dev, report, scene):
           "probes' run: a design before was launched")
     check(all(np.isfinite(r["one_cta"]["ns_per_op"]) for r in mm_rows), "P1: a time is not finite")
     turns = probe_turns(dev, report, line) if on_card else {}
+    rturns = roll_turns(dev, report, line) if on_card else None
     # P3: the kernel's cuts against the design before's, in turns
     p3_turns = None
     if on_card:
@@ -3915,11 +4123,15 @@ def probes_phase(dev, report, scene):
     x = mxu.roll_input(r["rows"], r["lanes"], device=dev)
     plain = probes.time_ms(lambda: mxu.roll_plain(x, 2, r["shifts"], r["axis"]), 3, dev,
                            warmup=1) / (2 * probes.UNROLL)
+    rt = rturns and rturns["cases"][r["case"]]["designs"][mxu.ROLL_KERNEL]
     kernels.append({
         "name": "probe_roll", "route": "cuda", "source": "d3ga_tpu_torch/csrc/probes_mxu.cu",
-        "replaces": "tools/mxu_probe.py:96", "launches": mxu.launches["roll"],
-        "max_abs_err": roll_abs, "ms": r["ns_per_op"] * 1e-6, "plain_ms": plain,
+        "replaces": "tools/mxu_probe.py:96", "design": mxu.ROLL_KERNEL,
+        "launches": mxu.launches["roll"], "max_abs_err": roll_abs,
+        "ms": r["ns_per_op"] * 1e-6, "plain_ms": plain,
         "bound_ms": r["bound_ns"] * 1e-6, "bound_by": "operations", "library_ms": None,
+        "baseline_ms": rt and rt["baseline_ns"] * 1e-6,
+        "sync_floor_ms": rt and rt["floor_ns"] * 1e-6,
     })
     r = wr_rows[0]
     kernels.append({

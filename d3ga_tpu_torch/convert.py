@@ -3,8 +3,9 @@
 The JAX package's parameter trees and geometry buffers are plain arrays;
 once turned into numpy (`jax.tree_util.tree_map(np.asarray, params)`,
 `geometry._asdict()`), these functions give the port's equivalents, so
-both packages can be run on identical weights and identical cages. The
-same carries gradient trees across (`params_from_numpy`) and brings the
+both packages can be run on identical weights and identical cages (the
+VGG stack's `init_vgg19_features` tree too). The same carries gradient
+trees across (`params_from_numpy`) and brings the
 port's trees back (`params_to_numpy`); learning-rate trees are plain
 floats on both sides. The
 port's own initializers draw from a `torch.Generator` instead and are
@@ -34,20 +35,23 @@ def _tensor(a, device, index=False):
 
 def params_from_numpy(tree: Any, device="cuda") -> Any:
     """Nested dicts / lists of numpy arrays -> the same structure of
-    float32 (or integer) tensors on `device`."""
+    float32 (or integer) tensors on `device`; a boolean scalar (the VGG
+    stack's "pretrained") stays a Python bool."""
     if isinstance(tree, Mapping):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_from_numpy(v, device) for v in tree]
     if tree is None:
         return None
+    if np.ndim(tree) == 0 and np.asarray(tree).dtype == np.bool_:
+        return bool(tree)
     return _tensor(tree, device)
 
 
 def params_to_numpy(tree: Any) -> Any:
     """The port's tree of tensors (parameters, gradients) -> the same
     structure of numpy arrays on the host, to hold against a JAX tree."""
-    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+    return tree_map(lambda t: t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else t, tree)
 
 
 def geometry_from_numpy(

@@ -71,14 +71,39 @@
 // and 16 to 16, K 8 stays 8). Kept for `chip_smoke.py`'s comparisons.
 //
 // Roll. n trips of 8 steps of m = roll(x, s, axis); x = where(m > x, m,
-// x * 0.999999f) on a [R, L] float32 array (L a power of two, R too for a
-// roll along rows), as np.roll (roll(x, s)[i] = x[i - s]). A TPU rolls
-// vregs; here a CTA holds its slab in shared memory (one row of L for a
-// roll along lanes, all of [R, L] for a roll along rows, 128 KB at
-// [4096, 8]), each thread reads its elements' sources into registers, a
-// barrier, writes, a barrier.
-// Bound: operations, three FP32-pipe instructions an element a step
-// (multiply, compare, select) over the SMs the launch occupies.
+// x * 0.999999f) on a [R, L] float32 array, as np.roll (roll(x, s)[i] =
+// x[i - s]). A TPU rolls vregs. Here the array is cut into its lines
+// along the roll's axis (the R rows of L along lanes, the L columns of R
+// along rows), which never read each other, and each line of N elements
+// is one thread block cluster of G CTAs (`probes_roll`,
+// `roll_line_kernel<G, FLOOR>`; G = 1 is a plain CTA). CTA q of the
+// cluster holds elements [q C, (q + 1) C) of its line, C = N / G, four a
+// thread (element q C + e T + t of thread t, T = C / 4 threads), in
+// registers across the steps. A step stores them into one of two shared
+// buffers (the buffers alternate, so one barrier a step suffices: a
+// buffer is written again only after every thread has passed the
+// barrier that follows its last reads), waits at one barrier
+// (`__syncthreads` for G = 1, `barrier.cluster.arrive.release` / `wait
+// .acquire` for G > 1), then loads each element's source from the CTA
+// that holds it (G > 1: distributed shared memory, `mapa` +
+// `ld.shared::cluster`) and selects. The 8 shifts are kernel arguments
+// and repeat every trip, so the 32 source addresses of a thread (8 steps
+// x 4 elements, the buffer's parity folded in) are computed once, before
+// the loop: a step is 4 loads, 4 x 3 FP32 instructions and 4 stores a
+// thread. Lines of 128 G to 4096 elements (T in [32, 1024 / G]). FLOOR
+// builds the same launch with the loads, selects and stores taken out:
+// 8 n barriers alone, the sync floor of the design.
+// Bound: operations, three FP32-pipe instructions (multiply, compare,
+// select) an element a step, over all 132 SMs (`mxu.roll_bound_ns`).
+// What binds a design instead: shared-memory traffic (two accesses an
+// element a step, 32 banks a cycle an SM) over the SMs it occupies, and
+// its barrier (the FLOOR build: `probes_roll`'s floor flag).
+//
+// The design before (`probes_roll_v1`, `roll_kernel_v1`): one CTA a row
+// along lanes, one CTA for the whole [R, L] along rows (128 KB at [4096,
+// 8]); each thread reads its elements' sources and its own values from
+// one shared buffer, a barrier, writes, a barrier; the shift read from
+// shared memory each step. Kept for `chip_smoke.py`'s comparisons.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -959,7 +984,7 @@ struct Shifts {
 // (rows of 2^log_lanes).
 template <int PER>
 __global__ void __launch_bounds__(RL_MAX_THREADS)
-roll_kernel(const float* __restrict__ x, float* __restrict__ o, int log_lanes, int row_mask,
+roll_kernel_v1(const float* __restrict__ x, float* __restrict__ o, int log_lanes, int row_mask,
             int axis, int n, Shifts sh) {
   extern __shared__ float buf[];
   __shared__ int s_shift[8];
@@ -997,22 +1022,22 @@ roll_kernel(const float* __restrict__ x, float* __restrict__ o, int log_lanes, i
 }
 
 template <int PER>
-static int launch_roll(const float* x, float* o, int ctas, int slab, int log_lanes, int row_mask,
+static int launch_roll_v1(const float* x, float* o, int ctas, int slab, int log_lanes, int row_mask,
                        int axis, int n, Shifts sh, cudaStream_t st) {
   const size_t smem = (size_t)slab * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(roll_kernel<PER>,
+  cudaError_t e = cudaFuncSetAttribute(roll_kernel_v1<PER>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  roll_kernel<PER><<<ctas, slab / PER, smem, st>>>(x, o, log_lanes, row_mask, axis, n, sh);
+  roll_kernel_v1<PER><<<ctas, slab / PER, smem, st>>>(x, o, log_lanes, row_mask, axis, n, sh);
   return (int)cudaGetLastError();
 }
 
-// x, o [rows, 2^log_lanes] float32; axis 1 rolls each row (one CTA a
+// The design before. x, o [rows, 2^log_lanes] float32; axis 1 rolls each row (one CTA a
 // row), axis 0 the rows (one CTA; rows a power of two). shifts: 8 ints in
 // [0, the axis' size). Returns the cudaError_t, or -1 for a slab the
 // kernel does not take (under 512 floats or over 2^15, or rows not a
 // power of two along axis 0).
-extern "C" int probes_roll(const void* x, void* o, int rows, int log_lanes, int axis, int n,
+extern "C" int probes_roll_v1(const void* x, void* o, int rows, int log_lanes, int axis, int n,
                            const int* shifts, void* cuda_stream) {
   Shifts sh;
   for (int u = 0; u < 8; ++u) sh.s[u] = shifts[u];
@@ -1024,7 +1049,200 @@ extern "C" int probes_roll(const void* x, void* o, int rows, int log_lanes, int 
   cudaStream_t st = (cudaStream_t)cuda_stream;
   if (slab < 512 || slab > (1 << 15)) return -1;
   const int sl = (int)slab;
-  if (sl <= 16 * RL_MAX_THREADS) return launch_roll<16>(X, O, ctas, sl, log_lanes, rows - 1, axis, n, sh, st);
-  if (sl <= 32 * RL_MAX_THREADS) return launch_roll<32>(X, O, ctas, sl, log_lanes, rows - 1, axis, n, sh, st);
-  return launch_roll<64>(X, O, ctas, sl, log_lanes, rows - 1, axis, n, sh, st);
+  if (sl <= 16 * RL_MAX_THREADS) return launch_roll_v1<16>(X, O, ctas, sl, log_lanes, rows - 1, axis, n, sh, st);
+  if (sl <= 32 * RL_MAX_THREADS) return launch_roll_v1<32>(X, O, ctas, sl, log_lanes, rows - 1, axis, n, sh, st);
+  return launch_roll_v1<64>(X, O, ctas, sl, log_lanes, rows - 1, axis, n, sh, st);
 }
+
+#define RC_PER 4          // elements a thread
+#define RC_MAX_THREADS 1024
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// The address of the same shared-memory offset in CTA `rank` of the cluster.
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+template <int G>
+__device__ __forceinline__ float ld_src(uint32_t addr) {
+  float v;
+  if constexpr (G == 1)
+    asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(addr) : "memory");
+  else
+    asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_own(uint32_t addr, float v) {
+  asm volatile("st.shared.f32 [%0], %1;" :: "r"(addr), "f"(v) : "memory");
+}
+
+template <int G>
+__device__ __forceinline__ void step_barrier() {
+  if constexpr (G == 1) {
+    __syncthreads();
+  } else {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n\t"
+                 "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+  }
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// One line of N = 2^log_n elements a cluster of G CTAs (the file's head).
+// Line l, element i lies at x[l * line_stride + i * elem_stride].
+template <int G, bool FLOOR>
+__global__ void __launch_bounds__(RC_MAX_THREADS / G)
+roll_line_kernel(const float* __restrict__ x, float* __restrict__ o, int log_n,
+                 long long line_stride, long long elem_stride, int n, Shifts sh) {
+  extern __shared__ float rc_buf[];  // [2][C]
+  const int T = blockDim.x, t = threadIdx.x;
+  const int C = T * RC_PER, N = 1 << log_n;
+  const uint32_t q = G == 1 ? 0 : cluster_rank();
+  const long long line = blockIdx.x / G;
+  const float* xl = x + line * line_stride;
+  float* ol = o + line * line_stride;
+  float v[RC_PER];
+#pragma unroll
+  for (int e = 0; e < RC_PER; ++e) v[e] = xl[(long long)(q * C + e * T + t) * elem_stride];
+  const uint32_t base = smem_u32(rc_buf);
+  uint32_t st[2][RC_PER], ld[8][RC_PER];
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int e = 0; e < RC_PER; ++e) st[p][e] = base + 4u * (p * C + e * T + t);
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+#pragma unroll
+    for (int e = 0; e < RC_PER; ++e) {
+      const int src = ((int)(q * C) + e * T + t - sh.s[u]) & (N - 1);
+      const uint32_t a = base + 4u * ((u & 1) * C + src % C);
+      ld[u][e] = G == 1 ? a : map_rank(a, (uint32_t)(src / C));
+    }
+  for (int trip = 0; trip < n; ++trip) {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      if constexpr (!FLOOR) {
+#pragma unroll
+        for (int e = 0; e < RC_PER; ++e) st_own(st[u & 1][e], v[e]);
+      }
+      step_barrier<G>();
+      if constexpr (!FLOOR) {
+        float m[RC_PER];
+#pragma unroll
+        for (int e = 0; e < RC_PER; ++e) m[e] = ld_src<G>(ld[u][e]);
+#pragma unroll
+        for (int e = 0; e < RC_PER; ++e) v[e] = m[e] > v[e] ? m[e] : v[e] * 0.999999f;
+      }
+    }
+  }
+  // no CTA leaves while a peer may still read its buffers
+  if constexpr (G > 1) step_barrier<G>();
+#pragma unroll
+  for (int e = 0; e < RC_PER; ++e) ol[(long long)(q * C + e * T + t) * elem_stride] = v[e];
+}
+
+template <int G>
+static cudaLaunchConfig_t roll_config(int lines, int threads, cudaLaunchAttribute* attr,
+                                      cudaStream_t st) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(lines * G);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = 2 * RC_PER * threads * sizeof(float);
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = G;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int G, bool FLOOR>
+static int launch_roll_line(const float* x, float* o, int lines, int log_n, long long line_stride,
+                            long long elem_stride, int n, Shifts sh, int* occupancy,
+                            cudaStream_t st) {
+  const int threads = (1 << log_n) / (G * RC_PER);
+  if (threads < 32 || threads > RC_MAX_THREADS / G) return -1;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = roll_config<G>(lines, threads, &attr, st);
+  auto kernel = roll_line_kernel<G, FLOOR>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)cfg.dynamicSmemBytes);
+  if (e != cudaSuccess) return (int)e;
+  if (occupancy) {  // the clusters (G > 1) or CTAs (G = 1) the card holds at once
+    if (G == 1)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, kernel, threads,
+                                                        cfg.dynamicSmemBytes);
+    else
+      e = cudaOccupancyMaxActiveClusters(occupancy, (void*)kernel, &cfg);
+    return (int)e;
+  }
+  e = cudaLaunchKernelEx(&cfg, kernel, x, o, log_n, line_stride, elem_stride, n, sh);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <bool FLOOR>
+static int dispatch_roll(int g, const float* x, float* o, int lines, int log_n,
+                         long long line_stride, long long elem_stride, int n, Shifts sh,
+                         int* occupancy, cudaStream_t st) {
+  switch (g) {
+    case 1: return launch_roll_line<1, FLOOR>(x, o, lines, log_n, line_stride, elem_stride, n, sh, occupancy, st);
+    case 2: return launch_roll_line<2, FLOOR>(x, o, lines, log_n, line_stride, elem_stride, n, sh, occupancy, st);
+    case 4: return launch_roll_line<4, FLOOR>(x, o, lines, log_n, line_stride, elem_stride, n, sh, occupancy, st);
+    case 8: return launch_roll_line<8, FLOOR>(x, o, lines, log_n, line_stride, elem_stride, n, sh, occupancy, st);
+    default: return -1;
+  }
+}
+
+static int roll_entry(const void* x, void* o, int rows, int log_lanes, int axis, int n,
+                      const int* shifts, int g, int floor, int* occupancy, void* cuda_stream) {
+  Shifts sh;
+  for (int u = 0; u < 8; ++u) sh.s[u] = shifts[u];
+  const int lanes = 1 << log_lanes;
+  int log_n = log_lanes, lines = rows;
+  long long line_stride = lanes, elem_stride = 1;
+  if (!axis) {  // the columns are the lines
+    if (rows & (rows - 1)) return -1;
+    log_n = 0;
+    while ((1 << log_n) < rows) ++log_n;
+    lines = lanes;
+    line_stride = 1;
+    elem_stride = lanes;
+  }
+  const float* X = (const float*)x;
+  float* O = (float*)o;
+  cudaStream_t st = (cudaStream_t)cuda_stream;
+  return floor ? dispatch_roll<true>(g, X, O, lines, log_n, line_stride, elem_stride, n, sh, occupancy, st)
+               : dispatch_roll<false>(g, X, O, lines, log_n, line_stride, elem_stride, n, sh, occupancy, st);
+}
+
+// x, o [rows, 2^log_lanes] float32; axis 1 rolls each row, axis 0 each
+// column (rows a power of two); shifts: 8 ints in [0, the axis' size); g
+// the CTAs a line's cluster (1, 2, 4, 8); floor 1 runs the sync floor
+// (barriers only; o gets x's values). Returns the cudaError_t of the
+// launch, or -1 for a g or a line length the design does not take.
+extern "C" int probes_roll(const void* x, void* o, int rows, int log_lanes, int axis, int n,
+                           const int* shifts, int g, int floor, void* cuda_stream) {
+  return roll_entry(x, o, rows, log_lanes, axis, n, shifts, g, floor, nullptr, cuda_stream);
+}
+
+// The same launch's occupancy, launching nothing: the clusters the card
+// holds at once (cudaOccupancyMaxActiveClusters) for g > 1, the CTAs an
+// SM holds for g = 1, into *out.
+extern "C" int probes_roll_occupancy(int rows, int log_lanes, int axis, int g, int* out) {
+  const int shifts[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  return roll_entry(nullptr, nullptr, rows, log_lanes, axis, 1, shifts, g, 0, out, nullptr);
+}
+

@@ -6,11 +6,14 @@ plus a parameter tree (init_avatar, or one carried across from the JAX
 package with `d3ga_tpu_torch.convert.params_from_numpy`);
 `avatar_forward` is a plain function of both.
 
-Options of the JAX model that are not ported yet raise
-NotImplementedError naming their ROADMAP item instead of doing something
-else: the mesh primitive, AO, the face decoder, optimizable poses and
-global rotations / translations (and so `resolve_camera`'s camera
-rebuild), SH colours, learnable blur / pixel bias / background network.
+Ported options: the colour calibration, frame and camera embeddings,
+learnable blur, pixel bias and background network (their parameters here,
+applied by `train/step.py::render_frame`), and the optimizable per-frame
+poses and global rotations / translations, with `resolve_camera`'s
+differentiable camera rebuild. Options of the JAX model that are not
+ported yet raise NotImplementedError naming their ROADMAP item instead of
+doing something else: the mesh primitive, AO, the face decoder and SH
+colours.
 """
 
 from typing import Any, Callable, Dict, NamedTuple, Optional
@@ -24,8 +27,13 @@ from d3ga_tpu_torch.fields import (
     init_camera_calibration,
     init_embedding,
 )
+from d3ga_tpu_torch.body.drivers import smplx_camera_to_world
 from d3ga_tpu_torch.fields import mlp as F
+from d3ga_tpu_torch.fields.background import init_background_model
+from d3ga_tpu_torch.fields.blur import init_learnable_blur
+from d3ga_tpu_torch.fields.pixel_bias import init_pixel_bias
 from d3ga_tpu_torch.model.cage_model import cage_forward, init_cage_params
+from d3ga_tpu_torch.raster.camera import camera_from_c2w
 
 MERGE_KEYS = (
     "shs", "rgb", "opacities", "cov3D_precomp", "scales", "rotations",
@@ -40,13 +48,9 @@ _UNPORTED = {
     "use_shs": MODEL_TODO,
     "use_ao": MODEL_TODO,
     "use_face_emb": MODEL_TODO,
-    "use_opt_smplx": MODEL_TODO,
-    "use_blur": MODEL_TODO,
-    "use_pixel_cal": MODEL_TODO,
-    "use_bg_network": MODEL_TODO,
 }
-# per-frame optimizable pose / global rotation / translation tables
-_OPTIMIZABLE = ("optimizable_poses", "optimizable_rotations", "optimizable_translations")
+# the optimizable poses and global pose are frozen after this many iterations
+FREEZE_AFTER = 400_000
 
 
 class GarmentSpec(NamedTuple):
@@ -68,7 +72,8 @@ class AvatarModel(NamedTuple):
 
 
 def check_ported(model: AvatarModel):
-    """Raise NotImplementedError for a configured feature the port lacks."""
+    """Raise NotImplementedError for a configured feature the port lacks:
+    a primitive other than the cage, and the switches of `_UNPORTED`."""
     for g in model.garments:
         if g.primitive != "cage":
             raise NotImplementedError(f"{g.primitive} primitive: {MODEL_TODO}")
@@ -77,13 +82,24 @@ def check_ported(model: AvatarModel):
             raise NotImplementedError(f"{key}: {item}")
 
 
-def init_avatar(gen: torch.Generator, model: AvatarModel):
+def init_avatar(gen: torch.Generator, model: AvatarModel, init_smplx_poses=None,
+                init_smplx_rh=None, init_smplx_th=None):
     """Parameters drawn from the host generator `gen`, on the device of
-    the garments' geometry."""
+    the garments' geometry. With `use_opt_smplx`, init_smplx_poses
+    [n_frames, P] become the optimizable per-frame poses, and
+    init_smplx_rh / _th [n_frames, 3] the optimizable global rotation
+    (axis-angle) and translation that `resolve_camera` rebuilds the
+    camera from."""
     check_ported(model)
     cfg = model.config
     device = model.garments[0].geometry.init_points.device
     params: Dict[str, Any] = {"garments": {}}
+    if cfg.get("use_opt_smplx", False) and init_smplx_poses is not None:
+        for key, v in (("optimizable_poses", init_smplx_poses),
+                       ("optimizable_rotations", init_smplx_rh),
+                       ("optimizable_translations", init_smplx_th)):
+            if v is not None:
+                params[key] = torch.as_tensor(v, dtype=torch.float32, device=device).clone()
     for g in model.garments:
         params["garments"][g.name] = init_cage_params(
             gen,
@@ -112,6 +128,13 @@ def init_avatar(gen: torch.Generator, model: AvatarModel):
         )
     if cfg.get("use_color_calib", True):
         params["camera_calib"] = init_camera_calibration(model.n_cameras, device=device)
+    size = (cfg.get("image_height", 1024), cfg.get("image_width", 667))
+    if cfg.get("use_blur", False):
+        params["learnable_blur"] = init_learnable_blur(model.n_cameras, device=device)
+    if cfg.get("use_pixel_cal", False):
+        params["pixel_cal"] = init_pixel_bias(model.n_cameras, *size, device=device)
+    if cfg.get("use_bg_network", False):
+        params["bg_net"] = init_background_model(model.n_cameras, *size, device=device)
     return params
 
 
@@ -125,17 +148,28 @@ def _merge(pkgs):
     return out
 
 
+def _freeze_after(p, iteration, limit=FREEZE_AFTER):
+    """p, without its gradient once iteration > limit."""
+    return p.detach() if int(iteration) > limit else p
+
+
 def avatar_forward(params, model: AvatarModel, batch, training: bool = False):
     """batch: dict with "lbs" [P] momentum pose params (or "smplx_poses"),
     "camera" (Camera), an int "camera_idx" and, in training, an int
-    "frame_idx". Training looks up the frame's and camera's embedding
-    codes and scales the calibration's gradient by 0.1; eval uses the mean
-    codes. Returns the merged garment package."""
+    "frame_idx" (and "iteration"). Training looks up the frame's and
+    camera's embedding codes, scales the calibration's gradient by 0.1
+    and, with optimizable poses, conditions on the frame's pose (frozen
+    after FREEZE_AFTER iterations); eval uses the mean codes and the
+    batch's pose. Returns the merged garment package."""
     check_ported(model)
-    if training and any(k in params for k in _OPTIMIZABLE):
-        raise NotImplementedError(f"optimizable poses / rotations / translations: {MODEL_TODO}")
     cfg = model.config
     camera = batch["camera"]
+
+    opt_poses = None
+    if "optimizable_poses" in params and training:
+        opt_poses = _freeze_after(params["optimizable_poses"][int(batch["frame_idx"])],
+                                  batch.get("iteration", 0))
+        batch = dict(batch, smplx_poses=opt_poses)
 
     if "smplx_poses" in batch:
         cond = batch["smplx_poses"][:87]
@@ -181,7 +215,7 @@ def avatar_forward(params, model: AvatarModel, batch, training: bool = False):
     merged["frame_encoding"] = (
         frame_enc if frame_enc is not None else camera.world_view.new_zeros(1)
     )
-    merged["optimizable_poses"] = None
+    merged["optimizable_poses"] = opt_poses
     if "camera_calib" in params and merged["rgb"] is not None:
         merged["rgb"] = apply_camera_calibration(
             params["camera_calib"], merged["rgb"], batch["camera_idx"],
@@ -192,10 +226,18 @@ def avatar_forward(params, model: AvatarModel, batch, training: bool = False):
 
 
 def resolve_camera(params, model: AvatarModel, batch, training: bool = True):
-    """The batch, with the camera rebuilt from the per-frame optimizable
+    """The batch, with the camera rebuilt from the frame's optimizable
     global rotation / translation when training has them and the batch
-    carries the capture extrinsics ("cam_rt"); that rebuild is not ported
-    yet and raises. Otherwise the batch unchanged."""
+    carries the capture extrinsics ("cam_rt", world -> capture camera):
+    `smplx_camera_to_world` then `camera_from_c2w`, so dL/dRh and dL/dTh
+    reach them through the rasterizer (frozen after FREEZE_AFTER
+    iterations). Otherwise the batch unchanged."""
     if not training or "optimizable_rotations" not in params or "cam_rt" not in batch:
         return batch
-    raise NotImplementedError(f"resolve_camera with optimizable Rh/Th: {MODEL_TODO}")
+    fi, it = int(batch["frame_idx"]), batch.get("iteration", 0)
+    rh = _freeze_after(params["optimizable_rotations"][fi], it)
+    th = _freeze_after(params["optimizable_translations"][fi], it)
+    c2w = smplx_camera_to_world(rh, th, batch["cam_rt"], mocap=model.config.get("mocap", True))
+    cam0 = batch["camera"]
+    cam = camera_from_c2w(c2w, cam0.tanfovx, cam0.tanfovy, cam0.width, cam0.height)
+    return dict(batch, camera=cam)

@@ -363,8 +363,8 @@ def reset_launches():
     """Every probe kernel's launch counter to 0."""
     from d3ga_tpu_torch.probes import fused_bisect, mxu, widerow
 
-    for counts in (mxu.launches, mxu.v1_launches, fused_bisect.launches,
-                   fused_bisect.v1_launches):
+    for counts in (mxu.launches, mxu.v1_launches, mxu.roll_design_launches,
+                   fused_bisect.launches, fused_bisect.v1_launches):
         for k in counts:
             counts[k] = 0
     widerow.launches = widerow.v1_launches = 0

@@ -13,9 +13,16 @@ TF32 pass on the tensor cores (`wgmma`), "high" 3xTF32 (`csrc/probes_mxu.cu`;
 `matmul_v1` is the design before (`mma.sync`, 4x4 FP32 blocks), launched
 only by chip_smoke.py's comparisons.
 
-`roll(x, n, shifts, axis)` runs n trips of 8 steps of m = roll(x, s, axis);
-x = where(m > x, m, x * 0.999999) (np.roll's direction) on [R, L] float32,
-L a power of two (R too for a roll along rows).
+`roll(x, n, shifts, axis, design)` runs n trips of 8 steps of m = roll(x,
+s, axis); x = where(m > x, m, x * 0.999999) (np.roll's direction) on [R,
+L] float32, L a power of two (R too for a roll along rows). Each line
+along the roll's axis is one thread block cluster of G CTAs, values in
+registers, one barrier a step (`csrc/probes_mxu.cu`); `ROLL_DESIGNS`
+names G ("cta" 1, "cluster2/4/8"), "baseline" the design before (one CTA
+a row, or one for the whole array along rows; chip_smoke.py's
+comparisons only) and "kernel" the design the card showed fastest
+(`ROLL_KERNEL`). `roll_floor` runs a design's barriers alone, its sync
+floor.
 
 Plain versions: `matmul_plain` repeats the chain with float32 products
 (TF32 off), TF32 and 3xTF32 emulated by rounding the operands as
@@ -75,10 +82,20 @@ ROLL_CASES = (
     ("sublane roll [4096,8]", 4096, 8, 0, SMALL_SHIFTS),
 )
 
+# the roll's designs: the CTAs a line's cluster holds (None: the design before)
+ROLL_G = {"baseline": None, "cta": 1, "cluster2": 2, "cluster4": 4, "cluster8": 8}
+ROLL_KERNEL = "cta"  # the design `roll` launches: the card's fastest (PERF.md, P1 roll)
+ROLL_DESIGNS = (*ROLL_G, "kernel")
+ROLL_PER = 4  # elements a thread holds in the new designs
+ROLL_CAL_TRIPS = 64  # trips of the launch `roll_trips` sizes the timed ones from
+
 # one per launch of a kernel (never for the plain versions)
 launches = {"highest": 0, "default": 0, "high": 0, "roll": 0}
-# one per launch of the matmul's design before (chip_smoke.py's comparisons only)
-v1_launches = {"highest": 0, "default": 0, "high": 0}
+# one per launch of the designs before (chip_smoke.py's comparisons only)
+v1_launches = {"highest": 0, "default": 0, "high": 0, "roll": 0}
+# one per launch of a roll design named other than "kernel", and of the sync
+# floors (chip_smoke.py's comparisons only)
+roll_design_launches = {**{d: 0 for d in ROLL_G if d != "baseline"}, "floor": 0}
 # the new design's output tile: 128 rows (two warpgroups of 64) x BN columns
 TILE_M = 128
 TILE_NS = (8, 16, 128)  # BN; 8 only on the tensor cores (TF32, 3xTF32)
@@ -146,11 +163,15 @@ def _kernels():
     lib = cuda_build.load("probes_mxu")
     p, i = ctypes.c_void_p, ctypes.c_int
     mm, rl, v1 = lib.probes_matmul, lib.probes_roll, lib.probes_matmul_v1
+    rl1, occ = lib.probes_roll_v1, lib.probes_roll_occupancy
     mm.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, p]
     v1.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
-    rl.argtypes = [p, p, i, i, i, i, p, p]
-    mm.restype = rl.restype = v1.restype = ctypes.c_int
-    return mm, rl, v1
+    rl.argtypes = [p, p, i, i, i, i, p, i, i, p]
+    rl1.argtypes = [p, p, i, i, i, i, p, p]
+    occ.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+    for f in (mm, rl, v1, rl1, occ):
+        f.restype = ctypes.c_int
+    return {"matmul": mm, "roll": rl, "matmul_v1": v1, "roll_v1": rl1, "roll_occupancy": occ}
 
 
 def _shapes(a, b, contract_last):
@@ -212,9 +233,9 @@ def matmul(a, b, n, precision="highest", contract_last=False):
         return matmul_plain(a, b, n, precision, contract_last)
     a, b, out, copies, M, K, N = run
     p = plan(M, K, N, precision)
-    err = _kernels()[0](a.data_ptr(), b.data_ptr(), out.data_ptr(), M, K, N, int(contract_last),
-                        PRECISIONS[precision], int(p["trans"]), p["bn"], n * UNROLL, copies,
-                        cuda_build.stream_handle(a.device))
+    err = _kernels()["matmul"](a.data_ptr(), b.data_ptr(), out.data_ptr(), M, K, N,
+                               int(contract_last), PRECISIONS[precision], int(p["trans"]),
+                               p["bn"], n * UNROLL, copies, cuda_build.stream_handle(a.device))
     if err != 0:
         raise RuntimeError(f"matmul: kernel launch failed (error {err})")
     launches[precision] += 1
@@ -229,9 +250,9 @@ def matmul_v1(a, b, n, precision="highest", contract_last=False):
     if run is None:
         raise ValueError("matmul_v1: the design before runs on CUDA tensors only")
     a, b, out, copies, M, K, N = run
-    err = _kernels()[2](a.data_ptr(), b.data_ptr(), out.data_ptr(), M, K, N, int(contract_last),
-                        PRECISIONS[precision], n * UNROLL, copies,
-                        cuda_build.stream_handle(a.device))
+    err = _kernels()["matmul_v1"](a.data_ptr(), b.data_ptr(), out.data_ptr(), M, K, N,
+                                  int(contract_last), PRECISIONS[precision], n * UNROLL, copies,
+                                  cuda_build.stream_handle(a.device))
     if err != 0:
         raise RuntimeError(f"matmul_v1: kernel launch failed (error {err})")
     v1_launches[precision] += 1
@@ -244,31 +265,119 @@ def _log2(v, what):
     return v.bit_length() - 1
 
 
-def roll(x, n, shifts, axis):
-    """n trips of the roll + select chain on x [R, L] float32 in one launch.
-    CPU tensors take `roll_plain`."""
+def roll_line(rows, lanes, axis):
+    """(lines, elements a line) of the roll of [rows, lanes] along `axis`:
+    the rows along lanes, the columns along rows."""
+    return (rows, lanes) if axis == 1 else (lanes, rows)
+
+
+def roll_threads(rows, lanes, axis, design):
+    """Threads a CTA of a new design (ROLL_PER elements each, the line
+    spread over G CTAs); raises for a line the design does not take."""
+    g = ROLL_G[_design(design)]
+    n = roll_line(rows, lanes, axis)[1]
+    t = n // (g * ROLL_PER)
+    if t < 32 or t > 1024 // g:
+        raise ValueError(f"roll: design {design!r} takes lines of {128 * g} to 4096 elements, "
+                         f"not {n}")
+    return t
+
+
+def _design(design):
+    if design not in ROLL_DESIGNS:
+        raise ValueError(f"roll: unknown design {design!r} (one of {ROLL_DESIGNS})")
+    return ROLL_KERNEL if design == "kernel" else design
+
+
+def _roll_args(x, n, shifts, axis, design, name):
+    """Checks the operand; None on the CPU, else (x, out, log2 lanes, the
+    8 shifts) for a launch."""
     if x.ndim != 2 or axis not in (0, 1) or len(shifts) < UNROLL:
-        raise ValueError(f"roll: x {tuple(x.shape)}, axis {axis}, {len(shifts)} shifts: "
+        raise ValueError(f"{name}: x {tuple(x.shape)}, axis {axis}, {len(shifts)} shifts: "
                          f"expected [R, L], axis 0 or 1, {UNROLL} shifts")
     if not all(0 <= s < x.shape[axis] for s in shifts[:UNROLL]):
-        raise ValueError(f"roll: shifts {shifts} outside [0, {x.shape[axis]})")
+        raise ValueError(f"{name}: shifts {shifts} outside [0, {x.shape[axis]})")
+    _design(design)
     if x.device.type == "cpu":
-        return roll_plain(x, n, shifts, axis)
+        return None
     if x.device.type != "cuda" or x.dtype != torch.float32:
-        raise ValueError(f"roll: x must be a float32 CUDA or CPU tensor, not {x.dtype} on {x.device}")
+        raise ValueError(f"{name}: x must be a float32 CUDA or CPU tensor, not {x.dtype} on "
+                         f"{x.device}")
+    if n < 1:
+        raise ValueError(f"{name}: n={n} trips")
     if axis == 0:
         _log2(x.shape[0], "rows")
     ll = _log2(x.shape[1], "lanes")
+    if ROLL_G[_design(design)] is not None:
+        roll_threads(x.shape[0], x.shape[1], axis, design)
     x = x.contiguous()
-    out = torch.empty_like(x)
-    sh = (ctypes.c_int * UNROLL)(*shifts[:UNROLL])
-    err = _kernels()[1](x.data_ptr(), out.data_ptr(), x.shape[0], ll, axis, n,
-                        ctypes.addressof(sh), cuda_build.stream_handle(x.device))
+    return x, torch.empty_like(x), ll, (ctypes.c_int * UNROLL)(*shifts[:UNROLL])
+
+
+def _launch_roll(x, n, shifts, axis, design, floor):
+    """One launch of a design (its sync floor with floor=True); raises
+    with the CUDA error if it fails."""
+    x, out, ll, sh = _roll_args(x, n, shifts, axis, design, "roll")
+    d = _design(design)
+    k = _kernels()
+    stream = cuda_build.stream_handle(x.device)
+    if ROLL_G[d] is None:
+        err = k["roll_v1"](x.data_ptr(), out.data_ptr(), x.shape[0], ll, axis, n,
+                           ctypes.addressof(sh), stream)
+    else:
+        err = k["roll"](x.data_ptr(), out.data_ptr(), x.shape[0], ll, axis, n,
+                        ctypes.addressof(sh), ROLL_G[d], int(floor), stream)
     if err != 0:
-        raise RuntimeError(f"roll: kernel launch failed (error {err}; a CTA holds a row along "
-                           "lanes, the whole array along rows: 512 to 32768 floats)")
-    launches["roll"] += 1
+        raise RuntimeError(f"roll: design {d!r} launch failed (CUDA error {err})")
     return out
+
+
+def roll(x, n, shifts, axis, design="kernel"):
+    """n trips of the roll + select chain on x [R, L] float32 in one launch
+    of `design` (ROLL_DESIGNS). CPU tensors take `roll_plain` (the
+    "kernel" design only: the others are chip_smoke.py's comparisons and
+    run on CUDA tensors only); on the card a design that fails to launch
+    raises, with no fallback."""
+    if _roll_args(x, n, shifts, axis, design, "roll") is None:
+        if design != "kernel":
+            raise ValueError(f"roll: design {design!r} runs on CUDA tensors only")
+        return roll_plain(x, n, shifts, axis)
+    out = _launch_roll(x, n, shifts, axis, design, floor=False)
+    if design == "kernel":
+        launches["roll"] += 1
+    elif design == "baseline":
+        v1_launches["roll"] += 1
+    else:
+        roll_design_launches[design] += 1
+    return out
+
+
+def roll_floor(x, n, shifts, axis, design="kernel"):
+    """A new design's sync floor: the same launch with the loads, selects
+    and stores taken out, 8 n barriers alone (the output is x). CUDA
+    tensors only."""
+    if ROLL_G[_design(design)] is None:
+        raise ValueError("roll_floor: the design before has no sync floor build")
+    if _roll_args(x, n, shifts, axis, design, "roll_floor") is None:
+        raise ValueError("roll_floor: a sync floor is a time on the card; CUDA tensors only")
+    out = _launch_roll(x, n, shifts, axis, design, floor=True)
+    roll_design_launches["floor"] += 1
+    return out
+
+
+def roll_occupancy(rows, lanes, axis, design):
+    """The launch's occupancy on the current card, launching nothing:
+    clusters resident at once for a cluster design
+    (cudaOccupancyMaxActiveClusters), CTAs an SM for "cta"."""
+    g = ROLL_G[_design(design)]
+    if g is None:
+        raise ValueError("roll_occupancy: the design before is not a cluster launch")
+    roll_threads(rows, lanes, axis, design)
+    out = ctypes.c_int(0)
+    err = _kernels()["roll_occupancy"](rows, _log2(lanes, "lanes"), axis, g, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"roll_occupancy: design {design!r}: CUDA error {err}")
+    return out.value
 
 
 def operands(M, K, N, contract_last=False, seed=0, device="cpu"):
@@ -319,11 +428,17 @@ def run_matmul(device="cuda", cases=CASES, target_ms=20.0, trips=None):
     return rows
 
 
-def roll_bound_ns(rows, lanes, axis):
-    """Three FP32-pipe instructions an element a step over the SMs the
-    launch occupies (one CTA a row along lanes, one CTA along rows)."""
-    ctas = rows if axis == 1 else 1
-    return 3 * rows * lanes / (probes.FP32_INSTR_PER_S_PER_SM * min(ctas, probes.SMS)) * 1e9
+def roll_bound_ns(rows, lanes, sms=probes.SMS):
+    """The least ns a step can take: three FP32-pipe instructions an
+    element (multiply, compare, select) over `sms` SMs, all of the card's
+    by default."""
+    return 3 * rows * lanes / (probes.FP32_INSTR_PER_S_PER_SM * sms) * 1e9
+
+
+def roll_bound_v1_ns(rows, lanes, axis):
+    """The bound the table gave before: over the SMs the design before
+    occupies (one CTA a row along lanes, one CTA along rows)."""
+    return roll_bound_ns(rows, lanes, min(rows if axis == 1 else 1, probes.SMS))
 
 
 def roll_input(rows, lanes, seed=0, device="cpu"):
@@ -332,17 +447,34 @@ def roll_input(rows, lanes, seed=0, device="cpu"):
     return torch.from_numpy(x).to(device)
 
 
+def roll_trips(launch, device, target_ms):
+    """(n1, n2) trips for `probes.slope` of a roll launch(n): n2 so that
+    a launch takes about target_ms, read off a launch of ROLL_CAL_TRIPS
+    trips (one trip is mostly the launch's own overhead, which would
+    cut n2 short and leave the slope to the timer's jitter)."""
+    t = min(probes.time_ms(lambda: launch(ROLL_CAL_TRIPS), 1, device, warmup=1)
+            for _ in range(probes.REPS))
+    n2 = int(min(max(ROLL_CAL_TRIPS * target_ms / max(t, 1e-3), 8), 1 << 16))
+    return max(1, n2 // 4), n2
+
+
 def run_roll(device="cuda", cases=ROLL_CASES, target_ms=20.0, trips=None):
-    """One row a case: ns a step (roll + select of the whole array), its
-    bound, the CTAs the launch occupies."""
+    """One row a case: ns a step (roll + select of the whole array) of
+    the kernel's design, the card-wide bound and the one over the SMs the
+    design before occupies, the CTAs the launch occupies."""
     device = torch.device(device)
     rows = []
     for name, R, L, axis, shifts in cases:
         x = roll_input(R, L, device=device)
-        s = probes.slope(lambda n: roll(x, n, shifts, axis), device, target_ms, trips)
+
+        def launch(n):
+            return roll(x, n, shifts, axis)
+
+        s = probes.slope(launch, device, target_ms, trips or roll_trips(launch, device, target_ms))
         rows.append({"case": name, "rows": R, "lanes": L, "axis": axis, "shifts": list(shifts),
-                     "ctas": R if axis == 1 else 1, **s,
-                     "bound_ns": roll_bound_ns(R, L, axis)})
+                     "design": ROLL_KERNEL, "ctas": roll_line(R, L, axis)[0] * ROLL_G[ROLL_KERNEL],
+                     **s, "bound_ns": roll_bound_ns(R, L),
+                     "bound_v1_ns": roll_bound_v1_ns(R, L, axis)})
     return rows
 
 

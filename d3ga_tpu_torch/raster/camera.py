@@ -1,8 +1,11 @@
 """Camera model, 3DGS conventions (counterpart of d3ga_tpu/raster/camera.py).
 
 Column-vector form: `world_view @ [p, 1]` maps world -> view. znear=0.01
-and zfar=100 as in 3DGS. The matrices are built in float64 with numpy
-and stored as float32 tensors, as the JAX package does.
+and zfar=100 as in 3DGS. `make_camera` builds the matrices in float64
+with numpy and stores them as float32 tensors, as the JAX package does;
+`camera_from_c2w` builds a camera from a camera-to-world tensor with
+torch ops, so gradients reach the pose it came from (the optimizable
+global rotation / translation, `model/avatar.py::resolve_camera`).
 """
 
 import dataclasses
@@ -75,3 +78,34 @@ def ndc2pix(v, size):
 
 def focal2fov(focal, pixels):
     return 2.0 * np.arctan(pixels / (2.0 * focal))
+
+
+def projection_from_tan(tanfovx, tanfovy, znear=0.01, zfar=100.0):
+    """`projection_matrix` from tan(fov / 2) float32 tensors,
+    differentiable in them."""
+    z = tanfovx.new_zeros(())
+    depth = tanfovx.new_tensor([zfar / (zfar - znear), -(zfar * znear) / (zfar - znear)])
+    return torch.stack([
+        torch.stack([1.0 / tanfovx, z, z, z]),
+        torch.stack([z, 1.0 / tanfovy, z, z]),
+        torch.stack([z, z, depth[0], depth[1]]),
+        torch.stack([z, z, z + 1.0, z]),
+    ])
+
+
+def camera_from_c2w(c2w, tanfovx, tanfovy, width, height, znear=0.01, zfar=100.0) -> Camera:
+    """A Camera from a camera-to-world [4, 4] tensor, differentiable in
+    c2w (world_view its float32 inverse)."""
+    w2c = torch.linalg.inv(c2w)
+    tx = torch.as_tensor(tanfovx, dtype=torch.float32, device=c2w.device)
+    ty = torch.as_tensor(tanfovy, dtype=torch.float32, device=c2w.device)
+    proj = projection_from_tan(tx, ty, znear, zfar)
+    return Camera(
+        world_view=w2c,
+        full_proj=proj @ w2c,
+        camera_center=c2w[:3, 3],
+        tanfovx=tx,
+        tanfovy=ty,
+        width=int(width),
+        height=int(height),
+    )

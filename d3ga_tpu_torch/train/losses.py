@@ -1,20 +1,25 @@
-"""Training losses (counterpart of d3ga_tpu/train/losses.py): L1, PSNR
-and 11x11 Gaussian-window SSIM (sigma 1.5, zero same-padding), with the
-masked variants for canvas-padded frames. The VGG19 perceptual loss is
-not ported yet (ROADMAP.md, queue 1: 'Model forward, the rest').
+"""Training losses (counterpart of d3ga_tpu/train/losses.py): L1, L2,
+BCE, PSNR and 11x11 Gaussian-window SSIM (sigma 1.5, zero same-padding),
+with the masked variants for canvas-padded frames, and the VGG19
+perceptual loss (5 feature levels, the x0.5 + 512-crop protocol; its
+weights from a .npz, or a random stack for tests and experiments).
 
-SSIM must run in true float32: its variance terms blur(x^2) - mu^2
-cancel catastrophically at TF32's ~3 decimal digits, which cuDNN uses for
-float32 convolutions by default on the card. `full_float32()` turns TF32
-off around the convolutions; the training step holds it across the
-backward as well.
+SSIM and the VGG convolutions run in true float32 (the JAX package asks
+XLA for HIGHEST and HIGH, both full float32 on its CPU). SSIM's variance
+terms blur(x^2) - mu^2 cancel catastrophically at TF32's ~3 decimal
+digits, which cuDNN uses for float32 convolutions by default on the
+card. `full_float32()` turns TF32 off around the convolutions; the
+training step holds it across the backward as well.
 """
 
 import contextlib
+import math
 
 import numpy as np
 import torch
 import torch.nn.functional as Fn
+
+from d3ga_tpu_torch.ops.resize import resize_bilinear
 
 
 @contextlib.contextmanager
@@ -31,6 +36,15 @@ def full_float32():
 
 def l1_loss(pred, gt):
     return torch.mean(torch.abs(pred - gt))
+
+
+def l2_loss(pred, gt):
+    return torch.mean((pred - gt) ** 2)
+
+
+def bce_loss(pred, gt, eps=1e-7):
+    p = torch.clamp(pred, eps, 1.0 - eps)
+    return -torch.mean(gt * torch.log(p) + (1.0 - gt) * torch.log(1.0 - p))
 
 
 def psnr(pred, gt):
@@ -98,3 +112,104 @@ def masked_ssim(img1, img2, mask, window_size: int = 11):
     m = torch.broadcast_to(mask, img1.shape)
     s = ssim_map(img1, img2, window_size)
     return torch.sum(s * m) / torch.clamp(torch.sum(m), min=1.0)
+
+
+# ----------------------------------------------------------------------------
+# VGG19 perceptual loss
+
+VGG19_CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
+             512, 512, 512, 512, "M", 512, 512, 512, 512, "M"]
+# torchvision feature indices: the outputs after flat indices 1, 6, 11, 20
+# and 29 of its features Sequential (relu1_1 ... relu5_1)
+FEATURE_LAYERS = (2, 7, 12, 21, 30)
+
+
+def init_vgg19_features(gen=None, weights_path=None, allow_random=False, device="cuda"):
+    """The conv stack up to torchvision's features[30]: {"convs": [{"w"
+    [out, in, 3, 3], "b" [out]}, ...], "pretrained": bool}. weights_path:
+    a .npz of w0, b0, w1, ... in torchvision order. Without one the term
+    is disabled and this returns None, as in the JAX package, unless
+    allow_random: then He-normal weights drawn from the host generator
+    `gen` (seed 1234 when None) and zero biases."""
+    if weights_path is None and not allow_random:
+        return None
+    loaded = np.load(weights_path) if weights_path is not None else None
+    if loaded is None and gen is None:
+        gen = torch.Generator().manual_seed(1234)
+    convs, in_ch = [], 3
+    for v in VGG19_CFG:
+        if v == "M":
+            continue
+        i = len(convs)
+        if loaded is not None:
+            w = torch.as_tensor(np.asarray(loaded[f"w{i}"], np.float32))
+            b = torch.as_tensor(np.asarray(loaded[f"b{i}"], np.float32))
+        else:
+            w = torch.randn((v, in_ch, 3, 3), generator=gen) * math.sqrt(2.0 / (in_ch * 9))
+            b = torch.zeros(v)
+        convs.append({"w": w.to(device), "b": b.to(device)})
+        in_ch = v
+    return {"convs": convs, "pretrained": loaded is not None}
+
+
+def _vgg_forward_features(params, x):
+    """x [B, 3, H, W] -> the feature maps after flat indices 1, 6, 11, 20
+    and 29 of torchvision's features (convs padded by 1, 2x2 max pools)."""
+    taps = {f - 1 for f in FEATURE_LAYERS}
+    feats, flat, conv, h = [], 0, 0, x
+    with full_float32():
+        for v in VGG19_CFG:
+            if v == "M":
+                h = Fn.max_pool2d(h, 2, 2)
+                flat += 1
+            else:
+                c = params["convs"][conv]
+                h = torch.relu(Fn.conv2d(h, c["w"], padding=1) + c["b"][None, :, None, None])
+                conv += 1
+                if flat + 1 in taps:
+                    feats.append(h)
+                flat += 2
+            if flat > max(taps):
+                break
+    return feats
+
+
+def vgg_crop(shape, crop_size=512):
+    """(rows, columns) of the 512 crop of an image of `shape` [C, H, W]
+    after the x0.5 downsample: the window's size and the ranges its
+    offsets are drawn from ([0, n] each), or None when no crop is cut."""
+    _, h, w = shape
+    if not (h == crop_size and w == crop_size):
+        h, w = h // 2, w // 2
+    if h <= crop_size and w <= crop_size:
+        return None
+    return (max(h - crop_size, 0), max(w - crop_size, 0))
+
+
+def vgg_loss(params, pred, gt, crop=None, crop_size=512):
+    """Perceptual L1 between the VGG features of pred and gt ([C, H, W]):
+    x0.5 bilinear downsample (unless already 512 x 512, `ops/resize.py`),
+    the 512 crop at offsets crop = (i, j) (drawn by the caller within
+    `vgg_crop`'s ranges; None cuts none), L1 per feature level, unit
+    weights, no gradient through gt."""
+    def downsize(img):
+        c, h, w = img.shape
+        if h == crop_size and w == crop_size:
+            return img
+        return resize_bilinear(img, (c, h // 2, w // 2))
+
+    with full_float32():
+        p, g = downsize(pred), downsize(gt.detach())
+    c, h, w = p.shape
+    if (h > crop_size or w > crop_size) and crop is not None:
+        ch, cw = min(crop_size, h), min(crop_size, w)
+        i = min(max(int(crop[0]), 0), h - ch)
+        j = min(max(int(crop[1]), 0), w - cw)
+        p, g = p[:, i : i + ch, j : j + cw], g[:, i : i + ch, j : j + cw]
+    pf = _vgg_forward_features(params, p[None])
+    with torch.no_grad():
+        gf = _vgg_forward_features(params, g[None])
+    loss = 0.0
+    for a, b in zip(pf, gf):
+        loss = loss + torch.mean(torch.abs(a - b))
+    return loss

@@ -6,33 +6,47 @@ Loss assembly (the reference's `train.py:190-258` and
 
   color = (1 - lambda_dssim) L1 + lambda_dssim (1 - SSIM)    * rgb_weight
   sil   = L1(pred_sil, coloured gt sil)                      * sil_weight
-  code  = mean(frame_enc^2) * 1e-3
+  code  = mean(frame_enc^2) * 1e-3 + mean(opt_poses^2) * 7.5e-3
   scale = scale_energy * 175
   fme   = (mean fem + 3.0) * fme_weight
+  blur  = |blur_raw - 1|.mean() * blur_weight
+  vgg   = VGG19 perceptual * vgg_weight          (after enable_vgg_from)
 
-with a random background colour per step, drawn from the caller's
-`torch.Generator` and handed to `render_frame`.
+with a random background colour per step. The JAX package draws its
+randomness here from its rng; the port's caller draws it (`make_train_step`
+from its `torch.Generator`) and hands it to `render_frame`: the
+background colour, the uniform noise of the blurred-noise background
+target and the VGG crop's offsets.
 
 Ported: the fused branch (RGB and silhouette share one 6-channel raster
 pass, with the model config's `raster_backend` and `raster_opts`: the
 XLA blend or the hand-written kernels, any selection funnel, or the
-fused select + blend kernel) and the gt composition,
-with canvas padding (`pixel_valid`) and `boundary_fg`. Not ported yet,
-each raising NotImplementedError naming its ROADMAP item: the non-fused
-`detach_silhouette` branch, the background network, learnable blur,
-pixel calibration, the random-noise background, the banded (sharded)
-losses and the VGG term. `make_chained_step` (several steps in one
-dispatch) is not ported yet either (same item).
+fused select + blend kernel), the gt composition with canvas padding
+(`pixel_valid`) and `boundary_fg`, the background network (composited
+through the raster's alpha), learnable blur, the pixel bias, the
+blurred-noise background target (`use_random_bg`, or a bg net before
+`enable_bg`), the optimizable poses and global pose (through
+`resolve_camera`) and the VGG term. Not ported yet, each raising
+NotImplementedError naming its ROADMAP item: the non-fused
+`detach_silhouette` branch (and so SH colours, which need it), the
+banded (sharded) losses and gradient accumulation (`train/optim.py`);
+`make_chained_step` (several steps in one dispatch) is not ported
+either (same item).
 """
 
 from typing import Dict, NamedTuple
 
 import torch
 
+from d3ga_tpu_torch.fields.background import (apply_background, blur_noise,
+                                              composite_background)
+from d3ga_tpu_torch.fields.blur import apply_learnable_blur, blur_reg
+from d3ga_tpu_torch.fields.pixel_bias import apply_pixel_bias
 from d3ga_tpu_torch.model.avatar import MODEL_TODO as TRAIN_TODO
 from d3ga_tpu_torch.model.avatar import AvatarModel, avatar_forward, resolve_camera
 from d3ga_tpu_torch.raster.tiles import rasterize_tiled, rasterize_tiled_fused
-from d3ga_tpu_torch.train.losses import full_float32, l1_loss, masked_psnr, masked_ssim, ssim
+from d3ga_tpu_torch.train.losses import (full_float32, l1_loss, masked_psnr, masked_ssim, ssim,
+                                         vgg_crop, vgg_loss)
 
 # the model config's raster_opts that reach rasterize_tiled: the funnel
 # and its knobs
@@ -76,6 +90,14 @@ def _rasterizer(cfg):
     return fn, _raster_opts(cfg)
 
 
+def needs_noise(params, cfg) -> bool:
+    """Whether `render_frame` builds the blurred-noise background target
+    (and so takes a noise draw): under use_random_bg, or with a bg net and
+    enable_bg > 0."""
+    return cfg.get("use_random_bg", False) or (
+        "bg_net" in params and int(cfg.get("enable_bg", 0)) > 0)
+
+
 def render_frame(
     params,
     model: AvatarModel,
@@ -89,23 +111,22 @@ def render_frame(
     iteration=0,
     band_ctx=None,
     plain=False,
+    noise=None,
+    crop=None,
 ):
     """Forward + one fused 6-channel rasterization + per-frame loss terms.
 
-    bg: [3] background colour, required in training (the JAX package
-    draws it from its rng here; the port's caller draws it). plain=True
-    runs the raster kernels' plain versions, forward and backward.
-    Returns (loss terms dict, aux dict with the images and counters)."""
+    bg: [3] background colour, required in training. noise: [3, H, W]
+    uniform in [0, 1), required where `needs_noise` (blurred here, as
+    the JAX package blurs its draw). crop: the VGG crop's (row, column)
+    offsets (`train.losses.vgg_crop`'s ranges), None for no crop. The
+    JAX package draws all three from its rng here; the port's caller
+    draws them. plain=True runs the raster kernels' plain versions,
+    forward and backward. Returns (loss terms dict, aux dict with the
+    images and counters)."""
     cfg = model.config
-    for key in ("bg_net", "learnable_blur", "pixel_cal"):
-        if key in params:
-            raise NotImplementedError(f"{key}: {TRAIN_TODO}")
     if band_ctx is not None:
         raise NotImplementedError(f"banded losses: {TRAIN_TODO}")
-    if cfg.get("use_random_bg", False):
-        raise NotImplementedError(f"use_random_bg: {TRAIN_TODO}")
-    if vgg_params is not None and loss_weights.enable_vgg_from > 0:
-        raise NotImplementedError(f"the VGG term: {TRAIN_TODO}")
     rasterize, opts = _rasterizer(cfg)
 
     batch = dict(batch, iteration=iteration)
@@ -113,6 +134,7 @@ def render_frame(
     camera = batch["camera"]
     pkg = avatar_forward(params, model, batch, training=training)
     dev = pkg["means3D"].device
+    cam_idx = batch["camera_idx"]
 
     if training:
         if bg is None:
@@ -122,18 +144,35 @@ def render_frame(
         white = cfg.get("background", "white") == "white"
         bg = torch.full((3,), 1.0 if white else 0.0, device=dev)
 
+    # the per-camera learnable background, composited through the
+    # raster's background transmittance
+    bg_map = None
+    if "bg_net" in params:
+        bg_map = apply_background(params["bg_net"], cam_idx, camera.height, camera.width)
+
     if detach_silhouette or pkg.get("rgb") is None:
         raise NotImplementedError(f"the non-fused silhouette pass: {TRAIN_TODO}")
     # one fused rasterization with 6 colour channels (RGB + silhouette)
     colors6 = torch.cat([pkg["rgb"], pkg["silhouette_rgb"]], -1)
     bg6 = torch.cat([bg, bg.new_zeros(3)])
-    both, aux_rgb = rasterize(
+    out = rasterize(
         pkg["means3D"], camera, bg6, cov3d=pkg.get("cov3D_precomp"), scales=pkg.get("scales"),
         rotations=pkg.get("rotations"), opacities=pkg["opacities"], colors=colors6,
-        max_per_tile=max_per_tile, plain=plain, **opts,
+        max_per_tile=max_per_tile, plain=plain, return_alpha=bg_map is not None, **opts,
     )
+    both, aux_rgb = out[0], out[-1]
     pred_image = both[:3]
     pred_sil = both[3:]
+    if bg_map is not None:
+        pred_image = composite_background(pred_image, 1.0 - out[1], bg_map, bg)
+
+    blur_weights = None
+    if "learnable_blur" in params:
+        pred_image = apply_learnable_blur(params["learnable_blur"], pred_image, cam_idx)
+        blur_weights = blur_reg(params["learnable_blur"], cam_idx)
+    if "pixel_cal" in params:
+        pred_image = pred_image + apply_pixel_bias(params["pixel_cal"], cam_idx,
+                                                   pred_image.shape[1], pred_image.shape[2])
 
     # ground-truth composition (`train.py:181-189`)
     gt_alpha = batch["alpha"]
@@ -149,6 +188,23 @@ def render_frame(
         b = 1.0 - batch["boundary_fg"]
         gt_image = gt_image * b + (1.0 - b) * bg[:, None, None]
         gt_sil = gt_sil * b
+
+    # the blurred-noise background target while the bg net warms up or
+    # under use_random_bg: the gt's background region becomes blurred
+    # noise, composited with the original image's foreground
+    if needs_noise(params, cfg):
+        if noise is None:
+            raise ValueError("render_frame: this config's noise target needs its uniform draw, "
+                             "noise")
+        with torch.no_grad():
+            n = blur_noise(torch.as_tensor(noise, dtype=torch.float32, device=dev))
+            if "learnable_blur" in params:
+                n = apply_learnable_blur(params["learnable_blur"], n, cam_idx)
+        orig = batch.get("orig_image", batch["image"])
+        active = cfg.get("use_random_bg", False) or (
+            bg_map is not None and iteration < int(cfg.get("enable_bg", 0)))
+        if active:
+            gt_image = (1.0 - gt_alpha) * n + gt_alpha * orig
 
     # canvas padding: padded pixels zeroed on both sides, means over the
     # real pixels
@@ -176,6 +232,13 @@ def render_frame(
         "sil_loss": sil_l1 * lw.sil_weight,
     }
     terms.update(_pkg_terms(pkg, lw))
+    if blur_weights is not None:
+        terms["blur_loss"] = torch.mean(torch.abs(blur_weights - 1.0)) * lw.blur_weight
+    if vgg_params is not None and lw.enable_vgg_from > 0:
+        # counted once iteration > enable_vgg_from (JAX computes it and
+        # multiplies by 0 before; the value and gradient are the same)
+        terms["vgg_loss"] = (vgg_loss(vgg_params, pred_image, gt_image, crop=crop) * lw.vgg_weight
+                             if iteration > lw.enable_vgg_from else pred_image.new_zeros(()))
     aux = {
         "pred_image": pred_image,
         "gt_image": gt_image,
@@ -213,6 +276,21 @@ def random_bg(gen: torch.Generator, device) -> torch.Tensor:
     return torch.rand(3, generator=gen).to(device)
 
 
+def random_noise(gen: torch.Generator, shape, device) -> torch.Tensor:
+    """The step's uniform draw for the blurred-noise background target,
+    `shape` [3, H, W] in [0, 1), on the generator's device."""
+    return torch.rand(tuple(shape), generator=gen, device=gen.device).to(device)
+
+
+def random_crop(gen: torch.Generator, shape, crop_size=512):
+    """The VGG crop's (row, column) offsets for an image of `shape`,
+    uniform over `vgg_crop`'s ranges; None where no crop is cut."""
+    ranges = vgg_crop(shape, crop_size)
+    if ranges is None:
+        return None
+    return tuple(int(torch.randint(0, n + 1, (1,), generator=gen)) for n in ranges)
+
+
 def make_train_step(
     model: AvatarModel,
     tx,
@@ -227,14 +305,17 @@ def make_train_step(
 
         step(params, batch, gen, iteration) -> (params, metrics)
 
-    draws the background from `gen`, renders, differentiates the total
-    loss and updates the parameters in place; metrics are tensors (no
-    host sync). `step.loss_and_grads(params, batch, bg, iteration) ->
-    (loss, terms, aux, grads)` is the step without the draw and the
-    update (grads in `tx.leaves` order, zeros for unused leaves).
-    plain=True runs the raster kernels' plain versions."""
+    draws the background colour, and where the config needs them the
+    noise target's uniform draw (`needs_noise`) and the VGG crop's
+    offsets (`vgg_params` given), from `gen`; renders, differentiates
+    the total loss and updates the parameters in place; metrics are
+    tensors (no host sync). `step.loss_and_grads(params, batch, bg,
+    iteration, noise=None, crop=None) -> (loss, terms, aux, grads)` is
+    the step without the draws and the update (grads in `tx.leaves`
+    order, zeros for unused leaves). plain=True runs the raster kernels'
+    plain versions."""
 
-    def loss_and_grads(params, batch, bg, iteration):
+    def loss_and_grads(params, batch, bg, iteration, noise=None, crop=None):
         with full_float32():
             terms, aux = render_frame(
                 params, model, batch, bg,
@@ -245,14 +326,20 @@ def make_train_step(
                 loss_weights=loss_weights,
                 iteration=iteration,
                 plain=plain,
+                noise=noise,
+                crop=crop,
             )
             loss = total_loss(terms)
             grads = torch.autograd.grad(loss, tx.leaves, materialize_grads=True)
         return loss, terms, aux, grads
 
     def step(params, batch, gen, iteration):
-        bg = random_bg(gen, tx.leaves[0].device)
-        loss, terms, aux, grads = loss_and_grads(params, batch, bg, iteration)
+        dev = tx.leaves[0].device
+        bg = random_bg(gen, dev)
+        shape = batch["image"].shape
+        noise = random_noise(gen, shape, dev) if needs_noise(params, model.config) else None
+        crop = random_crop(gen, shape) if vgg_params is not None else None
+        loss, terms, aux, grads = loss_and_grads(params, batch, bg, iteration, noise, crop)
         tx.step(grads)
         metrics = {k: v.detach() for k, v in terms.items()}
         metrics["total_loss"] = loss.detach()

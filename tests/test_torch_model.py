@@ -21,6 +21,7 @@ from d3ga_tpu.model.cage_model import cage_forward as j_cage_forward
 from d3ga_tpu_torch import convert
 from d3ga_tpu_torch.data import synthetic as tsyn
 from d3ga_tpu_torch.model.avatar import avatar_forward, init_avatar
+from d3ga_tpu_torch.utils.tree import tree_leaves
 from d3ga_tpu_torch.model.cage_model import cage_forward
 from torch_parity import bound_skeleton, close, port_model
 
@@ -142,14 +143,65 @@ class TestAvatarForward:
 
     def test_unported_options_raise(self, avatar_pair):
         tmodel = avatar_pair[2]
-        for key in ("use_ao", "use_shs", "use_face_emb", "use_opt_smplx", "use_blur"):
+        for key in ("use_ao", "use_shs", "use_face_emb"):
             m = tmodel._replace(config=dict(tmodel.config, **{key: True}))
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 init_avatar(torch.Generator(), m)
-        # training ports everything but the optimizable poses / Rh / Th
-        opt_poses = dict(avatar_pair[3], optimizable_poses=torch.zeros(8, 87))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            avatar_forward(opt_poses, tmodel, {}, training=True)
         mesh = tmodel._replace(garments=(tmodel.garments[0]._replace(primitive="mesh"),))
         with pytest.raises(NotImplementedError, match="mesh"):
             avatar_forward(avatar_pair[3], mesh, {})
+
+    def test_capture_options_init_like_jax(self, avatar_pair):
+        """use_blur, use_pixel_cal, use_bg_network and use_opt_smplx build:
+        the same leaves and constant inits as JAX's `init_avatar`, the
+        optimizable poses / Rh / Th the tables handed in."""
+        jmodel, _, tmodel, _, lbs_dim = avatar_pair
+        opts = {"use_blur": True, "use_pixel_cal": True, "use_bg_network": True,
+                "use_opt_smplx": True, "image_height": 48, "image_width": 64}
+        rng = np.random.default_rng(4)
+        tables = dict(init_smplx_poses=rng.normal(size=(8, lbs_dim)).astype(np.float32),
+                      init_smplx_rh=rng.normal(size=(8, 3)).astype(np.float32),
+                      init_smplx_th=rng.normal(size=(8, 3)).astype(np.float32))
+        tp = init_avatar(torch.Generator().manual_seed(0),
+                         tmodel._replace(config=dict(tmodel.config, **opts)),
+                         **{k: torch.from_numpy(v) for k, v in tables.items()})
+        jm = jmodel._replace(config=dict(jmodel.config, **opts))
+        jp = jax.jit(lambda k, t: j_init_avatar(k, jm, **t))(jax.random.PRNGKey(0), tables)
+        assert sorted(tp) == sorted(jp)
+        for key in ("learnable_blur", "pixel_cal", "bg_net", "optimizable_poses",
+                    "optimizable_rotations", "optimizable_translations"):
+            for t, j in zip(tree_leaves(tp[key]), jax.tree_util.tree_leaves(jp[key])):
+                assert np.array_equal(t.numpy(), np.asarray(j)), key
+
+    @pytest.mark.parametrize("iteration", [0, 400_001])
+    def test_optimizable_poses_forward(self, avatar_pair, iteration):
+        """Training conditions on the frame's optimizable pose, frozen after
+        400k iterations, as JAX's forward does; the package carries it for
+        the pose regularizer."""
+        jmodel, jparams, tmodel, tparams, lbs_dim = avatar_pair
+        poses = np.random.default_rng(6).normal(size=(8, lbs_dim)).astype(np.float32) * 0.1
+        jp = dict(jparams, optimizable_poses=jnp.asarray(poses))
+        tp = dict(tparams, optimizable_poses=torch.from_numpy(poses).requires_grad_(True))
+        lbs = np.random.default_rng(7).normal(size=lbs_dim).astype(np.float32) * 0.1
+        jcam = jsyn.orbit_camera(0.3, 64, 48)
+        keys = ("rgb", "means3D", "cov3D_precomp", "optimizable_poses")
+
+        def jfwd(p):
+            out = j_avatar_forward(
+                p, jmodel, {"camera": jcam, "lbs": jnp.asarray(lbs), "frame_idx": jnp.int32(3),
+                            "camera_idx": jnp.int32(1), "iteration": jnp.int32(iteration)},
+                training=True)
+            return jnp.sum(out["means3D"]), {k: out[k] for k in keys}
+
+        (_, jout), jg = jax.jit(jax.value_and_grad(jfwd, has_aux=True))(jp)
+        jg = jg["optimizable_poses"]
+        tout = avatar_forward(
+            tp, tmodel, {"camera": tsyn.orbit_camera(0.3, 64, 48, device="cpu"),
+                         "lbs": torch.from_numpy(lbs), "frame_idx": 3, "camera_idx": 1,
+                         "iteration": iteration}, training=True)
+        for k in keys:
+            close(tout[k].detach(), jout[k])
+        tg = (torch.autograd.grad(torch.sum(tout["means3D"]), tp["optimizable_poses"])[0]
+              if tout["means3D"].requires_grad else torch.zeros(poses.shape))
+        close(tg, jg, rtol=1e-4, atol=1e-5)
+        assert (float(tg.abs().max()) > 0) == (iteration == 0)

@@ -55,6 +55,7 @@ from tools.fused_probe import make_inputs as j_make_inputs  # noqa: E402
 jax.config.update("jax_compilation_cache_dir", _saved_cache[0])
 jax.config.update("jax_persistent_cache_min_compile_time_secs", _saved_cache[1])
 
+import chip_smoke  # noqa: E402
 from d3ga_tpu_torch import probes  # noqa: E402
 from d3ga_tpu_torch.probes import fused_bisect, mxu, widerow  # noqa: E402
 from d3ga_tpu_torch.raster import fused  # noqa: E402
@@ -370,6 +371,59 @@ def test_designs_before_need_the_card():
     assert not any(mxu.v1_launches.values()) and widerow.v1_launches == 0
 
 
+def test_roll_designs_need_the_card():
+    """The roll's designs but "kernel" (`mxu.ROLL_DESIGNS`: the design
+    before and the cluster sizes, chip_smoke.py's comparisons) and the
+    sync floors run on CUDA tensors only; an unknown design is refused
+    everywhere; "kernel" on the CPU is the plain version. Their counters
+    stay 0 here."""
+    x = mxu.roll_input(8, 256)
+    assert mxu.ROLL_DESIGNS[-1] == "kernel" and mxu.ROLL_KERNEL in mxu.ROLL_G
+    assert set(mxu.ROLL_DESIGNS[:-1]) == {"baseline", "cta", "cluster2", "cluster4", "cluster8"}
+    for d in mxu.ROLL_DESIGNS[:-1]:
+        with pytest.raises(ValueError, match="CUDA"):
+            mxu.roll(x, 1, mxu.SMALL_SHIFTS, 1, d)
+    for d in ("cta", "kernel"):
+        with pytest.raises(ValueError, match="CUDA"):
+            mxu.roll_floor(x, 1, mxu.SMALL_SHIFTS, 1, d)
+    with pytest.raises(ValueError, match="design before"):
+        mxu.roll_floor(x, 1, mxu.SMALL_SHIFTS, 1, "baseline")
+    with pytest.raises(ValueError, match="unknown design"):
+        mxu.roll(x, 1, mxu.SMALL_SHIFTS, 1, "cluster16")
+    assert torch.equal(mxu.roll(x, 2, mxu.SMALL_SHIFTS, 1),
+                       mxu.roll_plain(x, 2, mxu.SMALL_SHIFTS, 1))
+    assert mxu.v1_launches["roll"] == 0 and not any(mxu.roll_design_launches.values())
+
+
+@pytest.mark.parametrize("case", mxu.ROLL_CASES, ids=[c[0] for c in mxu.ROLL_CASES])
+def test_roll_lines_and_bounds(case):
+    """Each case's lines (along the roll's axis: the rows along lanes, the
+    columns along rows) and each new design's threads (4 elements each,
+    a line over G CTAs); the bound over all 132 SMs (3 FP32
+    instructions an element a step at 128 lanes x 1.98 GHz an SM) and the
+    one the table gave before, over the SMs the design before occupies."""
+    _, R, L, axis, _ = case
+    lines, n = mxu.roll_line(R, L, axis)
+    assert (lines, n) == ((R, L) if axis == 1 else (L, R)) and n == 4096
+    for d, g in mxu.ROLL_G.items():
+        if g is not None:
+            assert mxu.roll_threads(R, L, axis, d) == 4096 // (4 * g)
+    bound = 3 * R * L / (132 * 128 * 1.98e9) * 1e9
+    assert mxu.roll_bound_ns(R, L) == pytest.approx(bound)
+    assert mxu.roll_bound_v1_ns(R, L, axis) == pytest.approx(bound * 132 / (R if axis else 1))
+    assert mxu.roll_bound_ns(19, 4096) == pytest.approx(6.979, abs=1e-3)
+
+
+def test_roll_refuses_lines_the_designs_do_not_take():
+    with pytest.raises(ValueError, match="lines of"):
+        mxu.roll_threads(4, 8192, 1, "cta")
+    with pytest.raises(ValueError, match="lines of"):
+        mxu.roll_threads(4, 512, 1, "cluster8")
+    with pytest.raises(ValueError, match="lines of"):
+        mxu.roll_threads(4, 8192, 1, "cluster2")
+    assert mxu.roll_threads(4, 256, 1, "cluster2") == 32
+
+
 # -- the entry points, end to end on the CPU --------------------------------
 
 def test_entry_points_on_cpu(capsys):
@@ -415,6 +469,8 @@ def test_kernels_match_plain(cuda_device):
     x = mxu.roll_input(19, 4096, device=cuda_device)
     assert torch.equal(mxu.roll(x, TRIPS, mxu.BIG_SHIFTS, 1),
                        mxu.roll_plain(x, TRIPS, mxu.BIG_SHIFTS, 1))
+    # every roll design bit-equal to plain on the four cases, across launches
+    chip_smoke.check_roll_designs(cuda_device, print)
     x = torch.randn(64, 32, 16, device=cuda_device)
     assert torch.equal(widerow.passthrough(x, 4), widerow.passthrough_plain(x))
     assert torch.equal(widerow.passthrough_v1(x, 4), widerow.passthrough_plain(x))

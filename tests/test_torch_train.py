@@ -240,14 +240,18 @@ def test_step_draws_bg_and_updates(pair):
 
 
 def test_unported_options_raise(pair):
+    """What still waits raises, naming its ROADMAP item; the capture
+    configs' options are ported (tests/test_torch_train_capture.py): a
+    VGG stack before enable_vgg_from adds a zero term without reading the
+    stack, and the noise target asks for its draw."""
     tm, tp, tb = pair["tmodel"], pair["tparams"], pair["tbatch"]
     bg = torch.zeros(3)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         render_frame(tp, tm, tb, bg, detach_silhouette=("position",))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render_frame(tp, tm, tb, bg, vgg_params={})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render_frame(dict(tp, bg_net={}), tm, tb, bg)
+    terms, _ = render_frame(tp, tm, tb, bg, vgg_params={})
+    assert float(terms["vgg_loss"]) == 0.0
+    with pytest.raises(ValueError, match="noise"):
+        render_frame(tp, tm._replace(config=dict(tm.config, use_random_bg=True)), tb, bg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         render_frame(tp, tm, tb, bg, band_ctx=("x", 2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
