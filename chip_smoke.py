@@ -89,6 +89,17 @@ Gaussians, 1024 x 667 pixels, random weights from seed 0):
   VGG stack's term), each with one step's terms and gradients kernels
   vs plain, every added leaf's gradient finite and nonzero, then 5 steps
   with K1-K4 once a step, ms/step and a profile;
+- options: the model's and the step's other options (`OPTION_CONFIGS`):
+  SH colours at degree 3 (two C 3 passes a step), the silhouette pass
+  with position, covariance and opacity detached, 3 mesh garments of
+  45,000 Gaussians, the AO and face decoders on a 104-wide pose, and
+  gradient accumulation over 2 micro-steps, each with one step's terms
+  and gradients kernels vs plain (`hold_step`: both backwards on the
+  kernel path's image cotangent, the L1 sign flips counted), every added
+  leaf's gradient finite and nonzero, then 5 steps with K1-K4's launches
+  as `OPTION_LAUNCHES` says, ms/step and a profile; the accumulation's
+  micro-steps against one update from the mean (`check_accum`);
+  `eval_layer` of one garment bit-equal to that garment alone;
 - sharded: on a NCCL world of one process (one card; NCCL puts no two
   ranks on one GPU), `rasterize_sharded` on frame 0's Gaussians against
   the single-device `rasterize_tiled`, then bench_scaling.py's banded
@@ -141,11 +152,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from d3ga_tpu_torch.data.synthetic import serving_scene
+from d3ga_tpu_torch.data.synthetic import mesh_garment_from_cube, serving_scene, toy_skeleton
 from d3ga_tpu_torch.dist.banded import banded_l1_ssim
 from d3ga_tpu_torch.dist.mesh import initialize_distributed, local_mesh
 from d3ga_tpu_torch.dist.raster_shard import rasterize_collective, rasterize_sharded
-from d3ga_tpu_torch.model.avatar import avatar_forward, init_avatar
+from d3ga_tpu_torch.model.avatar import avatar_forward, eval_layer, init_avatar
+from d3ga_tpu_torch.ops.posenc import positional_encoding
 from d3ga_tpu_torch import bench_stages, probes
 from d3ga_tpu_torch.probes import (COEFF_BWD_SFU_PER_PAIR, FP32_OPS_PER_S, HBM_BYTES_PER_S,
                                     SFU_OPS_PER_S, coeff_bound, coeff_bwd_ops, coeff_fwd_ops,
@@ -159,7 +171,7 @@ from d3ga_tpu_torch.train.optim import lr_tree_from_config, make_optimizer
 from d3ga_tpu_torch.train.step import (LossWeights, make_train_step, needs_noise, random_bg,
                                        random_noise)
 from d3ga_tpu_torch.utils import cuda_build
-from d3ga_tpu_torch.utils.tree import tree_leaves
+from d3ga_tpu_torch.utils.tree import tree_leaves, tree_map
 
 # serving width: the scene of the JAX package's serving benchmark
 # (data/synthetic.py::serving_scene's defaults)
@@ -202,6 +214,34 @@ CAPTURE_LEAVES = {
     "every": ("learnable_blur", "pixel_cal", "bg_net", "optimizable_poses",
               "optimizable_rotations", "optimizable_translations"),
 }
+# the model's and the step's options, each on the serving scene with
+# TRAIN_CONFIG: SH colours of degree 3 (stepped at OPTION_ITERATION, where
+# train.py's ramp min(iteration // 1000, max_sh_degree) reaches 3), the
+# silhouette pass with position, covariance and opacity detached, 3 mesh
+# garments, the AO and face decoders (`option_model`), gradient
+# accumulation over 2 micro-steps
+OPTION_CONFIGS = {
+    "shs": dict(TRAIN_CONFIG, use_shs=True, max_sh_degree=3),
+    "detach": TRAIN_CONFIG,
+    "mesh": TRAIN_CONFIG,
+    "ao_face": dict(TRAIN_CONFIG, use_ao=True, use_face_emb=True, n_valid_kpts=10,
+                    face_embed_dim=98),
+    "accum": TRAIN_CONFIG,
+}
+OPTION_DETACH = {"detach": ("position", "covariance", "opacity")}
+OPTION_GRAD_ACCUM = {"accum": 2}
+# K1 / K2 / K3 / K4 launches a step (a micro-step for accum): two passes
+# at C 3 where the package has SH colours or the silhouette is detached,
+# the detached silhouette pass needing no backward; one 6-channel pass else
+OPTION_LAUNCHES = {"shs": (2, 2, 2, 2), "detach": (2, 2, 1, 1), "mesh": (1, 1, 1, 1),
+                   "ao_face": (1, 1, 1, 1), "accum": (1, 1, 1, 1)}
+OPTION_ITERATION, OPTION_STEPS = 3000, 5
+LBS_WIDE = 104  # Goliath's momentum pose, the ao_face option's batch
+# accum: the parameters after two micro-steps against one update from the
+# mean of the same two gradient trees, rel L2 per leaf (the same float32
+# operations: 0 expected; (g1 + g2) / 2 instead would round apart by an
+# ulp, which the clip and Adam's eps carry to ~1e-7 on tiny gradients)
+ACCUM_REL = 1e-6
 FUSED_CONFIG = {"raster_backend": "fused"}  # the JAX package's fused backend
 FUSED_STEPS = 5  # training steps under it
 BLOCK_CAP = 4096  # rasterize_tiled_fused's default candidates a block
@@ -1505,14 +1545,20 @@ def tree_to(tree, dev):
 
 
 def render(params, model, camera, lbs, k, plain=False):
-    pkg = avatar_forward(params, model, {"camera": camera, "lbs": lbs, "camera_idx": 0})
+    pkg = avatar_forward(params, model, {"camera": camera, "lbs": lbs, "camera_idx": 0},
+                         training=False)
+    return (pkg, *draw(pkg, camera, k, plain))
+
+
+def draw(pkg, camera, k, plain=False):
+    """The serving raster of a garment package: RGB + silhouette, 6
+    channels, dupsort_depth at dup DUP, K k."""
     colors = torch.cat([pkg["rgb"], pkg["silhouette_rgb"]], -1)
-    img, aux = rasterize_tiled(
+    return rasterize_tiled(
         pkg["means3D"], camera, torch.tensor(BG6, device=colors.device),
         cov3d=pkg["cov3D_precomp"], opacities=pkg["opacities"], colors=colors,
         max_per_tile=k, use_pallas=True, coarse="dupsort_depth", dup=DUP, plain=plain,
     )
-    return pkg, img, aux
 
 
 def reset_launch_counts():
@@ -1584,16 +1630,27 @@ def rel_l2(a, b):
 
 
 def run(dev, report):
-    """Every phase; raises PhaseFailed (or any error) on a failure.
-    Returns the kernels' entries for the `{"kernels": [...]}` line."""
+    """Every phase, each one's wall seconds printed after it; raises
+    PhaseFailed (or any error) on a failure. Returns the kernels' entries
+    for the `{"kernels": [...]}` line."""
+    line = logger(report)
+    t0 = time.perf_counter()
+
+    def timed(name, phase):
+        out = phase(dev, report, scene)
+        line(f"phase {name}: done at {time.perf_counter() - t0:.1f} s")
+        return out
+
     with torch.no_grad():
         kernels, scene = serve(dev, report)
-    kernels = kernels + train(dev, report, scene)
-    capture(dev, report, scene)
-    kernels = kernels + sharded(dev, report, scene)
-    kernels = kernels + variants(dev, report, scene)
-    kernels = kernels + fused_phase(dev, report, scene)
-    return kernels + probes_phase(dev, report, scene)
+    line(f"phase serve: done at {time.perf_counter() - t0:.1f} s")
+    kernels = kernels + timed("train", train)
+    timed("capture", capture)
+    timed("options", options)
+    for name, phase in (("sharded", sharded), ("variants", variants), ("fused", fused_phase),
+                        ("probes", probes_phase)):
+        kernels = kernels + timed(name, phase)
+    return kernels
 
 
 def logger(report):
@@ -1631,7 +1688,8 @@ def serve(dev, report):
     # -- K1 and K4 on their edge inputs -----------------------------------
     k1_edges, k4_edges = check_kernel_edges(dev, line)
 
-    pkg = avatar_forward(params, model, {"camera": camera, "lbs": pose(0), "camera_idx": 0})
+    pkg = avatar_forward(params, model, {"camera": camera, "lbs": pose(0), "camera_idx": 0},
+                         training=False)
     colors = torch.cat([pkg["rgb"], pkg["silhouette_rgb"]], -1).contiguous()
     C = colors.shape[-1]
     bin_args = (pkg["means3D"], camera, pkg["cov3D_precomp"], pkg["opacities"], colors, K, DUP)
@@ -2317,22 +2375,9 @@ def train(dev, report, scene):
     }
     bg = random_bg(torch.Generator().manual_seed(2), dev)
     scene.update(batch=batch, bg=bg)
-    _, terms_k, _, grads_k = step.loss_and_grads(params, batch, bg, 0)
-    _, terms_p, _, grads_p = step_plain.loss_and_grads(params, batch, bg, 0)
-    sync(dev)
-    term_err = {}
-    for k, v in terms_p.items():
-        a, c = float(terms_k[k].detach()), float(v.detach())
-        term_err[k] = abs(a - c) / max(abs(c), 1e-30)
-    leaf_err = [rel_l2(a, c) for a, c in zip(grads_k, grads_p)]
-    worst = int(np.argmax(leaf_err))
-    line(f"one step, kernels vs plain at full width: terms rel {term_err}; gradients over "
-         f"{len(leaf_err)} leaves rel_l2 max {leaf_err[worst]:.3e} (leaf {worst}, "
-         f"{tuple(grads_p[worst].shape)}), median {float(np.median(leaf_err)):.3e}")
-    check(all(e <= TERM_RTOL for e in term_err.values()), f"step: a loss term off by > {TERM_RTOL}")
-    check(all(bool(torch.isfinite(gk).all()) for gk in grads_k), "step: non-finite gradient")
-    check(leaf_err[worst] <= GRAD_REL_L2, f"step: a gradient leaf off by rel L2 > {GRAD_REL_L2}")
-    del grads_k, grads_p, step_plain
+    held = hold_step(line, "training", step, step_plain, params, batch, bg, 0)
+    term_err, leaf_err = held["terms_rel"], held["grad_rel_l2"]
+    del step_plain
 
     # -- the training path: 10 steps ---------------------------------------
     gen = torch.Generator().manual_seed(3)
@@ -2424,14 +2469,114 @@ def train(dev, report, scene):
     return kernels
 
 
+def hold_step(line, label, step, step_plain, params, batch, bg, it, noise=None, new_leaves=None):
+    """One training step, kernels against plain: the loss terms (TERM_RTOL),
+    then every parameter leaf's gradient (GRAD_REL_L2) with both backward
+    passes fed the kernel path's image cotangent. The L1 terms' sign flips
+    where a pixel of the two paths' images (which agree to rounding) lies
+    on either side of its target; both sides are valid subgradients, and
+    one flipped pixel can move a garment whose gradient comes from few
+    pixels (a mostly hidden one) by more than GRAD_REL_L2. So the flips are
+    counted (their share held to FLIP_MAX, as the image's), the plain
+    gradient is retargeted onto the kernel's image cotangent (the plain
+    graph's VJP of the difference added), and the raw worst leaf is
+    printed beside (and held to GRAD_REL_L2 where no sign flipped). Each
+    subtree of `new_leaves` (name -> subtree of params) must have a
+    finite, nonzero gradient. Returns the report entry."""
+    leaves = tree_leaves(params)
+    sides = {}
+    with full_float32():
+        for name, st in (("kernel", step), ("plain", step_plain)):
+            loss, terms, aux = st.loss_and_aux(params, batch, bg, it, noise)
+            # (a detached silhouette pass carries no gradient)
+            imgs = tuple(aux[k] for k in ("pred_image", "pred_silhouette") if aux[k].requires_grad)
+            g_img = torch.autograd.grad(loss, imgs, retain_graph=True)
+            grads = torch.autograd.grad(loss, leaves, retain_graph=True, materialize_grads=True)
+            sides[name] = (terms, aux, imgs, g_img, grads)
+        terms_k, aux_k, _, g_img_k, grads_k = sides["kernel"]
+        terms_p, aux_p, imgs_p, g_img_p, grads_raw = sides["plain"]
+        shift = torch.autograd.grad(imgs_p, leaves, grad_outputs=[a - b for a, b in zip(
+            g_img_k, g_img_p)], materialize_grads=True)
+        grads_p = [a + b for a, b in zip(grads_raw, shift)]
+    sync(batch["image"].device)
+    # the L1 terms' sign flips: elements whose (image - target) signs differ
+    flips = n_el = 0
+    for key, gt in (("pred_image", "gt_image"), ("pred_silhouette", "gt_silhouette")):
+        dk = torch.sign(aux_k[key].detach() - aux_k[gt])
+        dp = torch.sign(aux_p[key].detach() - aux_p[gt])
+        flips += int((dk != dp).sum())
+        n_el += dk.numel()
+    term_err = {k: abs(float(terms_k[k].detach()) - float(v.detach()))
+                / max(abs(float(v.detach())), 1e-30) for k, v in terms_p.items()}
+    leaf_err = [rel_l2(a, c) for a, c in zip(grads_k, grads_p)]
+    raw_err = [rel_l2(a, c) for a, c in zip(grads_k, grads_raw)]
+    worst, raw_worst = int(np.argmax(leaf_err)), int(np.argmax(raw_err))
+    by_id = {id(t): g for t, g in zip(leaves, grads_k)}
+    new = {}
+    for key, sub in (new_leaves or {}).items():
+        gs = [by_id[id(t)] for t in tree_leaves(sub)]
+        new[key] = max(float(g.abs().max()) for g in gs)
+        check(all(bool(torch.isfinite(g).all()) for g in gs),
+              f"{label}: non-finite gradient in {key}")
+    h, w = batch["image"].shape[1:]
+    line(f"{label}, one step kernels vs plain ({h} x {w}, iteration {it}): terms "
+         + ", ".join(f"{k} {float(terms_k[k].detach()):.6g} (rel {e:.2e})"
+                     for k, e in term_err.items())
+         + f"; L1 sign flips {flips} of {n_el} image elements; gradients over {len(leaf_err)} "
+         f"leaves, on the kernel's image cotangent, rel_l2 max {leaf_err[worst]:.3e} (leaf "
+         f"{worst}, {tuple(grads_p[worst].shape)}), median {float(np.median(leaf_err)):.3e}; "
+         f"raw rel_l2 max {raw_err[raw_worst]:.3e} (leaf {raw_worst})"
+         + (f"; new leaves' max |grad| {new}" if new else ""))
+    check(set(terms_k) == set(terms_p), f"{label}: the term sets differ")
+    check(all(e <= TERM_RTOL for e in term_err.values()),
+          f"{label}: a loss term off by > {TERM_RTOL}: {term_err}")
+    check(flips <= FLIP_MAX * n_el, f"{label}: {flips} L1 sign flips, over {FLIP_MAX} of the image")
+    check(all(bool(torch.isfinite(g).all()) for g in grads_k), f"{label}: non-finite gradient")
+    check(leaf_err[worst] <= GRAD_REL_L2,
+          f"{label}: a gradient leaf off by rel L2 {leaf_err[worst]:.3e} > {GRAD_REL_L2}")
+    check(flips > 0 or raw_err[raw_worst] <= GRAD_REL_L2,
+          f"{label}: no L1 sign flip, and a raw gradient leaf off by rel L2 "
+          f"{raw_err[raw_worst]:.3e} > {GRAD_REL_L2}")
+    check(all(v > 0 for v in new.values()), f"{label}: a new leaf's gradient is 0: {new}")
+    return {"terms": {k: float(v.detach()) for k, v in terms_k.items()}, "terms_rel": term_err,
+            "l1_sign_flips": flips, "grad_rel_l2": leaf_err, "raw_grad_rel_l2": raw_err,
+            "new_leaf_max_grad": new}
+
+
+def run_steps(line, label, report, step, params, batch, gen, it, n, per_step=(1, 1, 1, 1)):
+    """n steps on the kernels after a warm-up, the launch counts reset
+    just before: K1-K4 `per_step` times a step and no design before;
+    ms/step and a profile (device busy ms, kernels a step)."""
+    dev = batch["image"].device
+    step(params, batch, gen, it)  # warm-up
+    sync(dev)
+    reset_launch_counts()
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    t0 = time.perf_counter()
+    for i in range(n):
+        _, m = step(params, batch, gen, it + 1 + i)
+        for v in m.values():
+            finite &= torch.isfinite(torch.as_tensor(v, device=dev)).all()
+    sync(dev)
+    step_ms = (time.perf_counter() - t0) * 1e3 / n
+    counts = (extract.launches, blend_ct.launches, blend_ct.bwd_launches, segsum.launches)
+    check(bool(finite), f"{label}: a non-finite loss term")
+    check(counts == tuple(n * k for k in per_step),
+          f"{label}: K1-K4 launches {counts} in {n} steps, not {per_step} a step")
+    check(off_path_launches() == 0, f"{label}: a design before was launched")
+    prof = profile_calls(lambda: step(params, batch, gen, it + n + 1), 3, dev)
+    line(f"{label}: {n} steps, {step_ms:.3f} ms/step; K1-K4 launches {counts} ({report['card']})"
+         + (f"; profiled: {profile_summary(prof, step_ms)}" if prof else ""))
+    return {"step_ms": step_ms, "launches": counts, "profiled": prof}
+
+
 def capture(dev, report, scene):
     """The capture configs' training options at full width (the serving
     scene, 1024 x 667; `CAPTURE_CONFIGS`): for each config one step's
     loss terms and every gradient leaf with the kernels against the
-    plain versions (TERM_RTOL, GRAD_REL_L2), every leaf the config adds
-    finite and nonzero, then CAPTURE_STEPS steps with the launch counts
-    reset just before (K1-K4 once a step, no design before), ms/step,
-    and a profile (device busy ms, kernels a step)."""
+    plain versions (`hold_step`), every leaf the config adds finite and
+    nonzero, then CAPTURE_STEPS steps (`run_steps`: K1-K4 once a step, no
+    design before, ms/step, a profile)."""
     line = logger(report)
     base = scene["model"]
     n_frames, lbs_dim = base.n_frames, base.cond_dim
@@ -2466,68 +2611,156 @@ def capture(dev, report, scene):
         noise = (random_noise(gen, batch["image"].shape, dev)
                  if needs_noise(params, model.config) else None)
         it = CAPTURE_ITERATION
-        _, terms_k, _, grads_k = step.loss_and_grads(params, batch, bg, it, noise)
-        _, terms_p, _, grads_p = step_plain.loss_and_grads(params, batch, bg, it, noise)
-        sync(dev)
-        term_err = {k: abs(float(terms_k[k].detach()) - float(v.detach()))
-                    / max(abs(float(v.detach())), 1e-30) for k, v in terms_p.items()}
-        leaf_err = [rel_l2(a, c) for a, c in zip(grads_k, grads_p)]
-        worst = int(np.argmax(leaf_err))
-        # the leaves the config adds: finite and nonzero
-        new = {}
-        for key in CAPTURE_LEAVES[name]:
-            idx = [i for i, t in enumerate(tx.leaves)
-                   if any(t is u for u in tree_leaves(params[key]))]
-            new[key] = max(float(grads_k[i].abs().max()) for i in idx)
-            check(all(bool(torch.isfinite(grads_k[i]).all()) for i in idx),
-                  f"capture {name}: non-finite gradient in {key}")
-        h, w = batch["image"].shape[1:]
-        line(f"capture {name}, one step kernels vs plain ({h} x {w}, iteration {it}): terms "
-             + ", ".join(f"{k} {float(terms_k[k].detach()):.6g} (rel {e:.2e})"
-                         for k, e in term_err.items())
-             + f"; gradients over {len(leaf_err)} leaves rel_l2 max {leaf_err[worst]:.3e} (leaf "
-             f"{worst}, {tuple(grads_p[worst].shape)}), median {float(np.median(leaf_err)):.3e}; "
-             f"new leaves' max |grad| {new}")
-        check(set(terms_k) == set(terms_p), f"capture {name}: the term sets differ")
-        check(all(e <= TERM_RTOL for e in term_err.values()),
-              f"capture {name}: a loss term off by > {TERM_RTOL}: {term_err}")
-        check(all(bool(torch.isfinite(g).all()) for g in grads_k),
-              f"capture {name}: non-finite gradient")
-        check(leaf_err[worst] <= GRAD_REL_L2,
-              f"capture {name}: a gradient leaf off by rel L2 {leaf_err[worst]:.3e} > "
-              f"{GRAD_REL_L2}")
-        check(all(v > 0 for v in new.values()),
-              f"capture {name}: a new leaf's gradient is 0: {new}")
-        check(name != "every" or float(terms_k["vgg_loss"].detach()) > 0,
+        out[name] = hold_step(line, f"capture {name}", step, step_plain, params, batch, bg, it,
+                              noise, {key: params[key] for key in CAPTURE_LEAVES[name]})
+        check(name != "every" or out[name]["terms"]["vgg_loss"] > 0,
               "capture every: the VGG term was not counted")
-        del grads_k, grads_p, step_plain
-
-        # -- CAPTURE_STEPS steps on the kernels -------------------------------
-        step(params, batch, gen, it)  # warm-up
-        sync(dev)
-        reset_launch_counts()
-        finite = torch.ones((), dtype=torch.bool, device=dev)
-        t0 = time.perf_counter()
-        for i in range(CAPTURE_STEPS):
-            _, m = step(params, batch, gen, it + 1 + i)
-            for v in m.values():
-                finite &= torch.isfinite(torch.as_tensor(v, device=dev)).all()
-        sync(dev)
-        step_ms = (time.perf_counter() - t0) * 1e3 / CAPTURE_STEPS
-        counts = (extract.launches, blend_ct.launches, blend_ct.bwd_launches, segsum.launches)
-        check(bool(finite), f"capture {name}: a non-finite loss term")
-        check(counts == (CAPTURE_STEPS,) * 4,
-              f"capture {name}: K1-K4 launches {counts}, not one each a step")
-        check(off_path_launches() == 0, f"capture {name}: a design before was launched")
-        prof = profile_calls(lambda: step(params, batch, gen, it + CAPTURE_STEPS + 1), 3, dev)
-        line(f"capture {name}: {CAPTURE_STEPS} steps, {step_ms:.3f} ms/step; K1-K4 launches "
-             f"{counts} ({report['card']})"
-             + (f"; profiled: {profile_summary(prof, step_ms)}" if prof else ""))
-        out[name] = {"terms": {k: float(v.detach()) for k, v in terms_k.items()},
-                     "terms_rel": term_err, "grad_rel_l2": leaf_err, "new_leaf_max_grad": new,
-                     "step_ms": step_ms, "launches": counts, "profiled": prof}
+        del step_plain
+        out[name].update(run_steps(line, f"capture {name}", report, step, params, batch, gen, it,
+                                   CAPTURE_STEPS))
         del params, tx, step
     report["capture"] = out
+    return out
+
+
+def option_model(name, base, batch, dev):
+    """The model of OPTION_CONFIGS[name] on the serving scene and its
+    batch: the serving cages (RGB or SH colours); or 3 mesh garments of
+    N_PER_GARMENT Gaussians each on the surfaces of the serving cages'
+    cubes (res CAGE_RES), skinned by the serving skeleton; or the serving
+    cages as body, upper and face with Goliath's 104-wide pose (cond_dim
+    98; the pose closures read the skeleton's own values, the first
+    lbs_dim), each cage's nodes mapped one to one onto a seeded body
+    template for the AO decoder, seeded face keypoints for the face
+    decoder, whose embedding conditions the garment named "face"."""
+    config = dict(base.config, **OPTION_CONFIGS[name])
+    model = base._replace(config=config)
+    if name == "mesh":
+        skel = toy_skeleton(4, 0, device=dev)
+        garments = []
+        for i, g in enumerate(base.garments):
+            geom, pose_verts, _ = mesh_garment_from_cube(
+                n_gaussians=N_PER_GARMENT, seed=i, center=(0.15 * i, 0.1 * i, 5.0 + 0.3 * i),
+                size=1.0 + 0.2 * i, res=CAGE_RES, skel=skel, device=dev)
+            garments.append(g._replace(geometry=geom, pose_nodes=pose_verts, primitive="mesh"))
+        return model._replace(garments=tuple(garments)), batch
+    if name != "ao_face":
+        return model, batch
+    hg = torch.Generator().manual_seed(13)
+    width = base.cond_dim
+
+    def narrow(pose_nodes):
+        return lambda b, delta=None: pose_nodes(dict(b, lbs=b["lbs"][:width]), delta)
+
+    garments = tuple(
+        g._replace(name=nm, pose_nodes=narrow(g.pose_nodes), geometry=g.geometry._replace(
+            cage_to_body_vertex=torch.arange(g.geometry.cage_points.shape[0], device=dev)))
+        for nm, g in zip(("body", "upper", "face"), base.garments))
+    n_body = max(int(g.geometry.cage_points.shape[0]) for g in garments)
+    lbs = torch.cat([batch["lbs"], (torch.randn(LBS_WIDE - width, generator=hg) * 0.1).to(dev)])
+    batch = dict(batch, lbs=lbs,
+                 template_pe=positional_encoding(torch.randn(n_body, 3, generator=hg).to(dev), 7),
+                 face_kpt_canonical=torch.randn(config["n_valid_kpts"], 3, generator=hg).to(dev))
+    return model._replace(garments=garments, cond_dim=LBS_WIDE - 6), batch
+
+
+def option_leaves(name, params):
+    """The subtrees of params that OPTION_CONFIGS[name] adds, each of
+    whose gradients must be finite and nonzero."""
+    gs = params["garments"]
+    if name == "shs":
+        return {f"{g}/{k}": gs[g][k] for g in gs for k in ("features_dc", "features_rest",
+                                                           "opacities")}
+    if name == "mesh":
+        return {f"{g}/{k}": v for g in gs for k, v in gs[g].items()}
+    if name == "ao_face":
+        return {k: params[k] for k in ("shadow_decoder", "face_decoder")}
+    return {}
+
+
+def check_accum(line, step, tx, params, batch, gen, it):
+    """grad_accum 2: after the first micro-step the parameters are
+    unchanged, bit for bit (and Adam holds no state); after the second
+    they equal one update (a TreeAdam without accumulation) from the mean
+    of the same two gradient trees, g1 + (g2 - g1) / 2, within ACCUM_REL
+    per leaf."""
+    before = tree_map(lambda t: t.detach().clone(), params)
+    _, _, _, g1 = step.loss_and_grads(params, batch, random_bg(gen, batch["image"].device), it)
+    check(tx.step(g1) is None, "accum: the first micro-step made an update")
+    unchanged = all(torch.equal(a.detach(), b) for a, b in zip(tx.leaves, tree_leaves(before)))
+    check(unchanged and not tx.opt.state, "accum: micro-step 1 changed a parameter or Adam")
+    _, _, _, g2 = step.loss_and_grads(params, batch, random_bg(gen, batch["image"].device), it + 1)
+    check(tx.step(g2) is not None, "accum: the second micro-step made no update")
+    ref_params = tree_map(torch.clone, before)
+    ref = make_optimizer(ref_params, lr_tree_from_config(ref_params))
+    ref.step([a + (b - a) / 2.0 for a, b in zip(g1, g2)])  # the mean as optax.MultiSteps forms it
+    errs = [rel_l2(a.detach(), b.detach()) for a, b in zip(tx.leaves, ref.leaves)]
+    rel = max(errs)
+    moved = max(float((a.detach() - b).abs().max()) for a, b in zip(tx.leaves, tree_leaves(before)))
+    line(f"accum: micro-step 1 left every parameter bit-equal; after micro-step 2 the "
+         f"parameters against one update from the mean gradient: rel_l2 max {rel:.3e} (moved "
+         f"by at most {moved:.3e})")
+    check(rel <= ACCUM_REL, f"accum: rel L2 {rel:.3e} > {ACCUM_REL} from the mean's update")
+    check(moved > 0, "accum: the second micro-step did not move the parameters")
+    return {"rel_l2_vs_mean_update": rel, "moved_max_abs": moved}
+
+
+def check_eval_layer(line, base, batch, dev):
+    """eval_layer of the "upper" garment: its N_PER_GARMENT Gaussians,
+    and its image (the serving raster on the kernels) bit-equal to that
+    of a model of that garment alone."""
+    model = base._replace(config=dict(base.config, **TRAIN_CONFIG))
+    params = init_avatar(torch.Generator().manual_seed(0), model)
+    b = {"camera": batch["camera"], "lbs": batch["lbs"], "camera_idx": 0}
+    with torch.no_grad():
+        pkg = eval_layer(params, model, b, ["upper"])
+        alone = model._replace(garments=tuple(g for g in model.garments if g.name == "upper"))
+        img = draw(pkg, batch["camera"], K)[0]
+        img_alone = draw(avatar_forward(params, alone, b, training=False), batch["camera"], K)[0]
+    sync(dev)
+    n, equal = int(pkg["means3D"].shape[0]), bool(torch.equal(img, img_alone))
+    line(f"eval_layer(['upper']): {n} Gaussians; image bit-equal to the garment alone: {equal}")
+    check(n == N_PER_GARMENT, f"eval_layer: {n} Gaussians, not {N_PER_GARMENT}")
+    check(equal, "eval_layer: the image differs from the garment's alone")
+    return {"n_gaussians": n, "image_bit_equal": equal}
+
+
+def options(dev, report, scene):
+    """The model's and the step's options at full width (the serving
+    scene, 1024 x 667, `TRAIN_CONFIG`; `OPTION_CONFIGS`): SH colours at
+    degree 3 (two passes, C 3), the silhouette pass detached, the mesh
+    primitive, the AO and face decoders, gradient accumulation. For each
+    one step's loss terms and every gradient leaf, kernels vs plain
+    (`hold_step`), every leaf the option adds finite and nonzero, then
+    OPTION_STEPS steps (`run_steps`) with K1-K4 launched as
+    OPTION_LAUNCHES says; `check_accum` and `check_eval_layer`."""
+    line = logger(report)
+    base = scene["model"]
+    out = {"eval_layer": check_eval_layer(line, base, scene["batch"], dev)}
+    for name in OPTION_CONFIGS:
+        model, batch = option_model(name, base, dict(scene["batch"], frame_idx=1, camera_idx=1),
+                                    dev)
+        params = init_avatar(torch.Generator().manual_seed(0), model)
+        it = OPTION_ITERATION
+        kw = dict(max_per_tile=K, loss_weights=LossWeights(enable_vgg_from=0),
+                  detach_silhouette=OPTION_DETACH.get(name, ()),
+                  sh_degree=min(it // 1000, model.config.get("max_sh_degree", 0)))
+        tx = make_optimizer(params, lr_tree_from_config(params),
+                            grad_accum=OPTION_GRAD_ACCUM.get(name, 1))
+        step = make_train_step(model, tx, **kw)
+        step_plain = make_train_step(model, tx, plain=True, **kw)
+        gen = torch.Generator().manual_seed(14)
+        label = f"option {name} (sh_degree {kw['sh_degree']})" if name == "shs" else \
+            f"option {name}"
+        out[name] = hold_step(line, label, step, step_plain, params, batch, random_bg(gen, dev),
+                              it, new_leaves=option_leaves(name, params))
+        del step_plain
+        if name == "accum":
+            out[name].update(check_accum(line, step, tx, params, batch, gen, it))
+        out[name].update(run_steps(line, label, report, step, params, batch, gen, it,
+                                   OPTION_STEPS, OPTION_LAUNCHES[name]))
+        del params, tx, step
+    report["options"] = out
     return out
 
 

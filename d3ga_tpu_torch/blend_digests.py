@@ -67,7 +67,8 @@ def frame0(dev):
     model, camera, pose = serving_scene(cs.N_GARMENTS, cs.N_PER_GARMENT, cs.CAGE_RES, cs.WIDTH,
                                         cs.HEIGHT, dev)
     params = init_avatar(torch.Generator().manual_seed(0), model)
-    pkg = avatar_forward(params, model, {"camera": camera, "lbs": pose(0), "camera_idx": 0})
+    pkg = avatar_forward(params, model, {"camera": camera, "lbs": pose(0), "camera_idx": 0},
+                         training=False)
     colors = torch.cat([pkg["rgb"], pkg["silhouette_rgb"]], -1).contiguous()
     return camera, pkg["means3D"], pkg["cov3D_precomp"], pkg["opacities"], colors
 

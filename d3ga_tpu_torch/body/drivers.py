@@ -1,7 +1,7 @@
 """Body drivers (counterpart of d3ga_tpu/body/drivers.py). Only the
 camera transform of the SMPL-X driver is ported so far, the piece the
 optimizable global rotation / translation needs; the drivers themselves
-wait for the capture data (ROADMAP.md, queue 7).
+wait for the capture data (ROADMAP.md, queue 1: 'Capture and geometry prep').
 """
 
 import torch

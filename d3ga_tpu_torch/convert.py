@@ -1,6 +1,8 @@
 """Carry parameters and geometry across from the JAX package.
 
-The JAX package's parameter trees and geometry buffers are plain arrays;
+The JAX package's parameter trees (any of its options: SH coefficients,
+the shadow and face decoders, mesh garments) and geometry buffers (cage
+or mesh) are plain arrays;
 once turned into numpy (`jax.tree_util.tree_map(np.asarray, params)`,
 `geometry._asdict()`), these functions give the port's equivalents, so
 both packages can be run on identical weights and identical cages (the
@@ -19,9 +21,11 @@ import torch
 
 from d3ga_tpu_torch.body.lbs import MomentumSkeleton
 from d3ga_tpu_torch.model.cage_model import CageGeometry
+from d3ga_tpu_torch.model.mesh_model import MeshGeometry
 from d3ga_tpu_torch.utils.tree import tree_map
 
-_INDEX_FIELDS = {"tetras", "triangles", "tetra_id", "cage_to_body_vertex", "skin_indices"}
+_INDEX_FIELDS = {"tetras", "triangles", "tetra_id", "cage_to_body_vertex", "skin_indices",
+                 "faces", "init_face_ids"}
 
 
 def _tensor(a, device, index=False):
@@ -63,10 +67,24 @@ def geometry_from_numpy(
     optionally, the skeleton bound to that cage (MomentumSkeleton field
     name -> array) -> (CageGeometry, MomentumSkeleton or None).
     Index buffers become int64; `joint_parents` stays on the host."""
-    geom = CageGeometry(
+    return _geometry(CageGeometry, geometry, skeleton, device)
+
+
+def mesh_geometry_from_numpy(
+    geometry: Mapping[str, Any],
+    skeleton: Optional[Mapping[str, Any]] = None,
+    device="cuda",
+):
+    """`geometry_from_numpy` for a MeshGeometry's buffers -> (MeshGeometry,
+    MomentumSkeleton or None); faces and init_face_ids become int64."""
+    return _geometry(MeshGeometry, geometry, skeleton, device)
+
+
+def _geometry(cls, geometry, skeleton, device):
+    geom = cls(
         **{
             f: None if geometry.get(f) is None else _tensor(geometry[f], device, f in _INDEX_FIELDS)
-            for f in CageGeometry._fields
+            for f in cls._fields
         }
     )
     if skeleton is None:

@@ -1,6 +1,7 @@
-"""Synthetic scenes: tetrahedralized-cube cages skinned by a toy chain
-skeleton (counterpart of d3ga_tpu/data/synthetic.py) — the avatar the
-serving smoke run and the tests render, no capture data needed.
+"""Synthetic scenes: tetrahedralized-cube cages (or cube-surface meshes)
+skinned by a toy chain skeleton, and checkerboard targets (counterpart
+of d3ga_tpu/data/synthetic.py) — the avatar the serving smoke run and
+the tests render, no capture data needed.
 """
 
 from typing import Optional, Sequence, Tuple
@@ -12,6 +13,8 @@ from d3ga_tpu_torch.body.lbs import MomentumSkeleton, skin_points, solve_skeleto
 from d3ga_tpu_torch.geometry.sampling import sample_initial_gaussians
 from d3ga_tpu_torch.model.avatar import AvatarModel, GarmentSpec
 from d3ga_tpu_torch.model.cage_model import CageGeometry, build_cage_geometry
+from d3ga_tpu_torch.model.mesh_model import MeshGeometry
+from d3ga_tpu_torch.ops.quaternion import matrix_to_quat
 from d3ga_tpu_torch.raster.camera import focal2fov, make_camera
 
 CUBE_TETS = np.array(
@@ -123,8 +126,15 @@ def toy_skeleton(n_joints=4, seed=0, device="cuda") -> MomentumSkeleton:
 def bind_cage_skeleton(geometry: CageGeometry, skel: MomentumSkeleton, n_weights=8) -> MomentumSkeleton:
     """Bind the cage nodes to the skeleton with inverse-square distance
     weights over the nearest joints (host numpy, float64)."""
-    device = geometry.cage_points.device
-    nodes = geometry.cage_points.cpu().numpy()
+    return bind_points_skeleton(geometry.cage_points, skel, n_weights)
+
+
+def bind_points_skeleton(points: torch.Tensor, skel: MomentumSkeleton, n_weights=8):
+    """Bind points [V, 3] (cage nodes, mesh vertices) to the skeleton with
+    inverse-square distance weights over the nearest joints; the points
+    become its template."""
+    device = points.device
+    nodes = points.cpu().numpy()
     joints = skel.bind_state[:, 0:3].cpu().numpy()
     d = np.linalg.norm(nodes[:, None] - joints[None], axis=-1) + 1e-4
     k = min(n_weights, joints.shape[0])
@@ -135,7 +145,7 @@ def bind_cage_skeleton(geometry: CageGeometry, skel: MomentumSkeleton, n_weights
     return skel._replace(
         skin_weights=torch.as_tensor(np.pad(w, ((0, 0), (0, pad))).astype(np.float32), device=device),
         skin_indices=torch.as_tensor(np.pad(idx, ((0, 0), (0, pad))), dtype=torch.int64, device=device),
-        template_verts=geometry.cage_points,
+        template_verts=points,
     )
 
 
@@ -249,3 +259,55 @@ def orbit_camera(angle, w, h, radius=5.0, focal=None, center=(0.0, 0.0, 5.0), de
     R = np.stack([right, up2, fwd], axis=1)  # camera-to-world
     T = -R.T @ eye
     return make_camera(R, T, focal2fov(focal, w), focal2fov(focal, h), w, h, device=device)
+
+
+def checkerboard(h, w, cells=8, device="cuda"):
+    """A [3, h, w] target: a cells x cells checkerboard, its complement and
+    a constant 0.5."""
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    board = ((ys // (h // cells) + xs // (w // cells)) % 2).astype(np.float32)
+    img = np.stack([board, 1.0 - board, 0.5 * np.ones_like(board)], axis=0)
+    return torch.as_tensor(img, device=device)
+
+
+def synthetic_batch(camera, lbs_dim, h, w, frame_idx=0, camera_idx=0, gen=None):
+    """A training batch on the camera's device: a pose drawn from `gen`
+    (default: a generator seeded with frame_idx), N(0, 0.1^2) a value, the
+    checkerboard target, full alpha, a 0.5 silhouette."""
+    gen = gen if gen is not None else torch.Generator().manual_seed(frame_idx)
+    device = camera.world_view.device
+    return {
+        "camera": camera,
+        "lbs": (torch.randn(lbs_dim, generator=gen) * 0.1).to(device),
+        "frame_idx": frame_idx,
+        "camera_idx": camera_idx,
+        "image": checkerboard(h, w, device=device),
+        "alpha": torch.ones((1, h, w), device=device),
+        "silhouette": torch.full((3, h, w), 0.5, device=device),
+    }
+
+
+def mesh_garment_from_cube(
+    n_gaussians=64, seed=0, center=(0.0, 0.0, 5.0), size=1.0, res=2,
+    skel: Optional[MomentumSkeleton] = None, device="cuda",
+):
+    """A mesh-primitive garment: Gaussians on the subdivided cube's
+    surface triangles with 3-vertex barycentrics, the vertices skinned
+    by `skel` (default: a 3-joint toy skeleton from the seed) ->
+    (MeshGeometry, pose_verts(batch, delta) closure, skeleton)."""
+    verts, _, faces = subdivided_cube(center, size, res)
+    samples = sample_initial_gaussians(verts, faces, n_gaussians, seed=seed)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    geom = MeshGeometry(
+        template_verts=f32(verts),
+        faces=torch.as_tensor(faces.astype(np.int64), device=device),
+        init_face_ids=torch.as_tensor(samples["face_ids"].astype(np.int64), device=device),
+        init_barys=f32(samples["tri_barys"]),
+        init_points=f32(samples["points"]),
+        init_rotations=matrix_to_quat(f32(samples["rotations"])),
+    )
+    skel = skel if skel is not None else toy_skeleton(3, seed, device=device)
+    return geom, skinned_pose_fn(bind_points_skeleton(geom.template_verts, skel)), skel

@@ -7,6 +7,11 @@ from d3ga_tpu_torch.fields.mlp import (  # noqa: F401
     canonical_field,
     init_color_field,
     color_field,
+    init_face_decoder,
+    face_decoder,
+    init_shadow_decoder,
+    shadow_decoder,
+    get_cond_size,
 )
 from d3ga_tpu_torch.fields.embeddings import (  # noqa: F401
     init_embedding,

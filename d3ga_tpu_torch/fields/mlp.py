@@ -137,3 +137,34 @@ def color_field(
     rgb = torch.sigmoid(pred[:, 0:3])
     opacity = torch.sigmoid(0.1 + pred[:, 3:4])
     return rgb, opacity
+
+
+# FaceDecoder: flattened face keypoints -> face embedding.
+def init_face_decoder(gen, n_valid_kpts, n_hidden=128, n_layers=3, n_output=128, device="cuda"):
+    return init_mlp(gen, n_valid_kpts * 3, n_hidden, n_layers, n_output, device=device)
+
+
+def face_decoder(params, kpt):
+    return apply_mlp(params, kpt.reshape(-1))
+
+
+# ShadowDecoder: pose[6:] + PE(template verts) -> per-vertex AO in [0, 1].
+# As the JAX package's: its input is 98 pose values wide by default and
+# it drops the first 6 pose values, Goliath's 104-wide momentum pose,
+# whatever the model's cond_dim.
+def init_shadow_decoder(gen, cond_dim=98, n_hidden=128, n_layers=3, device="cuda"):
+    return init_mlp(gen, cond_dim + posenc_dim(3, 7), n_hidden, n_layers, 1, device=device)
+
+
+def shadow_decoder(params, pose, embedded_template):
+    P = embedded_template.shape[0]
+    z = torch.cat([_tile(pose[6:], P), embedded_template], -1)
+    return torch.sigmoid(apply_mlp(params, z))
+
+
+def get_cond_size(config) -> int:
+    """Pose-conditioning width: SMPL-X 87, SMPL 72, Goliath's momentum
+    pose 98 (104 values less the 6 of the root)."""
+    if config.get("is_smpl_body", False):
+        return {"smplx": 66 + 12 + 9, "smpl": 72}[config.get("model_type", "smplx")]
+    return 98

@@ -7,7 +7,8 @@
   deformation gradient J = grad(deformed) @ grad(canonical)^-1 ->
   cov3D = J (R S S^T R^T) J^T ->
   Gaussian positions = barycentric blend of the deformed tet corners ->
-  ColorField RGB/opacity + Neo-Hookean / scale regularizers.
+  ColorField RGB/opacity (or SH coefficients) + Neo-Hookean / scale
+  regularizers.
 """
 
 from typing import Callable, NamedTuple, Optional
@@ -17,9 +18,17 @@ import torch
 
 from d3ga_tpu_torch.fields import mlp as F
 from d3ga_tpu_torch.geometry.tet import barycentric_blend, fem_energy, tet_gradient
-from d3ga_tpu_torch.ops.covariance import covariance_from_scaling_rotation, strip_symmetric
+from d3ga_tpu_torch.ops.covariance import (covariance_from_scaling_rotation, inverse_sigmoid,
+                                           strip_symmetric)
 from d3ga_tpu_torch.ops.knn import knn_mean_sq_dist
 from d3ga_tpu_torch.ops.quaternion import matrix_to_quat, quat_normalize
+
+SILHOUETTE_COLORS = {
+    "red": (1.0, 0.0, 0.0),
+    "green": (0.0, 1.0, 0.0),
+    "blue": (0.0, 0.0, 1.0),
+    "gray": (0.5, 0.5, 0.5),
+}
 
 
 class CageGeometry(NamedTuple):
@@ -39,7 +48,8 @@ class CageGeometry(NamedTuple):
 
 
 def build_cage_geometry(
-    cage_points, tetras, triangles, sample_points, sample_rotations, device="cuda"
+    cage_points, tetras, triangles, sample_points, sample_rotations, cage_to_body_vertex=None,
+    device="cuda",
 ) -> CageGeometry:
     """Host-side assembly: embeds the sampled Gaussians into tets and
     caches the inverse canonical gradients."""
@@ -71,6 +81,7 @@ def build_cage_geometry(
         dn_inv=f32(dn_inv),
         init_points=f32(sample_points),
         init_rotations=rots.to(device),
+        cage_to_body_vertex=None if cage_to_body_vertex is None else i64(cage_to_body_vertex),
     )
 
 
@@ -79,13 +90,16 @@ def init_cage_params(
     geometry: CageGeometry,
     cond_dim: int,
     n_color_features: int = 64,
+    use_shs: bool = False,
+    max_sh_degree: int = 3,
     color_in_dim: Optional[int] = None,
     deform_cfg=None,
     canon_cfg=None,
     color_cfg=None,
 ):
     """Learned per-cage parameters, drawn from the host generator `gen`
-    and placed on the geometry's device."""
+    and placed on the geometry's device; with use_shs also the SH
+    colours' coefficients (degree max_sh_degree) and opacities."""
     deform_cfg = deform_cfg or {}
     canon_cfg = canon_cfg or {}
     color_cfg = color_cfg or {}
@@ -94,7 +108,7 @@ def init_cage_params(
 
     dist2 = knn_mean_sq_dist(geometry.init_points, k=3)
     scales = torch.log(torch.sqrt(dist2))[:, None].repeat(1, 3)
-    return {
+    params = {
         "colors_feat": (torch.rand(n, n_color_features, generator=gen) * 0.33).to(device),
         "rotation": geometry.init_rotations.clone(),
         "scaling": scales,
@@ -120,6 +134,13 @@ def init_cage_params(
             device=device,
         ),
     }
+    if use_shs:
+        shs0 = torch.rand(n, 3, generator=gen) / 255.0
+        k_sh = (max_sh_degree + 1) ** 2
+        params["opacities"] = inverse_sigmoid(0.2 * torch.ones(n, 1)).to(device)
+        params["features_dc"] = shs0[:, None, :].to(device)  # [N, 1, 3]
+        params["features_rest"] = torch.zeros(n, k_sh - 1, 3, device=device)
+    return params
 
 
 def cage_forward(
@@ -142,12 +163,11 @@ def cage_forward(
     use_view_enc: bool = True,
 ):
     """One garment forward. pose_nodes(delta) -> [V, 3] posed cage nodes
-    (delta applied before LBS; None poses the raw template). Returns the
-    garment package dict."""
-    if use_shs:
-        raise NotImplementedError("SH colours: ROADMAP queue 1, model forward")
-    if pred_ao is not None:
-        raise NotImplementedError("AO shadow decoder: ROADMAP queue 1, model forward")
+    (delta applied before LBS; None poses the raw template). pred_ao: [B]
+    per-body-vertex AO, blended to the Gaussians through the cage's
+    `cage_to_body_vertex` as the colour field's shadow input. use_shs
+    returns SH coefficients ("shs") and learned opacities, and no "rgb".
+    Returns the garment package dict."""
     input_nodes = pose_nodes(None)
 
     delta_node = F.deformation_field(
@@ -181,24 +201,36 @@ def cage_forward(
     dirs = means3d - camera_center.detach()[None]
     viewdirs = dirs / torch.clamp(torch.linalg.norm(dirs, dim=-1, keepdim=True), min=1e-12)
 
+    shadow = None
+    if pred_ao is not None and geometry.cage_to_body_vertex is not None:
+        ao_nodes = pred_ao[geometry.cage_to_body_vertex][:, None]  # [V, 1]
+        ao_per_g = ao_nodes[geometry.tetras][geometry.tetra_id]  # [N, 4, 1]
+        shadow = torch.einsum("nkj,nk->nj", ao_per_g, canon_barys)
+
     n = means3d.shape[0]
     sil = means3d.new_tensor(silhouette_color).expand(n, 3)
-    rgb, opacities = F.color_field(
-        params["color_field"],
-        params["colors_feat"],
-        pose=cond_color,
-        viewdirs=viewdirs,
-        frame_encoding=frame_encoding,
-        camera_encoding=camera_encoding,
-        use_pose=use_pose,
-        use_view_enc=use_view_enc,
-    )
+    shs = rgb = None
+    if use_shs:
+        shs = torch.cat([params["features_dc"], params["features_rest"]], dim=1)
+        opacities = torch.sigmoid(params["opacities"])
+    else:
+        rgb, opacities = F.color_field(
+            params["color_field"],
+            params["colors_feat"],
+            pose=cond_color,
+            viewdirs=viewdirs,
+            frame_encoding=frame_encoding,
+            camera_encoding=camera_encoding,
+            shadow=shadow,
+            use_pose=use_pose,
+            use_view_enc=use_view_enc,
+        )
     if geometry.gaussian_valid is not None:
         opacities = opacities * geometry.gaussian_valid[:, None]
 
     canon_per_g = geometry.cage_points[geometry.tetras][geometry.tetra_id]
     return {
-        "shs": None,
+        "shs": shs,
         "rgb": rgb,
         "opacities": opacities,
         "cov3D_precomp": strip_symmetric(cov3d),

@@ -12,6 +12,13 @@ from d3ga_tpu_torch.ops.covariance import (  # noqa: F401
     unstrip_symmetric,
     inverse_sigmoid,
 )
-from d3ga_tpu_torch.ops.sh import eval_sh, sh_basis, sh_encoding  # noqa: F401
+from d3ga_tpu_torch.ops.sh import (  # noqa: F401
+    eval_sh,
+    rgb_to_sh,
+    rotate_sh,
+    sh_basis,
+    sh_encoding,
+    sh_to_rgb,
+)
 from d3ga_tpu_torch.ops.posenc import positional_encoding, posenc_dim  # noqa: F401
 from d3ga_tpu_torch.ops.knn import knn_mean_sq_dist  # noqa: F401

@@ -1,6 +1,6 @@
-"""Real spherical harmonics evaluation, degree <= 4 (counterpart of
-d3ga_tpu/ops/sh.py: `sh_basis`, `eval_sh`, `sh_encoding`). Band
-constants and ordering follow the 3DGS CUDA computeColorFromSH.
+"""Real spherical harmonics: evaluation (degree <= 4) and rotation (bands
+<= 2), the counterpart of d3ga_tpu/ops/sh.py. Band constants and
+ordering follow the 3DGS CUDA computeColorFromSH.
 """
 
 import torch
@@ -12,6 +12,14 @@ C2 = (1.0925484305920792, -1.0925484305920792, 0.31539156525252005,
 C3 = (-0.5900435899266435, 2.890611442640554, -0.4570457994644658,
       0.3731763325901154, -0.4570457994644658, 1.445305721320277,
       -0.5900435899266435)
+
+
+def rgb_to_sh(rgb: torch.Tensor) -> torch.Tensor:
+    return (rgb - 0.5) / C0
+
+
+def sh_to_rgb(sh: torch.Tensor) -> torch.Tensor:
+    return sh * C0 + 0.5
 
 
 def sh_basis(dirs: torch.Tensor, degree: int) -> torch.Tensor:
@@ -68,3 +76,54 @@ def sh_encoding(dirs: torch.Tensor) -> torch.Tensor:
     """View-direction encoding: the degree-3 SH basis (16 values) plus the
     raw direction (3) -> [..., 19]."""
     return torch.cat([sh_basis(dirs, 3), dirs], dim=-1)
+
+
+def _rot_band1(R: torch.Tensor) -> torch.Tensor:
+    """The band-1 rotation D1 = M R M^T of a [..., 3, 3] rotation, with M
+    the signed permutation (x, y, z) -> (-y, z, -x) of the band-1 basis:
+    D1 = S (P R P^T) S, P the plain permutation, S = diag(-1, 1, -1)."""
+    P = R.new_tensor([[0.0, 1.0, 0.0], [0.0, 0.0, 1.0], [1.0, 0.0, 0.0]])
+    s = R.new_tensor([-1.0, 1.0, -1.0])
+    return (P @ R @ P.T) * (s[:, None] * s[None, :])
+
+
+def _band2_basis(dirs: torch.Tensor) -> torch.Tensor:
+    x, y, z = dirs[..., 0], dirs[..., 1], dirs[..., 2]
+    return torch.stack(
+        [
+            C2[0] * x * y,
+            C2[1] * y * z,
+            C2[2] * (2.0 * z * z - x * x - y * y),
+            C2[3] * x * z,
+            C2[4] * (x * x - y * y),
+        ],
+        dim=-1,
+    )
+
+
+# five directions whose band-2 basis matrix is well conditioned
+_BAND2_DIRS = ((1.0, 2.0, 3.0), (3.0, 1.0, 2.0), (2.0, 3.0, 1.0), (1.0, -1.0, 2.0),
+               (2.0, 1.0, -1.0))
+
+
+def rotate_sh(sh_coeffs: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
+    """SH coefficients [N, K, C] (K >= 1) rotated by R [3, 3] or [N, 3, 3]:
+    band 0 unchanged, band 1 by D1, band 2 by D2 = B(R d)^T B(d)^-T solved
+    on five sample directions d (exact: band 2 is 5-dimensional), bands
+    >= 3 passed through unchanged."""
+    K = sh_coeffs.shape[-2]
+    if R.ndim == 2:
+        R = R[None]
+    out = [sh_coeffs[..., :1, :]]
+    if K > 1:
+        out.append(_rot_band1(R) @ sh_coeffs[..., 1:4, :])
+    if K > 4:
+        dirs = sh_coeffs.new_tensor(_BAND2_DIRS)
+        dirs = dirs / torch.linalg.vector_norm(dirs, dim=-1, keepdim=True)
+        Binv = torch.linalg.inv(_band2_basis(dirs))  # [5, 5], rows b2(d_i)
+        RB = _band2_basis(torch.einsum("nij,dj->ndi", R, dirs))  # [N, 5, 5]
+        D2 = RB.transpose(-1, -2) @ Binv.T
+        out.append(D2 @ sh_coeffs[..., 4:9, :])
+    if K > 9:
+        out.append(sh_coeffs[..., 9:, :])
+    return torch.cat(out, dim=-2)

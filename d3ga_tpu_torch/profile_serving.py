@@ -53,7 +53,7 @@ def main(argv=None):
         return {"camera": camera, "lbs": pose(i), "camera_idx": 0}
 
     def frame(i):
-        pkg = avatar_forward(params, model, batch(i))
+        pkg = avatar_forward(params, model, batch(i), training=False)
         colors = torch.cat([pkg["rgb"], pkg["silhouette_rgb"]], -1)
         return rasterize_tiled(
             pkg["means3D"], camera, bg, cov3d=pkg["cov3D_precomp"],
@@ -70,7 +70,7 @@ def main(argv=None):
         stages = {"avatar_forward": 0.0, "bin_gaussians": 0.0, "blend_composite": 0.0}
         for i in range(args.frames):
             t0 = time.perf_counter()
-            pkg = avatar_forward(params, model, batch(i))
+            pkg = avatar_forward(params, model, batch(i), training=False)
             colors = torch.cat([pkg["rgb"], pkg["silhouette_rgb"]], -1).contiguous()
             torch.cuda.synchronize()
             t1 = time.perf_counter()

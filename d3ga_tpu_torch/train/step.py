@@ -21,17 +21,17 @@ target and the VGG crop's offsets.
 Ported: the fused branch (RGB and silhouette share one 6-channel raster
 pass, with the model config's `raster_backend` and `raster_opts`: the
 XLA blend or the hand-written kernels, any selection funnel, or the
-fused select + blend kernel), the gt composition with canvas padding
-(`pixel_valid`) and `boundary_fg`, the background network (composited
-through the raster's alpha), learnable blur, the pixel bias, the
-blurred-noise background target (`use_random_bg`, or a bg net before
-`enable_bg`), the optimizable poses and global pose (through
-`resolve_camera`) and the VGG term. Not ported yet, each raising
-NotImplementedError naming its ROADMAP item: the non-fused
-`detach_silhouette` branch (and so SH colours, which need it), the
-banded (sharded) losses and gradient accumulation (`train/optim.py`);
-`make_chained_step` (several steps in one dispatch) is not ported
-either (same item).
+fused select + blend kernel) and the two-pass branch (an image pass, SH
+colours at `sh_degree` where the package has no RGB, then a silhouette
+pass on a zero background with the inputs `detach_silhouette` names
+detached; `("none",)` forces it without detaching), the gt composition
+with canvas padding (`pixel_valid`) and `boundary_fg`, the background
+network (composited through the raster's alpha), learnable blur, the
+pixel bias, the blurred-noise background target (`use_random_bg`, or a
+bg net before `enable_bg`), the optimizable poses and global pose
+(through `resolve_camera`) and the VGG term. The banded (sharded)
+losses (`band_ctx`) raise NotImplementedError naming their ROADMAP item;
+`make_chained_step` (several steps in one dispatch) is not ported.
 """
 
 from typing import Dict, NamedTuple
@@ -42,7 +42,6 @@ from d3ga_tpu_torch.fields.background import (apply_background, blur_noise,
                                               composite_background)
 from d3ga_tpu_torch.fields.blur import apply_learnable_blur, blur_reg
 from d3ga_tpu_torch.fields.pixel_bias import apply_pixel_bias
-from d3ga_tpu_torch.model.avatar import MODEL_TODO as TRAIN_TODO
 from d3ga_tpu_torch.model.avatar import AvatarModel, avatar_forward, resolve_camera
 from d3ga_tpu_torch.raster.tiles import rasterize_tiled, rasterize_tiled_fused
 from d3ga_tpu_torch.train.losses import (full_float32, l1_loss, masked_psnr, masked_ssim, ssim,
@@ -51,6 +50,7 @@ from d3ga_tpu_torch.train.losses import (full_float32, l1_loss, masked_psnr, mas
 # the model config's raster_opts that reach rasterize_tiled: the funnel
 # and its knobs
 RASTER_OPTS = ("coarse", "dup", "depth_exact", "block_cap", "sub_block", "sub_cap", "super_factor")
+BAND_TODO = "not ported yet (ROADMAP.md, queue 1: 'The sharded training step')"
 
 
 class LossWeights(NamedTuple):
@@ -109,12 +109,16 @@ def render_frame(
     vgg_params=None,
     loss_weights: LossWeights = LossWeights(),
     iteration=0,
+    sh_degree: int = 0,
     band_ctx=None,
     plain=False,
     noise=None,
     crop=None,
 ):
-    """Forward + one fused 6-channel rasterization + per-frame loss terms.
+    """Forward + rasterization (one fused 6-channel pass, or an image pass
+    and a silhouette pass where `detach_silhouette` names inputs or the
+    package has SH colours, evaluated at sh_degree) + per-frame loss
+    terms.
 
     bg: [3] background colour, required in training. noise: [3, H, W]
     uniform in [0, 1), required where `needs_noise` (blurred here, as
@@ -126,7 +130,7 @@ def render_frame(
     images and counters)."""
     cfg = model.config
     if band_ctx is not None:
-        raise NotImplementedError(f"banded losses: {TRAIN_TODO}")
+        raise NotImplementedError(f"banded losses: {BAND_TODO}")
     rasterize, opts = _rasterizer(cfg)
 
     batch = dict(batch, iteration=iteration)
@@ -150,19 +154,39 @@ def render_frame(
     if "bg_net" in params:
         bg_map = apply_background(params["bg_net"], cam_idx, camera.height, camera.width)
 
-    if detach_silhouette or pkg.get("rgb") is None:
-        raise NotImplementedError(f"the non-fused silhouette pass: {TRAIN_TODO}")
-    # one fused rasterization with 6 colour channels (RGB + silhouette)
-    colors6 = torch.cat([pkg["rgb"], pkg["silhouette_rgb"]], -1)
-    bg6 = torch.cat([bg, bg.new_zeros(3)])
-    out = rasterize(
-        pkg["means3D"], camera, bg6, cov3d=pkg.get("cov3D_precomp"), scales=pkg.get("scales"),
-        rotations=pkg.get("rotations"), opacities=pkg["opacities"], colors=colors6,
-        max_per_tile=max_per_tile, plain=plain, return_alpha=bg_map is not None, **opts,
-    )
-    both, aux_rgb = out[0], out[-1]
-    pred_image = both[:3]
-    pred_sil = both[3:]
+    kw = dict(max_per_tile=max_per_tile, plain=plain, **opts)
+    if not detach_silhouette and pkg.get("rgb") is not None:
+        # one fused rasterization with 6 colour channels (RGB + silhouette)
+        colors6 = torch.cat([pkg["rgb"], pkg["silhouette_rgb"]], -1)
+        bg6 = torch.cat([bg, bg.new_zeros(3)])
+        out = rasterize(
+            pkg["means3D"], camera, bg6, cov3d=pkg.get("cov3D_precomp"),
+            scales=pkg.get("scales"), rotations=pkg.get("rotations"), opacities=pkg["opacities"],
+            colors=colors6, return_alpha=bg_map is not None, **kw,
+        )
+        pred_image, pred_sil = out[0][:3], out[0][3:]
+    else:
+        out = rasterize(
+            pkg["means3D"], camera, bg, cov3d=pkg.get("cov3D_precomp"), scales=pkg.get("scales"),
+            rotations=pkg.get("rotations"), opacities=pkg["opacities"], colors=pkg["rgb"],
+            shs=pkg["shs"] if pkg.get("rgb") is None else None, sh_degree=sh_degree,
+            return_alpha=bg_map is not None, **kw,
+        )
+        pred_image = out[0]
+        # the silhouette pass, with the named inputs detached (the JAX
+        # package detaches neither scales nor rotations)
+        sil_means, sil_cov, sil_opac = pkg["means3D"], pkg.get("cov3D_precomp"), pkg["opacities"]
+        if "position" in detach_silhouette:
+            sil_means = sil_means.detach()
+        if "covariance" in detach_silhouette and sil_cov is not None:
+            sil_cov = sil_cov.detach()
+        if "opacity" in detach_silhouette:
+            sil_opac = sil_opac.detach()
+        pred_sil = rasterize(
+            sil_means, camera, bg.new_zeros(3), cov3d=sil_cov, scales=pkg.get("scales"),
+            rotations=pkg.get("rotations"), opacities=sil_opac, colors=pkg["silhouette_rgb"], **kw,
+        )[0]
+    aux_rgb = out[-1]
     if bg_map is not None:
         pred_image = composite_background(pred_image, 1.0 - out[1], bg_map, bg)
 
@@ -299,9 +323,12 @@ def make_train_step(
     vgg_params=None,
     loss_weights: LossWeights = LossWeights(),
     plain: bool = False,
+    sh_degree: int = 0,
 ):
     """The single-device training step over the parameters `tx` (a
-    `train.optim.TreeAdam`) was made for:
+    `train.optim.TreeAdam`) was made for, with SH colours evaluated at
+    sh_degree (a step is made per degree, as the JAX package rebuilds its
+    step for `train.py`'s ramp min(iteration // 1000, max_sh_degree)):
 
         step(params, batch, gen, iteration) -> (params, metrics)
 
@@ -312,24 +339,30 @@ def make_train_step(
     tensors (no host sync). `step.loss_and_grads(params, batch, bg,
     iteration, noise=None, crop=None) -> (loss, terms, aux, grads)` is
     the step without the draws and the update (grads in `tx.leaves`
-    order, zeros for unused leaves). plain=True runs the raster kernels'
-    plain versions."""
+    order, zeros for unused leaves); `step.loss_and_aux(...) -> (loss,
+    terms, aux)` the same without the gradients, its graph kept (aux's
+    images are the ones the image losses read). plain=True runs the
+    raster kernels' plain versions."""
+
+    def loss_and_aux(params, batch, bg, iteration, noise=None, crop=None):
+        terms, aux = render_frame(
+            params, model, batch, bg,
+            training=True,
+            max_per_tile=max_per_tile,
+            detach_silhouette=detach_silhouette,
+            vgg_params=vgg_params,
+            loss_weights=loss_weights,
+            iteration=iteration,
+            sh_degree=sh_degree,
+            plain=plain,
+            noise=noise,
+            crop=crop,
+        )
+        return total_loss(terms), terms, aux
 
     def loss_and_grads(params, batch, bg, iteration, noise=None, crop=None):
         with full_float32():
-            terms, aux = render_frame(
-                params, model, batch, bg,
-                training=True,
-                max_per_tile=max_per_tile,
-                detach_silhouette=detach_silhouette,
-                vgg_params=vgg_params,
-                loss_weights=loss_weights,
-                iteration=iteration,
-                plain=plain,
-                noise=noise,
-                crop=crop,
-            )
-            loss = total_loss(terms)
+            loss, terms, aux = loss_and_aux(params, batch, bg, iteration, noise, crop)
             grads = torch.autograd.grad(loss, tx.leaves, materialize_grads=True)
         return loss, terms, aux, grads
 
@@ -349,4 +382,5 @@ def make_train_step(
         return params, metrics
 
     step.loss_and_grads = loss_and_grads
+    step.loss_and_aux = loss_and_aux
     return step

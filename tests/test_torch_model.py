@@ -137,19 +137,25 @@ class TestAvatarForward:
             tout = avatar_forward(
                 tparams, tmodel,
                 {"camera": tcam, "lbs": torch.from_numpy(lbs), "camera_idx": camera_idx},
+                training=False,
             )
         for k, v in jout.items():
             close(tout[k], v)
 
     def test_unported_options_raise(self, avatar_pair):
+        """Every option of the JAX model is ported: use_ao, use_shs and
+        use_face_emb build their leaves (tests/test_torch_model_options.py
+        holds them against JAX); only a primitive other than the cage and
+        the mesh raises, naming the primitive."""
         tmodel = avatar_pair[2]
-        for key in ("use_ao", "use_shs", "use_face_emb"):
-            m = tmodel._replace(config=dict(tmodel.config, **{key: True}))
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                init_avatar(torch.Generator(), m)
-        mesh = tmodel._replace(garments=(tmodel.garments[0]._replace(primitive="mesh"),))
-        with pytest.raises(NotImplementedError, match="mesh"):
-            avatar_forward(avatar_pair[3], mesh, {})
+        for key, leaf in (("use_ao", "shadow_decoder"), ("use_shs", "features_dc"),
+                          ("use_face_emb", "face_decoder")):
+            m = tmodel._replace(config=dict(tmodel.config, n_valid_kpts=4, **{key: True}))
+            p = init_avatar(torch.Generator(), m)
+            assert leaf in p or leaf in p["garments"]["body"], key
+        other = tmodel._replace(garments=(tmodel.garments[0]._replace(primitive="points"),))
+        with pytest.raises(ValueError, match="points"):
+            avatar_forward(avatar_pair[3], other, {})
 
     def test_capture_options_init_like_jax(self, avatar_pair):
         """use_blur, use_pixel_cal, use_bg_network and use_opt_smplx build:

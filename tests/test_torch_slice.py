@@ -70,7 +70,8 @@ def slice_pair():
     def port_frame(lbs):
         with torch.no_grad():
             pkg = avatar_forward(
-                tparams, tmodel, {"camera": tcam, "lbs": torch.from_numpy(lbs), "camera_idx": 0}
+                tparams, tmodel, {"camera": tcam, "lbs": torch.from_numpy(lbs), "camera_idx": 0},
+                training=False,
             )
             return rasterize_tiled(
                 pkg["means3D"], tcam, torch.from_numpy(BG6), cov3d=pkg["cov3D_precomp"],

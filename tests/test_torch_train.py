@@ -240,22 +240,27 @@ def test_step_draws_bg_and_updates(pair):
 
 
 def test_unported_options_raise(pair):
-    """What still waits raises, naming its ROADMAP item; the capture
-    configs' options are ported (tests/test_torch_train_capture.py): a
-    VGG stack before enable_vgg_from adds a zero term without reading the
-    stack, and the noise target asks for its draw."""
+    """What still waits raises, naming its ROADMAP item: the banded
+    losses (band_ctx). The rest is ported: the two-pass silhouette branch
+    (tests/test_torch_train_two_pass.py holds it against JAX) and
+    gradient accumulation (tests/test_torch_grad_accum.py) run; a VGG
+    stack before enable_vgg_from adds a zero term without reading the
+    stack, and the noise target asks for its draw (the capture configs'
+    options, tests/test_torch_train_capture.py)."""
     tm, tp, tb = pair["tmodel"], pair["tparams"], pair["tbatch"]
     bg = torch.zeros(3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render_frame(tp, tm, tb, bg, detach_silhouette=("position",))
+    fused, _ = render_frame(tp, tm, tb, bg)
+    two, _ = render_frame(tp, tm, tb, bg, detach_silhouette=("position",))
+    assert set(two) == set(fused)
+    for k in fused:
+        np.testing.assert_allclose(float(two[k]), float(fused[k]), rtol=1e-5, err_msg=k)
     terms, _ = render_frame(tp, tm, tb, bg, vgg_params={})
     assert float(terms["vgg_loss"]) == 0.0
     with pytest.raises(ValueError, match="noise"):
         render_frame(tp, tm._replace(config=dict(tm.config, use_random_bg=True)), tb, bg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         render_frame(tp, tm, tb, bg, band_ctx=("x", 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_optimizer(tp, lr_tree_from_config(tp), grad_accum=2)
+    assert make_optimizer(fresh(tp), lr_tree_from_config(tp), grad_accum=2).grad_accum == 2
 
 
 def test_embedding_lookup_and_calibration_grad():
